@@ -1,0 +1,41 @@
+"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``), each beside its plain
+PyTorch version.
+
+Dispatch is by device, with no switch: a CPU tensor runs the plain version, a
+CUDA tensor launches the kernel or raises.  ``launch_counts`` holds one plain
+integer per kernel wrapper, raised by one at each launch and nowhere else, so
+a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input"]
+
+_MAX_PLANES = 65535  # the kernels put planes on gridDim.y or gridDim.z
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for any other."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel and no plain path for device {t.device}")
+
+
+def check_kernel_input(name: str, *tensors: torch.Tensor) -> None:
+    """What every launch needs: one CUDA device, contiguous tensors, and at
+    most 65535 planes in the first."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if tensors[0].shape[0] > _MAX_PLANES:
+        raise ValueError(
+            f"{name}: at most {_MAX_PLANES} planes per call, got {tensors[0].shape[0]}")

@@ -1,0 +1,137 @@
+"""Histogram-family kernels on u8 planes, each beside its plain PyTorch version.
+
+* :func:`hist256` — exact per-plane 256-bin histogram (replaces
+  ``imageenhancement_mp_tpu/kernels/hist.py::hist256_pallas``).
+* :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram (the LUT
+  phase of ``equalize_hist_pallas`` and ``ops/histogram.py::equalize_lut``).
+* :func:`apply_lut256` — ``cv2.LUT`` with a u8 table, shared or per plane
+  (replaces ``apply_lut256_pallas`` for u8 tables).
+
+Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel in ``csrc/hist.cu``, any other device raises.  Nothing
+moves a tensor between devices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels._build import launch
+
+__all__ = [
+    "hist256", "hist256_plain",
+    "equalize_lut256", "equalize_lut256_plain",
+    "apply_lut256", "apply_lut256_plain",
+]
+
+
+def _check_u8_planes(planes: torch.Tensor, name: str) -> None:
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"{name} expects uint8 planes, got {planes.dtype}")
+    if planes.dim() < 2:
+        raise ValueError(f"{name} expects [B, H, W] or [B, P] planes, got {tuple(planes.shape)}")
+
+
+# --- hist256 ---------------------------------------------------------------
+
+def hist256_plain(planes: torch.Tensor) -> torch.Tensor:
+    B = planes.shape[0]
+    idx = planes.reshape(B, -1).to(torch.int64)
+    idx = idx + 256 * torch.arange(B, device=planes.device)[:, None]
+    counts = torch.bincount(idx.reshape(-1), minlength=256 * B)
+    return counts.reshape(B, 256).to(torch.int32)
+
+
+def hist256(planes: torch.Tensor) -> torch.Tensor:
+    """Exact per-plane histogram: ``[B, H, W]`` or ``[B, P]`` u8 → ``[B, 256]`` int32."""
+    _check_u8_planes(planes, "hist256")
+    if not on_cuda(planes, "hist256"):
+        return hist256_plain(planes)
+    check_kernel_input("hist256", planes)
+    B = planes.shape[0]
+    n = planes.numel() // B if B else 0
+    if n >= 2**31:
+        raise ValueError(f"hist256: a plane of {n} pixels overflows the int32 counts")
+    out = torch.zeros((B, 256), dtype=torch.int32, device=planes.device)
+    if n:
+        launch("hist256", planes.device, planes.data_ptr(), out.data_ptr(), B, n)
+    return out
+
+
+# --- equalize_lut256 -------------------------------------------------------
+
+def _check_hists(hists: torch.Tensor, total: int) -> None:
+    if hists.dtype != torch.int32 or hists.dim() != 2 or hists.shape[1] != 256:
+        raise TypeError(f"expected [B, 256] int32 histograms, got {hists.dtype} {tuple(hists.shape)}")
+    if not 0 <= total < 2**31:
+        raise ValueError(f"total {total} does not fit the int32 cdf")
+
+
+def equalize_lut256_plain(hists: torch.Tensor, total: int) -> torch.Tensor:
+    cdf = torch.cumsum(hists, dim=1)
+    # i0 (the first nonzero bin) = the count of bins whose cdf is still 0;
+    # cdf[i0] is then hist[i0]
+    i0 = (cdf == 0).sum(dim=1, keepdim=True).clamp(max=255)
+    h0 = cdf.gather(1, i0)
+    denom = (total - h0).clamp(min=1).to(torch.float32)
+    # a tensor numerator: `255.0 / denom` is reciprocal-then-multiply in
+    # torch, which rounds twice; this is one IEEE f32 division
+    scale = torch.full_like(denom, 255.0) / denom
+    lut = torch.round((cdf - h0).to(torch.float32) * scale).clamp(0, 255).to(torch.uint8)
+    identity = torch.arange(256, dtype=torch.uint8, device=hists.device).expand_as(lut)
+    return torch.where(h0 == total, identity, lut)
+
+
+def equalize_lut256(hists: torch.Tensor, total: int) -> torch.Tensor:
+    """cv2's equalizeHist LUTs: ``[B, 256]`` int32 histograms of planes of
+    ``total`` pixels → ``[B, 256]`` u8,
+    ``clip(rint(f32(cdf − h0)·f32(255/(total − h0))), 0, 255)`` with h0 the
+    first nonzero bin's count, and the identity for a constant plane."""
+    total = int(total)
+    _check_hists(hists, total)
+    if not on_cuda(hists, "equalize_lut256"):
+        return equalize_lut256_plain(hists, total)
+    check_kernel_input("equalize_lut256", hists)
+    out = torch.empty((hists.shape[0], 256), dtype=torch.uint8, device=hists.device)
+    if hists.shape[0]:
+        launch("equalize_lut256", hists.device, hists.data_ptr(), out.data_ptr(),
+               hists.shape[0], total)
+    return out
+
+
+# --- apply_lut256 ----------------------------------------------------------
+
+def _check_luts(planes: torch.Tensor, luts: torch.Tensor, name: str) -> None:
+    if luts.dtype != torch.uint8:
+        raise NotImplementedError(
+            f"{name}: u8 tables only; u16/i32/f32 tables are ROADMAP Queue 1 item 4")
+    shared = luts.shape == (256,)
+    if not shared and luts.shape != (planes.shape[0], 256):
+        raise ValueError(f"{name}: expected a [256] or [B, 256] table, got {tuple(luts.shape)}")
+    if luts.device != planes.device:
+        raise ValueError(f"{name}: planes on {planes.device}, table on {luts.device}")
+
+
+def apply_lut256_plain(planes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    B = planes.shape[0]
+    idx = planes.reshape(B, -1).to(torch.int64)
+    out = luts[idx] if luts.dim() == 1 else luts.gather(1, idx)
+    return out.reshape(planes.shape)
+
+
+def apply_lut256(planes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """``cv2.LUT`` on u8 planes ``[B, ...]`` with a u8 ``[256]`` (shared) or
+    ``[B, 256]`` (per plane) table; returns ``planes.shape`` u8."""
+    _check_u8_planes(planes, "apply_lut256")
+    _check_luts(planes, luts, "apply_lut256")
+    if not on_cuda(planes, "apply_lut256"):
+        return apply_lut256_plain(planes, luts)
+    check_kernel_input("apply_lut256", planes, luts)
+    out = torch.empty_like(planes)
+    B = planes.shape[0]
+    n = planes.numel() // B if B else 0
+    if n:
+        launch("apply_lut256", planes.device, planes.data_ptr(), luts.data_ptr(),
+               0 if luts.dim() == 1 else 256, out.data_ptr(), B, n)
+    return out
