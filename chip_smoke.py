@@ -9,17 +9,33 @@
    nvcc (sm_90a) into build/ie_torch_kernels/ and prints the build time and
    ptxas's register and shared-memory report.
 3. Holds each kernel against its plain PyTorch version on the card, at 0 LSB,
-   over the CPU tests' cases plus 1080x1920 and a 1100x1080x1920 batch
-   (flat offsets past 2^31), and times both at the main path's shapes.
-4. Drives the main path through the public functions — equalize_unsharp at
-   8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
-   numpy seed 0 — with the launch counters set to 0 just before and read
-   just after; fails if any kernel was not launched.  Holds the results
-   against the plain path on the card and one 1080p frame against the plain
-   path on the CPU, at 0 LSB, then times equalize_unsharp (kernel path vs
-   plain path, CUDA events around 10 back-to-back calls, median of 20 such
-   runs after 3 warm-up calls).
-5. Prints a one-line JSON per-kernel summary, then, as the last line,
+   over the CPU tests' cases plus tiny planes, a storage offset of one element,
+   1080x1920 and 4K planes, non-divisible CLAHE geometries, the geometry
+   where the TPU quadrant blend is wrong (164x164, grid 2x2), clip limits 0,
+   2 and 40, u16 tables, a [70000, 8, 8] batch (more planes than a grid axis
+   of 65535 holds) and a 1100x1080x1920 batch (flat offsets past 2^31), and
+   times both at the main paths' shapes.
+4. Drives the first main path through the public functions — equalize_unsharp
+   at 8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
+   numpy seed 0 — each call with the launch counters set to 0 just before
+   and read just after; fails unless each of its kernels was launched
+   exactly once (and no other kernel at all).  Holds the
+   results against the plain path on the card and one 1080p frame against
+   the plain path on the CPU, at 0 LSB, then times equalize_unsharp (kernel
+   path vs plain path, CUDA events around 10 back-to-back calls, median of 20
+   such runs after 3 warm-up calls).
+5. Drives config 5 (median 5x5 -> CLAHE 2.0, 8x8 -> unsharp) the same way:
+   get_preset("denoise_clahe_sharpen") on 2x2160x3840 u8, stream_frames over
+   8 such batches from host NumPy, clahe on 1x2160x3840x3 RGB and on
+   2x2160x3840 u16, median_blur(5) on u16 and i16, each path with counters
+   of its own; fails unless each path launched exactly its kernels (median,
+   hist256_tiles, clahe_lut, clahe_blend, sep_conv_u8 once per batch through
+   the preset; the CLAHE stages for clahe, stage A only on u8; median for
+   median_blur) and no other.
+   Holds every result against the plain path on the card, the streamed
+   outputs against the direct calls, and one 4K frame against the plain path
+   on the CPU, at 0 LSB; then times each path, kernels against plain.
+6. Prints a one-line JSON per-kernel summary, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every check raises on failure; nothing is caught.  Imports nothing of JAX.
@@ -39,18 +55,28 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PKG = "imageenhancement_mp_tpu_torch"
-KERNELS = ("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8")
+MAIN_KERNELS = ("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8")
+CONFIG5_KERNELS = ("median", "hist256_tiles", "clahe_lut", "clahe_blend", "sep_conv_u8")
+KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1]
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
     "apply_lut256": f"{PKG}/kernels/csrc/hist.cu",
     "sep_conv_u8": f"{PKG}/kernels/csrc/conv.cu",
+    "median": f"{PKG}/kernels/csrc/median.cu",
+    "hist256_tiles": f"{PKG}/kernels/csrc/clahe.cu",
+    "clahe_lut": f"{PKG}/kernels/csrc/clahe.cu",
+    "clahe_blend": f"{PKG}/kernels/csrc/clahe.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
     "equalize_lut256": "imageenhancement_mp_tpu/kernels/hist.py:572",
     "apply_lut256": "imageenhancement_mp_tpu/kernels/hist.py:228",
     "sep_conv_u8": "imageenhancement_mp_tpu/kernels/conv2.py:326",
+    "median": "imageenhancement_mp_tpu/kernels/median.py:126",
+    "hist256_tiles": "imageenhancement_mp_tpu/kernels/hist.py:156 via imageenhancement_mp_tpu/ops/clahe.py:212",
+    "clahe_lut": "imageenhancement_mp_tpu/ops/clahe.py:74 (an XLA stage; no Pallas kernel)",
+    "clahe_blend": "imageenhancement_mp_tpu/kernels/clahe_u16.py:201 and imageenhancement_mp_tpu/kernels/clahe_blend.py:136",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -73,34 +99,38 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64).to(a.device)).abs().max())
 
 
-def time_ms(fn) -> tuple[float, float]:
-    """Median and interquartile range over TIMED_RUNS runs of the per-call
-    time of ``fn`` (ms), each run timing CALLS_PER_RUN back-to-back calls
-    with two CUDA events."""
+def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[float, float]:
+    """Median and interquartile range over ``runs`` runs of the per-call time
+    of ``fn`` (ms), each run timing ``calls`` back-to-back calls with two
+    CUDA events."""
     for _ in range(WARMUPS):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(CALLS_PER_RUN):
+        for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / CALLS_PER_RUN)
+        times.append(start.elapsed_time(end) / calls)
     q1, q2, q3 = statistics.quantiles(times, n=4)
     return q2, q3 - q1
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import imageenhancement_mp_tpu_torch as port
     from imageenhancement_mp_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
     from imageenhancement_mp_tpu_torch.kernels import conv as kconv
     from imageenhancement_mp_tpu_torch.kernels import hist as khist
+    from imageenhancement_mp_tpu_torch.kernels import median as kmedian
+    from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
     from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
 
     if Path(port.__file__).resolve().parent != ROOT / PKG:
@@ -121,7 +151,7 @@ def main() -> None:
     log = (Path(lib._name).parent / "nvcc.log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "Compiling entry" in line or "Used" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("  ptxas:", line.split(":", 1)[-1].strip())
 
     # -- 3. each kernel against its plain version, on the card -----------------
@@ -134,8 +164,12 @@ def main() -> None:
     def rand_u8(shape, lo=0, hi=256) -> torch.Tensor:
         return on_card(rng.integers(lo, hi, shape, dtype=np.uint8))
 
+    def rand(shape, dtype) -> torch.Tensor:
+        info = np.iinfo(dtype)
+        return on_card(rng.integers(info.min, info.max + 1, shape).astype(dtype))
+
     def misaligned(x: torch.Tensor) -> torch.Tensor:
-        """The same values at a storage offset of 1 byte (contiguous)."""
+        """The same values at a storage offset of 1 element (contiguous)."""
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         view = buf[1:].view(x.shape)
         view.copy_(x)
@@ -146,6 +180,17 @@ def main() -> None:
         err[name] = max(err[name], e)
         if e:
             raise AssertionError(f"{name} {what}: kernel vs plain max abs err {e}")
+
+    def coord_tables(H: int, W: int, geo) -> tuple:
+        gh, gw, th, tw = geo
+        return (*tclahe._coord_tables(H, th, gh, dev), *tclahe._coord_tables(W, tw, gw, dev))
+
+    def clahe_plain(planes: torch.Tensor, clip: float, grid) -> torch.Tensor:
+        """CLAHE through the plain version of every stage."""
+        B, H, W = planes.shape
+        geo = tclahe.tile_geometry(H, W, grid)
+        luts = kclahe.clahe_lut_plain(kclahe.tile_hists_plain(planes, *geo), geo[2] * geo[3], clip)
+        return kclahe.clahe_blend_plain(planes, luts, geo[0], geo[1], *coord_tables(H, W, geo))
 
     before = dict(launch_counts)
     shapes = [(2, 64, 256), (1, 37, 131), (3, 5, 9), (1, 1, 1), (8, 1080, 1920)]
@@ -202,50 +247,181 @@ def main() -> None:
           khist.apply_lut256_plain(tail, lb[-2:]), "1100x1080x1920, last planes")
     check("sep_conv_u8", kconv.sep_conv_u8(big, tv5, th5, 1.0, lb)[-2:],
           kconv.sep_conv_u8_plain(tail, tv5, th5, 1.0, lb[-2:]), "1100x1080x1920, last planes")
-    del big, tail, hb, lb
+    check("median", kmedian.median_blur(big, 5)[-2:], kmedian.median_blur_plain(tail, 5),
+          "1100x1080x1920 k=5, last planes")
+    gbig = tclahe.tile_geometry(1080, 1920, (8, 8))
+    tables_big = coord_tables(1080, 1920, gbig)
+    ht = kclahe.hist256_tiles(big, *gbig)
+    check("hist256_tiles", ht[-128:], kclahe.tile_hists_plain(tail, *gbig),
+          "1100x1080x1920 grid 8x8, last planes")
+    lt = kclahe.clahe_lut(ht, gbig[2] * gbig[3], 2.0)
+    check("clahe_blend", kclahe.clahe_blend(big, lt, 8, 8, *tables_big)[-2:],
+          kclahe.clahe_blend_plain(tail, lt[-128:], 8, 8, *tables_big),
+          "1100x1080x1920 grid 8x8, last planes")
+    del big, tail, hb, lb, ht, lt
+    torch.cuda.synchronize()
+
+    # the config-5 kernels: median, and CLAHE's stages A, B and C, each on the
+    # same input as its plain version; then the whole CLAHE op, kernel route
+    # against plain route
+    med_shapes = [(2, 64, 256), (1, 37, 131), (1, 2, 3), (1, 1, 1), (3, 5, 9), (2, 4, 70),
+                  (1, 70, 3), (2, 1080, 1920)]
+    n_med = 0
+    for dtype in (np.uint8, np.uint16, np.int16):
+        for shape in med_shapes:
+            x = rand(shape, dtype)
+            for xx in (x, misaligned(x)):
+                for k in (3, 5):
+                    check("median", kmedian.median_blur(xx, k), kmedian.median_blur_plain(xx, k),
+                          f"{dtype.__name__} {shape} k={k} offset {xx.storage_offset()}")
+                    n_med += 1
+
+    n_clahe = 0
+
+    def check_clahe(x: torch.Tensor, clip: float, grid, what: str) -> None:
+        nonlocal n_clahe
+        B, H, W = x.shape
+        geo = tclahe.tile_geometry(H, W, grid)
+        area = geo[2] * geo[3]
+        hp = kclahe.tile_hists_plain(x, *geo)
+        if x.dtype == torch.uint8:
+            check("hist256_tiles", kclahe.hist256_tiles(x, *geo), hp, what)
+        lut = kclahe.clahe_lut(hp, area, clip)
+        check("clahe_lut", lut, kclahe.clahe_lut_plain(hp, area, clip), what)
+        tables = coord_tables(H, W, geo)
+        check("clahe_blend", kclahe.clahe_blend(x, lut, geo[0], geo[1], *tables),
+              kclahe.clahe_blend_plain(x, lut, geo[0], geo[1], *tables), what)
+        check("clahe_blend", tclahe.clahe_planes(x, clip, grid), clahe_plain(x, clip, grid),
+              what + ", whole op")
+        n_clahe += 1
+
+    clahe_geoms = [((2, 64, 256), (8, 2)), ((1, 30, 256), (2, 2)), ((1, 64, 384), (4, 3)),
+                   ((1, 37, 131), (8, 8)), ((1, 20, 250), (2, 2)), ((1, 164, 164), (2, 2)),
+                   ((1, 1, 1), (8, 8)), ((1, 2, 3), (2, 2)), ((2, 1080, 1920), (8, 8)),
+                   ((1, 1079, 1917), (8, 8))]
+    for dtype in (np.uint8, np.uint16):
+        for shape, grid in clahe_geoms:
+            x = rand(shape, dtype)
+            for xx in (x, misaligned(x)):
+                for clip in (0.0, 2.0, 40.0):
+                    check_clahe(xx, clip, grid, f"{dtype.__name__} {shape} grid {grid} "
+                                f"clip {clip} offset {xx.storage_offset()}")
+    # peaked random histograms straight into stage B, both table sizes
+    for S, area in ((256, 37 * 131), (65536, 270 * 480)):
+        hr = on_card(np.stack([rng.multinomial(area, p) for p in
+                               rng.dirichlet(np.full(S, 0.02), size=16)]).astype(np.int32))
+        for clip in (0.0, 2.0, 40.0):
+            check("clahe_lut", kclahe.clahe_lut(hr, area, clip),
+                  kclahe.clahe_lut_plain(hr, area, clip), f"random S={S} clip {clip}")
+
+    # more planes than a grid axis of 65535 holds: every kernel
+    many = rand_u8((70000, 8, 8))
+    hm = khist.hist256(many)
+    check("hist256", hm, khist.hist256_plain(many), "70000x8x8")
+    lm = khist.equalize_lut256(hm, 64)
+    check("equalize_lut256", lm, khist.equalize_lut256_plain(hm, 64), "70000x8x8")
+    check("apply_lut256", khist.apply_lut256(many, lm), khist.apply_lut256_plain(many, lm),
+          "70000x8x8")
+    check("sep_conv_u8", kconv.sep_conv_u8(many, tv5, th5, 1.0, lm),
+          kconv.sep_conv_u8_plain(many, tv5, th5, 1.0, lm), "70000x8x8")
+    for k in (3, 5):
+        check("median", kmedian.median_blur(many, k), kmedian.median_blur_plain(many, k),
+              f"70000x8x8 k={k}")
+    check_clahe(many, 2.0, (2, 2), "70000x8x8 grid 2x2 (280000 tiles)")
+    # grid 8x8: 4.48 M tiles of one pixel; the plain versions run on slices
+    hk = kclahe.hist256_tiles(many, 8, 8, 1, 1)
+    lk = kclahe.clahe_lut(hk, 1, 40.0)
+    bk = kclahe.clahe_blend(many, lk, 8, 8, *coord_tables(8, 8, (8, 8, 1, 1)))
+    for sl in (slice(0, 3), slice(-3, None)):
+        what = f"70000x8x8 grid 8x8, planes {sl.start}:{sl.stop}"
+        h_sl, l_sl = hk.view(70000, 64, 256)[sl].reshape(-1, 256), lk.view(70000, 64, 256)[sl]
+        check("hist256_tiles", h_sl, kclahe.tile_hists_plain(many[sl], 8, 8, 1, 1), what)
+        check("clahe_lut", l_sl.reshape(-1, 256), kclahe.clahe_lut_plain(h_sl, 1, 40.0), what)
+        check("clahe_blend", bk[sl], clahe_plain(many[sl], 40.0, (8, 8)), what)
+    del many, hm, lm, hk, lk, bk
     torch.cuda.synchronize()
     for name in KERNELS:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
-          f"{len(planes_cases)} plane cases and {2 * len(conv_cases)} conv cases")
+          f"{len(planes_cases)} plane cases, {2 * len(conv_cases)} conv cases, "
+          f"{n_med} median cases and {n_clahe} CLAHE cases (each stage and the whole op), "
+          "the 70000x8x8 batch through every kernel and the 1100x1080x1920 batch")
 
-    # per-kernel time at the main path's shape, kernel vs plain
+    # per-kernel time at the main paths' shapes, kernel vs plain: the first
+    # four at equalize_unsharp's 8x1080x1920, the config-5 kernels at its
+    # 2x2160x3840 (CLAHE grid 8x8: 128 tiles of 270x480)
     x8 = planes_cases[4]
     total8 = x8[0].numel()
     h8 = khist.hist256(x8)
     l8 = khist.equalize_lut256(h8, total8)
+    g5 = rand_u8((2, 2160, 3840))
+    geo5 = tclahe.tile_geometry(2160, 3840, (8, 8))
+    area5 = geo5[2] * geo5[3]
+    tables5 = coord_tables(2160, 3840, geo5)
+    h5 = kclahe.hist256_tiles(g5, *geo5)
+    l5 = kclahe.clahe_lut(h5, area5, 2.0)
+    # name -> (kernel, plain, shape label, plain runs and calls per run)
     timed = {
-        "hist256": (lambda: khist.hist256(x8), lambda: khist.hist256_plain(x8)),
+        "hist256": (lambda: khist.hist256(x8), lambda: khist.hist256_plain(x8),
+                    tuple(x8.shape), (TIMED_RUNS, CALLS_PER_RUN)),
         "equalize_lut256": (lambda: khist.equalize_lut256(h8, total8),
-                            lambda: khist.equalize_lut256_plain(h8, total8)),
+                            lambda: khist.equalize_lut256_plain(h8, total8),
+                            tuple(h8.shape), (TIMED_RUNS, CALLS_PER_RUN)),
         "apply_lut256": (lambda: khist.apply_lut256(x8, l8),
-                         lambda: khist.apply_lut256_plain(x8, l8)),
+                         lambda: khist.apply_lut256_plain(x8, l8),
+                         tuple(x8.shape), (TIMED_RUNS, CALLS_PER_RUN)),
         "sep_conv_u8": (lambda: kconv.sep_conv_u8(x8, tv5, th5, 1.0, l8),
-                        lambda: kconv.sep_conv_u8_plain(x8, tv5, th5, 1.0, l8)),
+                        lambda: kconv.sep_conv_u8_plain(x8, tv5, th5, 1.0, l8),
+                        tuple(x8.shape), (TIMED_RUNS, CALLS_PER_RUN)),
+        "median": (lambda: kmedian.median_blur(g5, 5), lambda: kmedian.median_blur_plain(g5, 5),
+                   tuple(g5.shape) + ("k=5",), (10, 3)),
+        "hist256_tiles": (lambda: kclahe.hist256_tiles(g5, *geo5),
+                          lambda: kclahe.tile_hists_plain(g5, *geo5),
+                          tuple(g5.shape) + ("grid 8x8",), (10, 3)),
+        "clahe_lut": (lambda: kclahe.clahe_lut(h5, area5, 2.0),
+                      lambda: kclahe.clahe_lut_plain(h5, area5, 2.0),
+                      tuple(h5.shape) + ("clip 2.0",), (TIMED_RUNS, CALLS_PER_RUN)),
+        "clahe_blend": (lambda: kclahe.clahe_blend(g5, l5, 8, 8, *tables5),
+                        lambda: kclahe.clahe_blend_plain(g5, l5, 8, 8, *tables5),
+                        tuple(g5.shape) + ("grid 8x8",), (10, 3)),
     }
     ms = {}
-    for name, (kfn, pfn) in timed.items():
-        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(kfn), time_ms(pfn)
+    for name, (kfn, pfn, label, (runs, calls)) in timed.items():
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(kfn), time_ms(pfn, runs, calls)
         ms[name] = (k_ms, p_ms)
-        print(f"  {name} at {tuple(x8.shape) if name != 'equalize_lut256' else tuple(h8.shape)}: "
-              f"kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+        print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
+              f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    del g5, h5, l5
 
     # -- 4. the main path through the public functions -------------------------
+    def drive(label: str, fn, expect: dict[str, int]):
+        """Run one path with every launch counter set to 0 just before and
+        read just after; fail unless each kernel was launched exactly as
+        often as ``expect`` says (a kernel not named there: never).  Returns
+        the path's output and its counts."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(launch_counts)
+        want = {n: expect.get(n, 0) for n in got}
+        print(f"{label} launches: { {n: c for n, c in got.items() if c} }")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        return out, got
+
     x1080 = np.random.default_rng(0).integers(0, 256, (8, 1080, 1920), dtype=np.uint8)
     x4k = np.random.default_rng(0).integers(0, 256, (2, 2160, 3840), dtype=np.uint8)
     g1080, g4k = on_card(x1080), on_card(x4k)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    out1080 = port.equalize_unsharp(g1080, 1.0, 5, 0.0)
-    out4k = port.equalize_unsharp(g4k, 1.0, 5, 0.0)
-    eq1080 = port.equalize_hist(g1080)
-    torch.cuda.synchronize()
-    launches = dict(launch_counts)
-    print(f"main path launches: {launches}")
-    for name in KERNELS:
-        if launches[name] < 1:
-            raise AssertionError(f"the main path never launched {name}")
+    eu_launches = {"hist256": 1, "equalize_lut256": 1, "sep_conv_u8": 1}
+    out1080, c1 = drive("equalize_unsharp 8x1080x1920", lambda: port.equalize_unsharp(
+        g1080, 1.0, 5, 0.0), eu_launches)
+    out4k, c2 = drive("equalize_unsharp 2x2160x3840", lambda: port.equalize_unsharp(
+        g4k, 1.0, 5, 0.0), eu_launches)
+    eq1080, c3 = drive("equalize_hist 8x1080x1920", lambda: port.equalize_hist(g1080),
+                       {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1})
+    launches = {n: c1[n] + c2[n] + c3[n] for n in MAIN_KERNELS}
 
     def plain_equalize_unsharp(planes: torch.Tensor) -> torch.Tensor:
         luts = khist.equalize_lut256_plain(khist.hist256_plain(planes), planes[0].numel())
@@ -278,9 +454,116 @@ def main() -> None:
               f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
               f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
 
+    # -- 5. config 5 through the public functions -------------------------------
+    del g1080, out1080, out4k, eq1080, eq_plain
+    pipe = port.get_preset("denoise_clahe_sharpen")
+    frames = [np.random.default_rng(10 + i).integers(0, 256, (2, 2160, 3840), dtype=np.uint8)
+              for i in range(8)]
+    x_rgb = np.random.default_rng(1).integers(0, 256, (1, 2160, 3840, 3), dtype=np.uint8)
+    x_u16 = np.random.default_rng(2).integers(0, 65536, (2, 2160, 3840)).astype(np.uint16)
+    x_i16 = np.random.default_rng(3).integers(-32768, 32768, (2, 2160, 3840)).astype(np.int16)
+    g_rgb, g_u16, g_i16 = on_card(x_rgb), on_card(x_u16), on_card(x_i16)
+    # each path with counters of its own: one launch of each of its kernels
+    # per call (u16 CLAHE histograms its tiles in torch), 8 over 8 batches
+    out5, launches5 = drive("config 5 get_preset 2x2160x3840 u8", lambda: pipe(g4k),
+                            dict.fromkeys(CONFIG5_KERNELS, 1))
+    streamed, _ = drive("config 5 stream_frames 8x(2x2160x3840) u8",
+                        lambda: list(port.stream_frames(pipe, frames, 2, device=dev)),
+                        dict.fromkeys(CONFIG5_KERNELS, len(frames)))
+    clahe_rgb, _ = drive("clahe 1x2160x3840x3 RGB u8", lambda: port.clahe(g_rgb, 2.0, (8, 8)),
+                         {"hist256_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
+    clahe_u16, _ = drive("clahe 2x2160x3840 u16", lambda: port.clahe(g_u16, 2.0, (8, 8)),
+                         {"clahe_lut": 1, "clahe_blend": 1})
+    med_u16, _ = drive("median_blur(5) 2x2160x3840 u16", lambda: port.median_blur(g_u16, 5),
+                       {"median": 1})
+    med_i16, _ = drive("median_blur(5) 2x2160x3840 i16", lambda: port.median_blur(g_i16, 5),
+                       {"median": 1})
+
+    def plain_config5(planes: torch.Tensor) -> torch.Tensor:
+        return kconv.sep_conv_u8_plain(
+            clahe_plain(kmedian.median_blur_plain(planes, 5), 2.0, (8, 8)), tv5, th5, 1.0)
+
+    def plain_clahe_rgb(img: torch.Tensor) -> torch.Tensor:
+        planes = img[0].permute(2, 0, 1).contiguous()
+        return clahe_plain(planes, 2.0, (8, 8)).permute(1, 2, 0)[None]
+
+    results = [("config 5 get_preset 2x2160x3840 u8", out5, g4k, plain_config5(g4k)),
+               ("clahe 1x2160x3840x3 RGB u8", clahe_rgb, g_rgb, plain_clahe_rgb(g_rgb)),
+               ("clahe 2x2160x3840 u16", clahe_u16, g_u16, clahe_plain(g_u16, 2.0, (8, 8))),
+               ("median_blur(5) 2x2160x3840 u16", med_u16, g_u16,
+                kmedian.median_blur_plain(g_u16, 5)),
+               ("median_blur(5) 2x2160x3840 i16", med_i16, g_i16,
+                kmedian.median_blur_plain(g_i16, 5))]
+    for label, out, x, want in results:
+        if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype} {out.device}")
+        if out.float().std() == 0:
+            raise AssertionError(f"{label}: output is constant")
+        e = max_err(out, want)
+        print(f"{label}: kernel path vs plain path on the card, max abs err {e}")
+        if e:
+            raise AssertionError(f"{label}: kernel path differs from the plain path")
+    del results, want
+    if len(streamed) != len(frames):
+        raise AssertionError(f"stream_frames yielded {len(streamed)} of {len(frames)} batches")
+    for i, (out, f) in enumerate(zip(streamed, frames)):
+        e = max_err(out, pipe(on_card(f)))
+        if e or out.device != dev:
+            raise AssertionError(f"stream_frames batch {i}: {e} LSB from the direct call on {out.device}")
+    print(f"stream_frames: {len(streamed)} batches equal the direct calls at 0 LSB")
+    del streamed
+    cpu_frame = pipe(torch.from_numpy(x4k[:1]))
+    e = max_err(out5[:1].cpu(), cpu_frame)
+    print(f"config 5 one 4K frame: card vs plain path on the CPU, max abs err {e}")
+    if e:
+        raise AssertionError("config 5 on the card differs from the CPU plain path")
+
+    def stream_run() -> tuple[float, float]:
+        """Device ms (CUDA events) and host ms for 8 batches through
+        stream_frames from host NumPy, the H2D copies inside the window."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in port.stream_frames(pipe, frames, 2, device=dev):
+            pass
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    stream_run()  # warm-up: pinned buffers, copy stream
+    runs = sorted(stream_run() for _ in range(5))
+    s_dev, s_host = runs[2]
+    gpix = g4k.numel() / 1e9
+    print(f"config 5 stream_frames 8x(2x2160x3840) u8 from host NumPy, depth 2: "
+          f"{s_dev / len(frames):.4f} ms per batch on the device clock "
+          f"({gpix * len(frames) / (s_dev / 1e3):.3f} GPix/s), {s_host / len(frames):.4f} ms "
+          f"per batch on the host clock; median of 5 runs  [{smi}]")
+    paths = [("config 5 get_preset 2x2160x3840 u8", g4k, lambda: pipe(g4k),
+              lambda: plain_config5(g4k)),
+             ("clahe 1x2160x3840x3 RGB u8", g_rgb, lambda: port.clahe(g_rgb, 2.0, (8, 8)),
+              lambda: plain_clahe_rgb(g_rgb)),
+             ("clahe 2x2160x3840 u16", g_u16, lambda: port.clahe(g_u16, 2.0, (8, 8)),
+              lambda: clahe_plain(g_u16, 2.0, (8, 8))),
+             ("median_blur(5) 2x2160x3840 u16", g_u16, lambda: port.median_blur(g_u16, 5),
+              lambda: kmedian.median_blur_plain(g_u16, 5)),
+             ("median_blur(5) 2x2160x3840 i16", g_i16, lambda: port.median_blur(g_i16, 5),
+              lambda: kmedian.median_blur_plain(g_i16, 5))]
+    for label, x, kfn, pfn in paths:
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(kfn), time_ms(pfn, 5, 2)
+        gpix = x.numel() / 1e9
+        print(f"{label}: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = "
+              f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
+              f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
+
+    # each kernel's launches from the path that runs it: the first main path's
+    # three calls for its four kernels, get_preset's config 5 call for the rest
+    path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
+                     **launches}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
-         "launches": launches[n], "max_abs_err": err[n], "ms": ms[n][0], "plain_ms": ms[n][1]}
+         "launches": path_launches[n], "max_abs_err": err[n], "ms": ms[n][0],
+         "plain_ms": ms[n][1]}
         for n in KERNELS]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

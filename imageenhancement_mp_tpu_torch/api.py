@@ -1,8 +1,9 @@
 """Public functions on torch tensors, with the shapes and keyword names of
 ``imageenhancement_mp_tpu/api.py``.
 
-Each accepts ``[H,W]``, ``[H,W,C]``, ``[N,H,W]`` or ``[N,H,W,C]`` u8 and works
-per plane (per image × channel).  The output lies on the input's device:
+Each accepts ``[H,W]``, ``[H,W,C]``, ``[N,H,W]`` or ``[N,H,W,C]`` images
+(u8, and u16/i16 where a function says so) and works per plane (per image ×
+channel).  The output lies on the input's device:
 a CPU tensor runs the plain PyTorch versions, a CUDA tensor the kernels.
 ``channels_last=False`` reads a 3-D input as ``[N, H, W]`` even when W ≤ 4.
 """
@@ -12,12 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
+from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
-__all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp"]
+__all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
+           "median_blur"]
 
 
 def equalize_hist(img: torch.Tensor, per_frame: bool = True, per_channel: bool = True,
@@ -53,3 +57,19 @@ def unsharp_mask(img: torch.Tensor, amount: float = 1.0, ksize: int = 5, sigma: 
     for any ``amount`` and any σ."""
     planes, restore = as_planes(img, channels_last=channels_last)
     return restore(unsharp_mask_planes(planes, float(amount), int(ksize), float(sigma)))
+
+
+def clahe(img: torch.Tensor, clip_limit: float = 40.0, tile_grid: tuple[int, int] = (8, 8),
+          channels_last: bool = True) -> torch.Tensor:
+    """``cv2.createCLAHE(clip_limit, grid)`` per plane, u8 or u16 — exact.
+
+    ``tile_grid`` is (rows, cols); cv2's Size argument is (cols, rows)."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(clahe_planes(planes, float(clip_limit), tuple(tile_grid)))
+
+
+def median_blur(img: torch.Tensor, ksize: int = 3, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.medianBlur`` (exact; border = replicate; any odd ksize ≥ 3) on
+    u8, u16, i16 or f32; the kernel takes u8/u16/i16 at ksize 3 and 5."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(median_blur_planes(planes, int(ksize)))

@@ -15,8 +15,6 @@ from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_la
 
 __all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input"]
 
-_MAX_PLANES = 65535  # the kernels put planes on gridDim.y or gridDim.z
-
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raise for any other."""
@@ -28,14 +26,11 @@ def on_cuda(t: torch.Tensor, name: str) -> bool:
 
 
 def check_kernel_input(name: str, *tensors: torch.Tensor) -> None:
-    """What every launch needs: one CUDA device, contiguous tensors, and at
-    most 65535 planes in the first."""
+    """What every launch needs: one CUDA device and contiguous tensors.  Any
+    number of planes: the kernels stride over planes on a capped grid axis."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    if tensors[0].shape[0] > _MAX_PLANES:
-        raise ValueError(
-            f"{name}: at most {_MAX_PLANES} planes per call, got {tensors[0].shape[0]}")

@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
-``kernels/csrc/*.cu`` compile in one nvcc call into
-``build/ie_torch_kernels/<hash>/libie_kernels.so`` under the repository root,
-where ``<hash>`` covers the sources and the flags, so an edited source builds
-anew and an unchanged one loads the library already built.  The sources
-export plain C functions; each takes device pointers and a stream as
-``void*``, launches one kernel on that stream and returns the
-``cudaError_t`` of ``cudaGetLastError()``.  :func:`launch` raises when that
-is not 0 and counts the launch in :data:`launch_counts`.
+``kernels/csrc/*.cu`` compile with one nvcc process per source, all started
+together, and link into ``build/ie_torch_kernels/<hash>/libie_kernels.so``
+under the repository root, where ``<hash>`` covers the sources, the headers
+they share (``csrc/*.cuh``) and the flags, so an edited source or header
+builds anew and an unchanged one loads the library
+already built.  The sources export plain C functions; each takes device
+pointers and a stream as ``void*``, launches one kernel on that stream and
+returns the ``cudaError_t`` of ``cudaGetLastError()``.  :func:`launch`
+raises when that is not 0 and counts the launch in :data:`launch_counts`.
 
 Nothing here runs at import: the first CUDA tensor that reaches a kernel
 wrapper triggers the build.  A missing nvcc or a failed build raises with
@@ -36,7 +37,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ie_torch_kernels"
 # -Xptxas=-v only reports registers and shared memory into nvcc.log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "ie_equalize_lut256": (_P, _P, _I64, _I64, _P),
     "ie_apply_lut256": (_P, _P, _I64, _P, _I64, _I64, _P),
     "ie_sep_conv_u8": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _F32, _F32, _P),
+    "ie_median": (_P, _P, _I64, _I64, _I64, _I32, _I32, _P),
+    "ie_hist256_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _P),
+    "ie_clahe_lut": (_P, _P, _I64, _I32, _I32, _F32, _P),
+    "ie_clahe_blend": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P),
 }
 
 # One plain integer per kernel wrapper: the launches made in this process.
@@ -81,17 +86,32 @@ def _source_digest(sources: list[Path]) -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has none."""
     sources = sorted(CSRC.glob("*.cu"))
-    out_dir = BUILD_ROOT / _source_digest(sources)
+    out_dir = BUILD_ROOT / _source_digest(sources + sorted(CSRC.glob("*.cuh")))
     so = out_dir / "libie_kernels.so"
     if not so.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libie_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]
+        tmp = out_dir / f"libie_kernels.{tag}.so"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        failed = [(cmd, proc.returncode, out)
+                  for cmd, proc, out in zip(cmds, procs, outputs) if proc.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            outputs.append(proc.stdout)
+            if proc.returncode != 0:
+                failed.append((link, proc.returncode, proc.stdout))
+        (out_dir / "nvcc.log").write_text("".join(outputs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{out}" for cmd, rc, out in failed))
         os.replace(tmp, so)  # atomic: a concurrent loader sees no partial file
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

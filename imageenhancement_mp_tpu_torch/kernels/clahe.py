@@ -1,0 +1,218 @@
+"""CLAHE's three stages, each a CUDA kernel (``csrc/clahe.cu``) beside its
+plain PyTorch version.
+
+* :func:`hist256_tiles` — stage A for u8: the 256-bin histogram of every
+  tile of every plane, read in place, pad rows and columns through reflected
+  indices (``imageenhancement_mp_tpu/kernels/hist.py::hist256_pallas`` at
+  its CLAHE call site, ops/clahe.py:207-212).  Stage A for u16 stays torch on
+  both devices, :func:`tile_hists_plain` (a ``bincount`` over
+  ``(plane·T + tile)·65536 + v`` offsets): the JAX package computes it in
+  XLA too, outside any Pallas kernel (ops/clahe.py:55-61, :213-216).
+* :func:`clahe_lut` — stage B, the clipped tile LUTs
+  (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas).
+* :func:`clahe_blend` — stage C, the bilinear blend of the four neighbour
+  LUTs; one kernel for every geometry, in place of
+  ``kernels/clahe_u16.py::clahe_blend_quad_pallas`` and
+  ``kernels/clahe_blend.py::clahe_blend_pallas``.
+
+Tiles are numbered ``b·gh·gw + ty·gw + tx``; the histogram and LUT tables
+are ``[B·gh·gw, S]`` with S = 256 (u8) or 65536 (u16).  The tile geometry
+(``th``, ``tw``, with ``gh·th ≥ H`` and ``gw·tw ≥ W``) is cv2's, computed by
+``ops/clahe.py``.  Dispatch is by device: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel, any other device raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels._build import launch
+from imageenhancement_mp_tpu_torch.kernels.conv import reflect101
+
+__all__ = [
+    "HIST_SIZE",
+    "hist256_tiles", "tile_hists_plain",
+    "clahe_lut", "clahe_lut_plain", "clip_and_scale",
+    "clahe_blend", "clahe_blend_plain",
+]
+
+HIST_SIZE = {torch.uint8: 256, torch.uint16: 65536}
+_LUT_DTYPE = {256: torch.uint8, 65536: torch.uint16}
+_INT32_MAX = 2**31 - 1
+
+
+def _check_planes(planes: torch.Tensor, name: str) -> None:
+    if planes.dtype not in HIST_SIZE:
+        raise TypeError(f"{name}: CLAHE takes uint8/uint16 planes, got {planes.dtype}")
+    if planes.dim() != 3:
+        raise ValueError(f"{name} expects [B, H, W] planes, got {tuple(planes.shape)}")
+
+
+def _check_geometry(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> None:
+    _, H, W = planes.shape
+    if min(gh, gw, th, tw) < 1 or gh * th < H or gw * tw < W:
+        raise ValueError(f"tiles {gh}x{gw} of {th}x{tw} do not cover a {H}x{W} plane")
+    if max(gh * th, gw * tw, th * tw) > _INT32_MAX:
+        raise ValueError(f"tiles {gh}x{gw} of {th}x{tw}: indices overflow int32")
+
+
+# --- stage A ---------------------------------------------------------------
+
+def tile_hists_plain(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
+    """Per-tile histograms ``[B·gh·gw, S]`` int32 of u8 (S = 256) or u16
+    (S = 65536) planes, the pad read through REFLECT_101 indices."""
+    _check_planes(planes, "tile_hists_plain")
+    _check_geometry(planes, gh, gw, th, tw)
+    B, H, W = planes.shape
+    S = HIST_SIZE[planes.dtype]
+    dev = planes.device
+    rows = reflect101(torch.arange(gh * th, device=dev), H)
+    cols = reflect101(torch.arange(gw * tw, device=dev), W)
+    v = planes.to(torch.int64).index_select(1, rows).index_select(2, cols)
+    tile = ((torch.arange(gh * th, device=dev) // th)[:, None] * gw
+            + (torch.arange(gw * tw, device=dev) // tw)[None, :])
+    plane = torch.arange(B, device=dev)[:, None, None] * (gh * gw)
+    offsets = (plane + tile) * S + v
+    counts = torch.bincount(offsets.reshape(-1), minlength=B * gh * gw * S)
+    return counts.reshape(B * gh * gw, S).to(torch.int32)
+
+
+def hist256_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
+    """Stage A for u8: ``[B, H, W]`` → ``[B·gh·gw, 256]`` int32, tile
+    ``(ty, tx)`` covering padded rows ``ty·th ..`` and columns ``tx·tw ..``."""
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"hist256_tiles expects uint8 planes, got {planes.dtype}")
+    _check_planes(planes, "hist256_tiles")
+    gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
+    _check_geometry(planes, gh, gw, th, tw)
+    if not on_cuda(planes, "hist256_tiles"):
+        return tile_hists_plain(planes, gh, gw, th, tw)
+    check_kernel_input("hist256_tiles", planes)
+    B, H, W = planes.shape
+    if B * gh * gw > _INT32_MAX:
+        raise ValueError(f"hist256_tiles: {B * gh * gw} tiles overflow the grid")
+    out = torch.zeros((B * gh * gw, 256), dtype=torch.int32, device=planes.device)
+    if out.numel() and H and W:
+        launch("hist256_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
+               gh, gw, th, tw)
+    return out
+
+
+# --- stage B ---------------------------------------------------------------
+
+def clip_and_scale(area: int, clip_limit: float, S: int) -> tuple[int, np.float32]:
+    """``(clip_abs, scale)`` of a tile of ``area`` pixels: ``clip_abs =
+    max(int(clip_limit·area/S), 1)``, or 0 (no clip) for ``clip_limit ≤ 0``,
+    as ops/clahe.py:84 computes it in Python; ``scale = f32(S−1)/f32(area)``,
+    one IEEE f32 division on the host."""
+    clip_abs = max(int(clip_limit * area / S), 1) if clip_limit > 0 else 0
+    return clip_abs, np.float32(S - 1) / np.float32(area)
+
+
+def _check_hists(hists: torch.Tensor, area: int) -> int:
+    if hists.dtype != torch.int32 or hists.dim() != 2 or hists.shape[1] not in _LUT_DTYPE:
+        raise TypeError(f"expected [T, 256] or [T, 65536] int32 histograms, got "
+                        f"{hists.dtype} {tuple(hists.shape)}")
+    if not 1 <= area <= _INT32_MAX:
+        raise ValueError(f"tile area {area} does not fit the int32 cdf")
+    return hists.shape[1]
+
+
+def clahe_lut_plain(hists: torch.Tensor, area: int, clip_limit: float) -> torch.Tensor:
+    S = _check_hists(hists, area)
+    clip_abs, scale = clip_and_scale(area, clip_limit, S)
+    h = hists
+    if clip_abs:
+        excess = (h - clip_abs).clamp(min=0).sum(dim=1, keepdim=True)
+        h = h.clamp(max=clip_abs) + excess // S
+        resid = excess % S
+        step = (S // resid.clamp(min=1)).clamp(min=1)
+        i = torch.arange(S, device=h.device)[None, :]
+        h = h + ((i % step == 0) & (i // step < resid))
+    cdf = torch.cumsum(h, dim=1).to(torch.float32)
+    lut = torch.round(cdf * torch.tensor(scale, device=h.device)).clamp(0, S - 1)
+    return lut.to(torch.int32).to(_LUT_DTYPE[S])
+
+
+def clahe_lut(hists: torch.Tensor, area: int, clip_limit: float) -> torch.Tensor:
+    """Stage B: ``[T, S]`` int32 histograms of tiles of ``area`` pixels →
+    ``[T, S]`` LUTs (u8 for S = 256, u16 for S = 65536): clip, redistribute,
+    cdf, ``clamp(rint(f32(cdf)·scale), 0, S−1)``; see :func:`clip_and_scale`."""
+    area = int(area)
+    S = _check_hists(hists, area)
+    if not on_cuda(hists, "clahe_lut"):
+        return clahe_lut_plain(hists, area, clip_limit)
+    check_kernel_input("clahe_lut", hists)
+    clip_abs, scale = clip_and_scale(area, clip_limit, S)
+    out = torch.empty(hists.shape, dtype=_LUT_DTYPE[S], device=hists.device)
+    if hists.shape[0]:
+        launch("clahe_lut", hists.device, hists.data_ptr(), out.data_ptr(), hists.shape[0], S,
+               clip_abs, float(scale))
+    return out
+
+
+# --- stage C ---------------------------------------------------------------
+
+def _check_blend(planes, luts, gh, gw, yidx, fy, xidx, fx) -> None:
+    _check_planes(planes, "clahe_blend")
+    B, H, W = planes.shape
+    S = HIST_SIZE[planes.dtype]
+    if luts.dtype != planes.dtype or luts.shape != (B * gh * gw, S):
+        raise ValueError(f"clahe_blend: expected [{B * gh * gw}, {S}] {planes.dtype} LUTs, "
+                         f"got {luts.dtype} {tuple(luts.shape)}")
+    for idx, frac, n in ((yidx, fy, H), (xidx, fx, W)):
+        if idx.dtype != torch.int32 or idx.shape != (2, n) or frac.dtype != torch.float32 \
+                or frac.shape != (n,):
+            raise ValueError("clahe_blend: coordinate tables must be [2, n] int32 and [n] f32")
+    for t in (luts, yidx, fy, xidx, fx):
+        if t.device != planes.device:
+            raise ValueError(f"clahe_blend: planes on {planes.device}, a table on {t.device}")
+
+
+def clahe_blend_plain(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
+                      yidx: torch.Tensor, fy: torch.Tensor, xidx: torch.Tensor,
+                      fx: torch.Tensor) -> torch.Tensor:
+    B = planes.shape[0]
+    S = HIST_SIZE[planes.dtype]
+    flat = luts.to(torch.int32).reshape(-1)
+    v = planes.to(torch.int64)
+    plane = torch.arange(B, device=planes.device)[:, None, None] * (gh * gw)
+    y0, y1 = (i.to(torch.int64)[None, :, None] for i in yidx)
+    x0, x1 = (i.to(torch.int64)[None, None, :] for i in xidx)
+
+    def corner(ty, tx):
+        return flat[(plane + ty * gw + tx) * S + v].to(torch.float32)
+
+    # blend_tile_luts' association (ops/clahe.py:145-148); each torch op
+    # rounds once, as the kernel's __fmul_rn / __fadd_rn / __fsub_rn do
+    fxr, fyc = fx[None, None, :], fy[None, :, None]
+    gx, gy = torch.ones_like(fxr) - fxr, torch.ones_like(fyc) - fyc
+    top = gx * corner(y0, x0) + fxr * corner(y0, x1)
+    bot = gx * corner(y1, x0) + fxr * corner(y1, x1)
+    out = torch.round(gy * top + fyc * bot).clamp(0, S - 1)
+    return out.to(torch.int32).to(planes.dtype)
+
+
+def clahe_blend(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
+                yidx: torch.Tensor, fy: torch.Tensor, xidx: torch.Tensor,
+                fx: torch.Tensor) -> torch.Tensor:
+    """Stage C: each pixel of ``[B, H, W]`` u8/u16 planes through the four
+    neighbour tile LUTs of ``luts`` (``[B·gh·gw, S]``, the planes' dtype),
+    blended with row ``y`` weights ``yidx[:, y]``, ``fy[y]`` and column
+    weights ``xidx[:, x]``, ``fx[x]`` (ops/clahe.py ``_interp_coords``)."""
+    gh, gw = int(gh), int(gw)
+    _check_blend(planes, luts, gh, gw, yidx, fy, xidx, fx)
+    if not on_cuda(planes, "clahe_blend"):
+        return clahe_blend_plain(planes, luts, gh, gw, yidx, fy, xidx, fx)
+    check_kernel_input("clahe_blend", planes, luts, yidx, fy, xidx, fx)
+    B, H, W = planes.shape
+    if H > 65535 * 8:
+        raise ValueError(f"clahe_blend: at most {65535 * 8} rows, got {H}")
+    out = torch.empty_like(planes)
+    if out.numel():
+        launch("clahe_blend", planes.device, planes.data_ptr(), luts.data_ptr(), out.data_ptr(),
+               B, H, W, planes.element_size(), gh, gw, yidx.data_ptr(), fy.data_ptr(),
+               xidx.data_ptr(), fx.data_ptr())
+    return out

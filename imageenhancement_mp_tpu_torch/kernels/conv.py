@@ -27,7 +27,7 @@ from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256_plain
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 
-__all__ = ["MAX_TAPS", "sep_conv_u8", "sep_conv_u8_plain", "unsharp_weights"]
+__all__ = ["MAX_TAPS", "reflect101", "sep_conv_u8", "sep_conv_u8_plain", "unsharp_weights"]
 
 MAX_TAPS = 31
 
@@ -48,8 +48,10 @@ def _check_taps(taps: Sequence[int], axis: str) -> tuple[int, ...]:
     return t
 
 
-def _reflect101_index(n: int, r: int, device: torch.device) -> torch.Tensor:
-    i = torch.arange(-r, n + r, device=device)
+def reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
+    """``numpy.pad(mode="reflect")`` source index of each padded index ``i``
+    along an axis of ``n``: period 2(n−1), so a pad deeper than the axis
+    reflects again; a 1-pixel axis repeats its only pixel."""
     if n == 1:
         return torch.zeros_like(i)
     m = 2 * (n - 1)
@@ -63,8 +65,8 @@ def sep_conv_u8_plain(planes: torch.Tensor, taps_v: Sequence[int], taps_h: Seque
     src = planes if luts is None else apply_lut256_plain(planes, luts)
     B, H, W = src.shape
     rv, rh = len(taps_v) // 2, len(taps_h) // 2
-    rows = _reflect101_index(H, rv, src.device)
-    cols = _reflect101_index(W, rh, src.device)
+    rows = reflect101(torch.arange(-rv, H + rv, device=src.device), H)
+    cols = reflect101(torch.arange(-rh, W + rh, device=src.device), W)
     p = src.to(torch.int32).index_select(1, rows).index_select(2, cols)
     v = sum(int(t) * p[:, j:j + H, :] for j, t in enumerate(taps_v))
     acc = sum(int(t) * v[:, :, j:j + W] for j, t in enumerate(taps_h))

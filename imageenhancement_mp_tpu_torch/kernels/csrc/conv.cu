@@ -26,6 +26,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "reflect.cuh"
+
 namespace {
 
 constexpr int kMaxTaps = 31;
@@ -35,7 +37,7 @@ constexpr int kTileW = 128;
 constexpr int kThreads = 256;
 constexpr int kInH = kTileH + 2 * kMaxR;
 constexpr int kInW = kTileW + 2 * kMaxR + 2;  // +2 keeps rows 4-byte aligned
-constexpr int kMaxPlanes = 65535;             // gridDim.z
+constexpr int64_t kMaxGridZ = 65535;          // planes beyond it stride over gridDim.z
 
 struct ConvParams {
   int32_t tv[kMaxTaps];
@@ -45,20 +47,9 @@ struct ConvParams {
   float alpha, beta;
 };
 
-// numpy.pad(mode="reflect") index: period 2(n-1), so a halo deeper than the
-// plane reflects again; a 1-pixel axis repeats its only pixel.
-__device__ __forceinline__ int reflect101(int i, int n) {
-  if (i >= 0 && i < n) return i;
-  if (n == 1) return 0;
-  const int m = 2 * (n - 1);
-  i %= m;
-  if (i < 0) i += m;
-  return i >= n ? m - i : i;
-}
-
 __global__ void __launch_bounds__(kThreads)
-sep_conv_u8_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
-                   const uint8_t* __restrict__ luts, ConvParams prm) {
+sep_conv_u8_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int64_t B, int H,
+                   int W, const uint8_t* __restrict__ luts, ConvParams prm) {
   __shared__ uint8_t lut[256];
   __shared__ int32_t tv[kMaxTaps], th[kMaxTaps];
   __shared__ uint8_t tile[kInH][kInW];
@@ -67,51 +58,55 @@ sep_conv_u8_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int
   const int tid = threadIdx.x;
   const int kv = prm.kv, kh = prm.kh;
   const int rv = kv >> 1, rh = kh >> 1;
-  const int64_t b = blockIdx.z;
   const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
-  const int64_t plane = b * int64_t(H) * W;
+  const int in_h = kTileH + 2 * rv, in_w = kTileW + 2 * rh;
 
-  if (luts != nullptr) lut[tid] = luts[b * 256 + tid];
   if (tid < kMaxTaps) {
     tv[tid] = prm.tv[tid];
     th[tid] = prm.th[tid];
   }
-  __syncthreads();
 
-  // Input tile with halo; rows and columns past the plane's edge are
-  // reflected like the halo, read and never written.
-  const int in_h = kTileH + 2 * rv, in_w = kTileW + 2 * rh;
-  for (int i = tid; i < in_h * in_w; i += kThreads) {
-    const int r = i / in_w, c = i - r * in_w;
-    const int sy = reflect101(y0 - rv + r, H);
-    const int sx = reflect101(x0 - rh + c, W);
-    const uint8_t v = x[plane + int64_t(sy) * W + sx];
-    tile[r][c] = luts != nullptr ? lut[v] : v;
-  }
-  __syncthreads();
+  // planes stride over gridDim.z, so any number of planes fits the grid
+  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
+    const int64_t plane = b * int64_t(H) * W;
+    if (luts != nullptr) lut[tid] = luts[b * 256 + tid];
+    __syncthreads();
 
-  for (int i = tid; i < kTileH * in_w; i += kThreads) {
-    const int r = i / in_w, c = i - r * in_w;
-    int32_t acc = 0;
-    for (int j = 0; j < kv; ++j) acc += tv[j] * int32_t(tile[r + j][c]);
-    vacc[r][c] = acc;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kTileH * kTileW; i += kThreads) {
-    const int r = i / kTileW, c = i % kTileW;
-    const int y = y0 + r, xx = x0 + c;
-    if (y >= H || xx >= W) continue;
-    int32_t acc = 0;
-    for (int j = 0; j < kh; ++j) acc += th[j] * vacc[r][c + j];
-    const int32_t blur = min((acc + 32768) >> 16, 255);
-    int32_t res = blur;
-    if (prm.unsharp) {
-      const float t = __fmul_rn(__int2float_rn(blur), prm.beta);
-      const float s = __fmaf_rn(__int2float_rn(tile[r + rv][c + rh]), prm.alpha, t);
-      res = __float2int_rn(fminf(fmaxf(rintf(s), 0.0f), 255.0f));
+    // Input tile with halo; rows and columns past the plane's edge are
+    // reflected like the halo, read and never written.
+    for (int i = tid; i < in_h * in_w; i += kThreads) {
+      const int r = i / in_w, c = i - r * in_w;
+      const int sy = reflect101(y0 - rv + r, H);
+      const int sx = reflect101(x0 - rh + c, W);
+      const uint8_t v = x[plane + int64_t(sy) * W + sx];
+      tile[r][c] = luts != nullptr ? lut[v] : v;
     }
-    out[plane + int64_t(y) * W + xx] = uint8_t(res);
+    __syncthreads();
+
+    for (int i = tid; i < kTileH * in_w; i += kThreads) {
+      const int r = i / in_w, c = i - r * in_w;
+      int32_t acc = 0;
+      for (int j = 0; j < kv; ++j) acc += tv[j] * int32_t(tile[r + j][c]);
+      vacc[r][c] = acc;
+    }
+    __syncthreads();
+
+    for (int i = tid; i < kTileH * kTileW; i += kThreads) {
+      const int r = i / kTileW, c = i % kTileW;
+      const int y = y0 + r, xx = x0 + c;
+      if (y >= H || xx >= W) continue;
+      int32_t acc = 0;
+      for (int j = 0; j < kh; ++j) acc += th[j] * vacc[r][c + j];
+      const int32_t blur = min((acc + 32768) >> 16, 255);
+      int32_t res = blur;
+      if (prm.unsharp) {
+        const float t = __fmul_rn(__int2float_rn(blur), prm.beta);
+        const float s = __fmaf_rn(__int2float_rn(tile[r + rv][c + rh]), prm.alpha, t);
+        res = __float2int_rn(fminf(fmaxf(rintf(s), 0.0f), 255.0f));
+      }
+      out[plane + int64_t(y) * W + xx] = uint8_t(res);
+    }
+    __syncthreads();  // the next plane overwrites lut and tile
   }
 }
 
@@ -126,7 +121,7 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
                    const int32_t* taps_v, int32_t kv, const int32_t* taps_h, int32_t kh,
                    const uint8_t* luts, int32_t unsharp, float alpha, float beta,
                    cudaStream_t stream) {
-  if (B < 1 || B > kMaxPlanes || H < 1 || W < 1 || H > 0x7fffffffLL - kTileH ||
+  if (B < 1 || H < 1 || W < 1 || H > 0x7fffffffLL - kTileH ||
       W > 0x7fffffffLL - kTileW || kv < 1 || kv > kMaxTaps || kh < 1 || kh > kMaxTaps ||
       kv % 2 == 0 || kh % 2 == 0)
     return int(cudaErrorInvalidValue);
@@ -140,8 +135,9 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
   prm.unsharp = unsharp;
   prm.alpha = alpha;
   prm.beta = beta;
-  const dim3 grid(unsigned((W + kTileW - 1) / kTileW), unsigned(gy), unsigned(B));
-  sep_conv_u8_kernel<<<grid, kThreads, 0, stream>>>(x, out, int(H), int(W), luts, prm);
+  const dim3 grid(unsigned((W + kTileW - 1) / kTileW), unsigned(gy),
+                  unsigned(B < kMaxGridZ ? B : kMaxGridZ));
+  sep_conv_u8_kernel<<<grid, kThreads, 0, stream>>>(x, out, B, int(H), int(W), luts, prm);
   return int(cudaGetLastError());
 }
 

@@ -17,7 +17,7 @@ constexpr int kWarps = kThreads / 32;
 // Bytes one block covers in the streaming kernels: 256 threads x 16 vectors
 // of 16 B.  Planes larger than this get several blocks each.
 constexpr int64_t kBytesPerBlock = int64_t(kThreads) * 16 * 16;
-constexpr int kMaxPlanes = 65535;  // gridDim.y
+constexpr int64_t kMaxGridY = 65535;  // planes beyond it stride over gridDim.y
 
 // A plane's bytes as an unaligned head, a body of 16-byte vectors and a tail.
 struct Split {
@@ -58,34 +58,37 @@ __device__ __forceinline__ void count4(int32_t* bins, uint32_t w) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t n) {
+hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t B, int64_t n) {
   __shared__ int32_t bins[kWarps][256];
   const int tid = threadIdx.x;
-  for (int i = tid; i < kWarps * 256; i += kThreads) (&bins[0][0])[i] = 0;
-  __syncthreads();
-
-  const int64_t b = blockIdx.y;
-  const uint8_t* p = x + b * n;
-  const Split s = split_plane(p, n);
   const int64_t g = int64_t(blockIdx.x) * kThreads + tid;
   const int64_t stride = int64_t(gridDim.x) * kThreads;
   int32_t* mine = bins[tid >> 5];
 
-  const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
-  for (int64_t i = g; i < s.nvec; i += stride) {
-    const uint4 v = pv[i];
-    count4(mine, v.x);
-    count4(mine, v.y);
-    count4(mine, v.z);
-    count4(mine, v.w);
-  }
-  for (int64_t i = g; i < s.head; i += stride) atomicAdd(&mine[p[i]], 1);
-  for (int64_t i = s.tail_start + g; i < n; i += stride) atomicAdd(&mine[p[i]], 1);
-  __syncthreads();
+  // planes stride over gridDim.y, so any number of planes fits the grid
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    for (int i = tid; i < kWarps * 256; i += kThreads) (&bins[0][0])[i] = 0;
+    __syncthreads();
 
-  int32_t sum = 0;
-  for (int w = 0; w < kWarps; ++w) sum += bins[w][tid];
-  if (sum) atomicAdd(&out[b * 256 + tid], sum);
+    const uint8_t* p = x + b * n;
+    const Split s = split_plane(p, n);
+    const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
+    for (int64_t i = g; i < s.nvec; i += stride) {
+      const uint4 v = pv[i];
+      count4(mine, v.x);
+      count4(mine, v.y);
+      count4(mine, v.z);
+      count4(mine, v.w);
+    }
+    for (int64_t i = g; i < s.head; i += stride) atomicAdd(&mine[p[i]], 1);
+    for (int64_t i = s.tail_start + g; i < n; i += stride) atomicAdd(&mine[p[i]], 1);
+    __syncthreads();
+
+    int32_t sum = 0;
+    for (int w = 0; w < kWarps; ++w) sum += bins[w][tid];
+    if (sum) atomicAdd(&out[b * 256 + tid], sum);
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -151,30 +154,32 @@ __device__ __forceinline__ uint32_t map4(const uint8_t* tab, uint32_t w) {
 
 __global__ void __launch_bounds__(kThreads)
 apply_lut256_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ luts,
-                    int64_t lut_stride, uint8_t* __restrict__ out, int64_t n) {
+                    int64_t lut_stride, uint8_t* __restrict__ out, int64_t B, int64_t n) {
   __shared__ uint8_t tab[256];
   const int tid = threadIdx.x;
-  const int64_t b = blockIdx.y;
-  tab[tid] = luts[b * lut_stride + tid];
-  __syncthreads();
-
-  const uint8_t* p = x + b * n;
-  uint8_t* q = out + b * n;
-  Split s = split_plane(p, n);
-  if ((reinterpret_cast<uintptr_t>(p) ^ reinterpret_cast<uintptr_t>(q)) & 15) {
-    s = {n, 0, n};  // mismatched alignment: the whole plane is "head"
-  }
   const int64_t g = int64_t(blockIdx.x) * kThreads + tid;
   const int64_t stride = int64_t(gridDim.x) * kThreads;
 
-  const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
-  uint4* qv = reinterpret_cast<uint4*>(q + s.head);
-  for (int64_t i = g; i < s.nvec; i += stride) {
-    const uint4 v = pv[i];
-    qv[i] = make_uint4(map4(tab, v.x), map4(tab, v.y), map4(tab, v.z), map4(tab, v.w));
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    __syncthreads();  // the previous plane's reads of tab are done
+    tab[tid] = luts[b * lut_stride + tid];
+    __syncthreads();
+
+    const uint8_t* p = x + b * n;
+    uint8_t* q = out + b * n;
+    Split s = split_plane(p, n);
+    if ((reinterpret_cast<uintptr_t>(p) ^ reinterpret_cast<uintptr_t>(q)) & 15) {
+      s = {n, 0, n};  // mismatched alignment: the whole plane is "head"
+    }
+    const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
+    uint4* qv = reinterpret_cast<uint4*>(q + s.head);
+    for (int64_t i = g; i < s.nvec; i += stride) {
+      const uint4 v = pv[i];
+      qv[i] = make_uint4(map4(tab, v.x), map4(tab, v.y), map4(tab, v.z), map4(tab, v.w));
+    }
+    for (int64_t i = g; i < s.head; i += stride) q[i] = tab[p[i]];
+    for (int64_t i = s.tail_start + g; i < n; i += stride) q[i] = tab[p[i]];
   }
-  for (int64_t i = g; i < s.head; i += stride) q[i] = tab[p[i]];
-  for (int64_t i = s.tail_start + g; i < n; i += stride) q[i] = tab[p[i]];
 }
 
 }  // namespace
@@ -185,8 +190,9 @@ const char* ie_error_string(int err) { return cudaGetErrorString(cudaError_t(err
 
 // x: [B, n] u8 contiguous; out: [B, 256] int32, zeroed by the caller.
 int ie_hist256(const uint8_t* x, int32_t* out, int64_t B, int64_t n, cudaStream_t stream) {
-  if (B < 1 || B > kMaxPlanes || n < 1) return int(cudaErrorInvalidValue);
-  hist256_kernel<<<dim3(blocks_per_plane(n), unsigned(B)), kThreads, 0, stream>>>(x, out, n);
+  if (B < 1 || n < 1) return int(cudaErrorInvalidValue);
+  const dim3 grid(blocks_per_plane(n), unsigned(B < kMaxGridY ? B : kMaxGridY));
+  hist256_kernel<<<grid, kThreads, 0, stream>>>(x, out, B, n);
   return int(cudaGetLastError());
 }
 
@@ -203,9 +209,9 @@ int ie_equalize_lut256(const int32_t* hist, uint8_t* lut, int64_t B, int64_t tot
 // (lut_stride 0 shares one table, 256 gives one per plane).
 int ie_apply_lut256(const uint8_t* x, const uint8_t* luts, int64_t lut_stride, uint8_t* out,
                     int64_t B, int64_t n, cudaStream_t stream) {
-  if (B < 1 || B > kMaxPlanes || n < 1) return int(cudaErrorInvalidValue);
-  apply_lut256_kernel<<<dim3(blocks_per_plane(n), unsigned(B)), kThreads, 0, stream>>>(
-      x, luts, lut_stride, out, n);
+  if (B < 1 || n < 1) return int(cudaErrorInvalidValue);
+  const dim3 grid(blocks_per_plane(n), unsigned(B < kMaxGridY ? B : kMaxGridY));
+  apply_lut256_kernel<<<grid, kThreads, 0, stream>>>(x, luts, lut_stride, out, B, n);
   return int(cudaGetLastError());
 }
 

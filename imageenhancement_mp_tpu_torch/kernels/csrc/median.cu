@@ -1,0 +1,149 @@
+// median_kernel<T, K>: cv2.medianBlur with K in {3, 5} on u8, u16 or i16
+// planes, replicate border, exact.
+//
+// Replaces imageenhancement_mp_tpu/kernels/median.py::median_blur_pallas
+// (_median_kernel: double-buffered row stripes with a host edge-pad, taps
+// widened to int32 on the VPU, the networks of kernels/networks.py).
+//
+// What bounds it on this card: integer min/max throughput, not memory.  The
+// 5x5 selection below is 168 compare-exchanges, about 336 integer min/max per
+// pixel, against 2 B/px (u8) of traffic; the 3x3 network is 19.  Design: one
+// block per 16x64 output tile of one plane.  The block stages the tile and
+// its K-1 halo in shared memory with clamped indices (the replicate border,
+// so no host pad), then each thread takes its K*K taps from shared memory
+// into registers and runs the network on them.  The networks are fully
+// unrolled with compile-time indices, so the taps stay in registers; ptxas's
+// report (nvcc.log) shows whether any spill.
+//
+// Networks, as kernels/networks.py builds them:
+//  * 9 taps: Paeth's 19-comparator median network.
+//  * 25 taps: forgetful selection.  Start with the first 14 taps; each round
+//    moves the window's minimum and maximum out and takes in the next tap;
+//    after 11 rounds the median is the middle of the last three.
+// Taps are held as int, the register width: u8, u16 and i16 values all fit,
+// and a signed int compare orders each type as the type itself does.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileW = 64;
+constexpr int kTileH = 16;
+constexpr int kRowStep = kThreads / kTileW;       // 4 rows apart
+constexpr int kRowsPerThread = kTileH / kRowStep;  // 4 outputs per thread
+constexpr int64_t kMaxGridZ = 65535;               // planes beyond it stride over gridDim.z
+
+__device__ __forceinline__ void cex(int& a, int& b) {
+  const int lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+__device__ __forceinline__ int median9(int (&w)[9]) {
+  cex(w[1], w[2]); cex(w[4], w[5]); cex(w[7], w[8]); cex(w[0], w[1]);
+  cex(w[3], w[4]); cex(w[6], w[7]); cex(w[1], w[2]); cex(w[4], w[5]);
+  cex(w[7], w[8]); cex(w[0], w[3]); cex(w[5], w[8]); cex(w[4], w[7]);
+  cex(w[3], w[6]); cex(w[1], w[4]); cex(w[2], w[5]); cex(w[4], w[7]);
+  cex(w[4], w[2]); cex(w[6], w[4]); cex(w[4], w[2]);
+  return w[4];
+}
+
+__device__ __forceinline__ int median25(int (&a)[25]) {
+  // round r: the window is a[2r .. 13+r]; its minimum goes to a[2r] and its
+  // maximum to a[2r+1], both dropped; a[14+r] joins for the next round
+#pragma unroll
+  for (int r = 0; r < 11; ++r) {
+#pragma unroll
+    for (int i = 2 * r + 1; i <= 13 + r; ++i) cex(a[2 * r], a[i]);
+#pragma unroll
+    for (int i = 2 * r + 2; i <= 13 + r; ++i) cex(a[i], a[2 * r + 1]);
+  }
+  cex(a[22], a[23]);
+  cex(a[23], a[24]);
+  cex(a[22], a[23]);
+  return a[23];
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+median_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t B, int H, int W) {
+  constexpr int R = K / 2;
+  constexpr int kInH = kTileH + 2 * R, kInW = kTileW + 2 * R;
+  __shared__ T tile[kInH][kInW];
+
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  const int c = tid % kTileW, r0 = tid / kTileW;
+  const int xx = x0 + c;
+
+  // planes stride over gridDim.z, so any number of planes fits the grid
+  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
+    const int64_t plane = b * int64_t(H) * W;
+    for (int i = tid; i < kInH * kInW; i += kThreads) {
+      const int rr = i / kInW, cc = i - rr * kInW;
+      const int sy = min(max(y0 - R + rr, 0), H - 1);
+      const int sx = min(max(x0 - R + cc, 0), W - 1);
+      tile[rr][cc] = x[plane + int64_t(sy) * W + sx];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      const int r = r0 + k * kRowStep;
+      const int y = y0 + r;
+      if (y < H && xx < W) {
+        int w[K * K];
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) w[dy * K + dx] = int(tile[r + dy][c + dx]);
+        }
+        int m;
+        if constexpr (K == 3) {
+          m = median9(w);
+        } else {
+          m = median25(w);
+        }
+        out[plane + int64_t(y) * W + xx] = T(m);
+      }
+    }
+    __syncthreads();  // the next plane overwrites the tile
+  }
+}
+
+template <typename T>
+int launch_median(const void* x, void* out, int64_t B, int64_t H, int64_t W, int32_t ksize,
+                  cudaStream_t stream) {
+  const dim3 grid(unsigned((W + kTileW - 1) / kTileW), unsigned((H + kTileH - 1) / kTileH),
+                  unsigned(B < kMaxGridZ ? B : kMaxGridZ));
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  if (ksize == 3) {
+    median_kernel<T, 3><<<grid, kThreads, 0, stream>>>(xp, op, B, int(H), int(W));
+  } else {
+    median_kernel<T, 5><<<grid, kThreads, 0, stream>>>(xp, op, B, int(H), int(W));
+  }
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, out: [B, H, W] contiguous; dtype 0 = u8, 1 = u16, 2 = i16; ksize 3 or 5.
+int ie_median(const void* x, void* out, int64_t B, int64_t H, int64_t W, int32_t dtype,
+              int32_t ksize, cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || W > 0x7fffffffLL - kTileW ||
+      (H + kTileH - 1) / kTileH > 65535 || (ksize != 3 && ksize != 5))
+    return int(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0: return launch_median<uint8_t>(x, out, B, H, W, ksize, stream);
+    case 1: return launch_median<uint16_t>(x, out, B, H, W, ksize, stream);
+    case 2: return launch_median<int16_t>(x, out, B, H, W, ksize, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,48 @@
+"""Enhancement pipeline presets, as ``imageenhancement_mp_tpu/models/presets.py``
+names them.
+
+The system has no neural models: its "models" are enhancement recipes
+(BASELINE.json:6-12).  ``PRESETS`` is a verbatim copy of the JAX package's
+table; :func:`get_preset` builds one through ``pipeline.make_pipeline``.  A
+preset with a stage the port does not have yet raises
+``NotImplementedError`` when it is built, naming its ROADMAP Queue 1 item.
+"""
+
+from __future__ import annotations
+
+from imageenhancement_mp_tpu_torch.pipeline import make_pipeline
+
+__all__ = ["PRESETS", "get_preset"]
+
+# The five judged configs (BASELINE.json:6-12)
+PRESETS: dict[str, list] = {
+    # config 1/2: point ops
+    "histeq": [("equalize_hist", {})],
+    "gamma_stretch": [("gamma", {"gamma": 2.2}), ("contrast_stretch", {})],
+    # config 3: fused spatial filters
+    "sharpen": [("unsharp_mask", {"amount": 1.0, "ksize": 5})],
+    # config 4
+    "clahe": [("clahe", {"clip_limit": 2.0, "tile_grid": (8, 8)})],
+    # config 5: full streaming pipeline
+    "denoise_clahe_sharpen": [
+        ("median_blur", {"ksize": 5}),
+        ("clahe", {"clip_limit": 2.0, "tile_grid": (8, 8)}),
+        ("unsharp_mask", {"amount": 1.0, "ksize": 5}),
+    ],
+    # two-stage denoise+sharpen (stateless chain; also available as the
+    # fused Pallas kernel kernels.fused.median_unsharp_pallas)
+    "denoise_sharpen": [
+        ("median_blur", {"ksize": 5}),
+        ("unsharp_mask", {"amount": 1.0, "ksize": 5}),
+    ],
+    # north-star pipeline (BASELINE.json:2)
+    "histeq_unsharp": [("equalize_hist", {}), ("unsharp_mask", {"amount": 1.0, "ksize": 5})],
+}
+
+
+def get_preset(name: str, mesh=None):
+    """Build the pipeline of a named preset.  ``mesh`` (multi-GPU) is
+    ROADMAP Queue 1 item 12 and raises."""
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return make_pipeline(PRESETS[name], mesh=mesh)

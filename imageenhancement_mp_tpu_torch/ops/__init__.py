@@ -1,2 +1,47 @@
 """Planes-level ops ``[B, H, W]``: the port's counterparts of
-``imageenhancement_mp_tpu/ops`` for the ported slice."""
+``imageenhancement_mp_tpu/ops`` for the ported slices.
+
+``OP_REGISTRY`` maps the JAX registry's names (ops/__init__.py:53-94) to the
+ported ops.  Looking up a name the JAX registry has but the port does not
+yet raises ``NotImplementedError`` naming its ROADMAP Queue 1 item; an
+unknown name raises ``KeyError``.
+"""
+
+from __future__ import annotations
+
+from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
+from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
+from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
+from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+
+__all__ = ["OP_REGISTRY", "LATER"]
+
+# the JAX registry's names not ported yet -> their ROADMAP Queue 1 item
+LATER = {
+    **dict.fromkeys(("gamma", "log_transform", "contrast_stretch", "convert_scale_abs"), 6),
+    "equalize_hist_global": 4,
+    **dict.fromkeys(("adaptive_threshold", "bilateral", "warp_affine", "warp_perspective",
+                     "warp_polar", "remap", "undistort", "fast_nl_means"), 9),
+    **dict.fromkeys((
+        "box_blur", "threshold", "erode", "dilate", "morphology", "sobel", "pyr_down",
+        "resize", "flip", "rotate", "transpose", "canny", "connected_components",
+        "match_template", "box_filter", "corner_harris", "corner_min_eigen_val",
+        "calc_back_project", "filter2d", "pyr_up", "laplacian_sharpen", "stack_blur"), 10),
+}
+
+
+class _Registry(dict):
+    def __missing__(self, name):
+        if name in LATER:
+            raise NotImplementedError(
+                f"op {name!r} is not ported yet: ROADMAP Queue 1 item {LATER[name]}")
+        raise KeyError(f"unknown op {name!r}; available: {sorted(self)}")
+
+
+OP_REGISTRY = _Registry(
+    equalize_hist=equalize_hist_planes,
+    gaussian_blur=gaussian_blur_planes,
+    unsharp_mask=unsharp_mask_planes,
+    median_blur=median_blur_planes,
+    clahe=clahe_planes,
+)

@@ -144,7 +144,7 @@ def test_reflect_index_matches_numpy():
     for n in range(1, 9):
         for r in range(0, 16):
             want = np.pad(np.arange(n), r, mode="reflect")
-            got = kconv._reflect101_index(n, r, torch.device("cpu")).numpy()
+            got = kconv.reflect101(torch.arange(-r, n + r), n).numpy()
             np.testing.assert_array_equal(got, want, err_msg=f"n={n} r={r}")
 
 
