@@ -35,7 +35,19 @@
    Holds every result against the plain path on the card, the streamed
    outputs against the direct calls, and one 4K frame against the plain path
    on the CPU, at 0 LSB; then times each path, kernels against plain.
-6. Prints a one-line JSON per-kernel summary, then, as the last line,
+6. Holds the bilateral and athresh kernels against their plain versions at
+   0 LSB (d 3, 5, 9, 51 and a sigma-derived radius; sigma pairs 75/75, 30/30,
+   10/200; block sizes 3 to 101, both types, C in {-3.5, 0, 2, 7.2}; tiny
+   planes, planes smaller than the radius, a storage offset of one element,
+   1079x1917, [70000, 8, 8]); runs a [1, 2_200_000, 8] plane (more row tiles
+   than a grid axis of 65535 holds) through sep_conv_u8, median, CLAHE,
+   bilateral and athresh against their plain versions; then drives
+   bilateral_filter(9, 75, 75), adaptive_threshold(gaussian, 11, 2),
+   threshold(otsu) and make_pipeline(bilateral -> adaptive_threshold) at
+   2x2160x3840 u8, each with counters of its own (exactly one bilateral, one
+   athresh, one hist256 launch, one of each), against the plain path on the
+   card and one 4K frame against the plain path on the CPU, and times them.
+7. Prints a one-line JSON per-kernel summary, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every check raises on failure; nothing is caught.  Imports nothing of JAX.
@@ -57,7 +69,8 @@ ROOT = Path(__file__).resolve().parent
 PKG = "imageenhancement_mp_tpu_torch"
 MAIN_KERNELS = ("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8")
 CONFIG5_KERNELS = ("median", "hist256_tiles", "clahe_lut", "clahe_blend", "sep_conv_u8")
-KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1]
+SLICE3_KERNELS = ("bilateral", "athresh")
+KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -67,6 +80,8 @@ SOURCES = {
     "hist256_tiles": f"{PKG}/kernels/csrc/clahe.cu",
     "clahe_lut": f"{PKG}/kernels/csrc/clahe.cu",
     "clahe_blend": f"{PKG}/kernels/csrc/clahe.cu",
+    "bilateral": f"{PKG}/kernels/csrc/bilateral.cu",
+    "athresh": f"{PKG}/kernels/csrc/athresh.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -77,6 +92,8 @@ REPLACES = {
     "hist256_tiles": "imageenhancement_mp_tpu/kernels/hist.py:156 via imageenhancement_mp_tpu/ops/clahe.py:212",
     "clahe_lut": "imageenhancement_mp_tpu/ops/clahe.py:74 (an XLA stage; no Pallas kernel)",
     "clahe_blend": "imageenhancement_mp_tpu/kernels/clahe_u16.py:201 and imageenhancement_mp_tpu/kernels/clahe_blend.py:136",
+    "bilateral": "imageenhancement_mp_tpu/kernels/bilateral.py:158",
+    "athresh": "imageenhancement_mp_tpu/kernels/dfconv.py:183",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -126,12 +143,17 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import imageenhancement_mp_tpu_torch as port
     from imageenhancement_mp_tpu_torch.kernels import _build, launch_counts, reset_launch_counts
+    from imageenhancement_mp_tpu_torch.kernels import athresh as kathr
+    from imageenhancement_mp_tpu_torch.kernels import bilateral as kbil
     from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
     from imageenhancement_mp_tpu_torch.kernels import conv as kconv
     from imageenhancement_mp_tpu_torch.kernels import hist as khist
     from imageenhancement_mp_tpu_torch.kernels import median as kmedian
+    from imageenhancement_mp_tpu_torch.ops import bilateral as tbil
     from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
+    from imageenhancement_mp_tpu_torch.ops import threshold as tthr
     from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+    from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold
 
     if Path(port.__file__).resolve().parent != ROOT / PKG:
         raise SystemExit(f"chip_smoke: imported {port.__file__}, not this checkout's {PKG}")
@@ -338,19 +360,92 @@ def main() -> None:
         check("hist256_tiles", h_sl, kclahe.tile_hists_plain(many[sl], 8, 8, 1, 1), what)
         check("clahe_lut", l_sl.reshape(-1, 256), kclahe.clahe_lut_plain(h_sl, 1, 40.0), what)
         check("clahe_blend", bk[sl], clahe_plain(many[sl], 40.0, (8, 8)), what)
+    bil9 = tbil.bilateral_tables(9, 75.0, 75.0, 1, dev)
+    taps11 = tthr.gaussian_taps(11, dev)
+    check("bilateral", kbil.bilateral_gray(many, *bil9), kbil.bilateral_gray_plain(many, *bil9),
+          "70000x8x8 d=9")
+    check("athresh", kathr.adaptive_threshold_gaussian(many, taps11, 255, 2, False),
+          kathr.adaptive_threshold_gaussian_plain(many, taps11, 255, 2, False), "70000x8x8 k=11")
     del many, hm, lm, hk, lk, bk
+
+    # the bilateral kernel: radii 1, 2, 4, 25 and sigma-derived (d = 0);
+    # tiny planes and planes smaller than the disc (reflected again)
+    bil_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 3, 4), (3, 5, 9)]
+    bil_params = [(d, sc, ss) for d in (3, 5, 9) for sc, ss in
+                  ((75.0, 75.0), (30.0, 30.0), (10.0, 200.0))]
+    bil_params += [(51, 30.0, 30.0), (0, 10.0, 16.0), (0, 75.0, 3.0)]
+    n_bil = 0
+
+    def check_bilateral(x: torch.Tensor, params, what: str) -> None:
+        nonlocal n_bil
+        tables = tbil.bilateral_tables(*params[:3], 1, dev)
+        check("bilateral", kbil.bilateral_gray(x, *tables), kbil.bilateral_gray_plain(x, *tables),
+              f"{what} d={params[0]} sigma={params[1:]}")
+        n_bil += 1
+
+    for shape in bil_shapes:
+        x = rand_u8(shape)
+        for xx in (x, misaligned(x)):
+            for params in bil_params:
+                check_bilateral(xx, params, f"{tuple(xx.shape)} offset {xx.storage_offset()}")
+    x = rand_u8((1, 1079, 1917))
+    for params in ((9, 75.0, 75.0), (5, 10.0, 200.0)):
+        check_bilateral(x, params, "1079x1917")
+
+    # the athresh kernel: block sizes through the shared-memory route (<= 51)
+    # and the two-pass route (61, 101), both types, C around 0
+    ath_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 5, 7)]
+    n_ath = 0
+
+    def check_athresh(x: torch.Tensor, bs: int, C: float, inv: bool, mv: int, what: str) -> None:
+        nonlocal n_ath
+        taps = tthr.gaussian_taps(bs, dev)
+        idelta = int(np.floor(C)) if inv else int(np.ceil(C))
+        check("athresh", kathr.adaptive_threshold_gaussian(x, taps, mv, idelta, inv),
+              kathr.adaptive_threshold_gaussian_plain(x, taps, mv, idelta, inv),
+              f"{what} block {bs} C={C} inv={inv} maxval {mv}")
+        n_ath += 1
+
+    for shape in ath_shapes:
+        x = rand_u8(shape)
+        for xx in (x, misaligned(x)):
+            for bs in (3, 5, 7, 11, 17, 51, 61, 101):
+                for C in (-3.5, 0.0, 2.0, 7.2):
+                    for inv in (False, True):
+                        check_athresh(xx, bs, C, inv, 255 if C else 200,
+                                      f"{tuple(xx.shape)} offset {xx.storage_offset()}")
+    x = rand_u8((1, 1079, 1917))
+    for bs in (11, 51, 61):
+        check_athresh(x, bs, 2.0, False, 255, "1079x1917")
+
+    # P3: more row tiles than a grid axis of 65535 holds (16-row tiles for
+    # median, bilateral and athresh; 32 for sep_conv_u8; 8-row bands for
+    # clahe_blend)
+    tall = rand_u8((1, 2_200_000, 8))
+    what = "1x2200000x8"
+    check("sep_conv_u8", kconv.sep_conv_u8(tall, tv5, th5, 1.0),
+          kconv.sep_conv_u8_plain(tall, tv5, th5, 1.0), what)
+    check("median", kmedian.median_blur(tall, 5), kmedian.median_blur_plain(tall, 5), what)
+    check_clahe(tall, 2.0, (8, 8), what + " grid 8x8")
+    check_bilateral(tall, (9, 75.0, 75.0), what)
+    check_athresh(tall, 11, 2.0, False, 255, what)
+    check_athresh(tall, 61, 2.0, True, 255, what)
+    del tall, x
     torch.cuda.synchronize()
     for name in KERNELS:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
           f"{len(planes_cases)} plane cases, {2 * len(conv_cases)} conv cases, "
-          f"{n_med} median cases and {n_clahe} CLAHE cases (each stage and the whole op), "
-          "the 70000x8x8 batch through every kernel and the 1100x1080x1920 batch")
+          f"{n_med} median cases, {n_clahe} CLAHE cases (each stage and the whole op), "
+          f"{n_bil} bilateral and {n_ath} athresh cases, the 70000x8x8 batch through every "
+          "kernel, the 1x2200000x8 plane through sep_conv_u8, median, CLAHE, bilateral and "
+          "athresh, and the 1100x1080x1920 batch")
 
     # per-kernel time at the main paths' shapes, kernel vs plain: the first
     # four at equalize_unsharp's 8x1080x1920, the config-5 kernels at its
-    # 2x2160x3840 (CLAHE grid 8x8: 128 tiles of 270x480)
+    # 2x2160x3840 (CLAHE grid 8x8: 128 tiles of 270x480), bilateral (d 9,
+    # sigma 75/75) and athresh (block 11, C 2) at their paths' 2x2160x3840
     x8 = planes_cases[4]
     total8 = x8[0].numel()
     h8 = khist.hist256(x8)
@@ -385,6 +480,12 @@ def main() -> None:
         "clahe_blend": (lambda: kclahe.clahe_blend(g5, l5, 8, 8, *tables5),
                         lambda: kclahe.clahe_blend_plain(g5, l5, 8, 8, *tables5),
                         tuple(g5.shape) + ("grid 8x8",), (10, 3)),
+        "bilateral": (lambda: kbil.bilateral_gray(g5, *bil9),
+                      lambda: kbil.bilateral_gray_plain(g5, *bil9),
+                      tuple(g5.shape) + ("d=9 sigma 75/75",), (5, 2)),
+        "athresh": (lambda: kathr.adaptive_threshold_gaussian(g5, taps11, 255, 2, False),
+                    lambda: kathr.adaptive_threshold_gaussian_plain(g5, taps11, 255, 2, False),
+                    tuple(g5.shape) + ("block 11 C=2",), (10, 3)),
     }
     ms = {}
     for name, (kfn, pfn, label, (runs, calls)) in timed.items():
@@ -555,10 +656,72 @@ def main() -> None:
               f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
               f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
 
+    # -- 6. bilateral and thresholds through the public functions ---------------
+    del frames, g_rgb, g_u16, g_i16, out5, clahe_rgb, clahe_u16, med_u16, med_i16
+    doc_pipe = port.make_pipeline([
+        ("bilateral", {"d": 9, "sigma_color": 75.0, "sigma_space": 75.0}),
+        ("adaptive_threshold", {"method": "gaussian", "block_size": 11, "C": 2.0}),
+    ])
+
+    def plain_bilateral(planes: torch.Tensor) -> torch.Tensor:
+        return kbil.bilateral_gray_plain(planes, *tbil.bilateral_tables(9, 75.0, 75.0, 1,
+                                                                        planes.device))
+
+    def plain_athresh(planes: torch.Tensor) -> torch.Tensor:
+        return kathr.adaptive_threshold_gaussian_plain(
+            planes, tthr.gaussian_taps(11, planes.device), 255, 2, False)
+
+    def plain_otsu(planes: torch.Tensor):
+        hists = khist.hist256_plain(planes).cpu().numpy()
+        ts = np.array([otsu_threshold(h, planes[0].numel()) for h in hists], dtype=np.int32)
+        return ts.astype(np.float64), tthr.threshold_planes(planes, torch.from_numpy(ts))
+
+    slice3 = [  # label, public call, expected launches, plain path
+        ("bilateral_filter(9, 75, 75)", lambda x: port.bilateral_filter(x, 9, 75.0, 75.0),
+         {"bilateral": 1}, plain_bilateral),
+        ("adaptive_threshold(gaussian, binary, 11, 2)",
+         lambda x: port.adaptive_threshold(x, 255.0, "gaussian", "binary", 11, 2.0),
+         {"athresh": 1}, plain_athresh),
+        ("threshold(otsu)", lambda x: port.threshold(x, method="otsu"), {"hist256": 1},
+         plain_otsu),
+        ("make_pipeline(bilateral -> adaptive_threshold)", doc_pipe,
+         {"bilateral": 1, "athresh": 1}, lambda x: plain_athresh(plain_bilateral(x))),
+    ]
+    launches3 = {}
+    for label, fn, expect, plain in slice3:
+        label = f"{label} 2x2160x3840 u8"
+        out, got = drive(label, lambda: fn(g4k), expect)
+        want = plain(g4k)
+        cpu_out = fn(torch.from_numpy(x4k[:1]))
+        if label.startswith("threshold"):
+            (ret, out), (want_ret, want), (cpu_ret, cpu_out) = out, want, cpu_out
+            if not np.array_equal(ret, want_ret) or cpu_ret[0] != want_ret[0]:
+                raise AssertionError(f"{label}: thresholds {ret} (card), {cpu_ret} (CPU frame), "
+                                     f"plain {want_ret}")
+            print(f"{label}: Otsu thresholds {ret.tolist()} equal the plain path's")
+        if out.shape != g4k.shape or out.dtype != torch.uint8 or out.device != dev:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype} {out.device}")
+        if out.float().std() == 0:
+            raise AssertionError(f"{label}: output is constant")
+        e, e_cpu = max_err(out, want), max_err(out[:1].cpu(), cpu_out)
+        print(f"{label}: kernel path vs plain path on the card, max abs err {e}; one 4K frame "
+              f"vs the plain path on the CPU, max abs err {e_cpu}")
+        if e or e_cpu:
+            raise AssertionError(f"{label}: kernel path differs from the plain path")
+        if "make_pipeline" in label:
+            launches3 = got
+    for label, fn, _, plain in slice3:
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(lambda: fn(g4k)), time_ms(lambda: plain(g4k), 5, 2)
+        gpix = g4k.numel() / 1e9
+        print(f"{label} 2x2160x3840 u8: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = "
+              f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
+              f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
+
     # each kernel's launches from the path that runs it: the first main path's
-    # three calls for its four kernels, get_preset's config 5 call for the rest
+    # three calls for its four kernels, get_preset's config 5 call for the
+    # config 5 kernels, the bilateral -> adaptive_threshold pipeline for the rest
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
-                     **launches}
+                     **launches, **{n: launches3[n] for n in SLICE3_KERNELS}}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],

@@ -1,9 +1,10 @@
 """Public functions on torch tensors, with the shapes and keyword names of
-``imageenhancement_mp_tpu/api.py``.
+the JAX package's ``api.py``.
 
 Each accepts ``[H,W]``, ``[H,W,C]``, ``[N,H,W]`` or ``[N,H,W,C]`` images
-(u8, and u16/i16 where a function says so) and works per plane (per image ×
-channel).  The output lies on the input's device:
+(u8, and u16/i16/f32 where a function says so) and works per plane (per
+image × channel), except colour ``bilateral_filter``, whose weights join the
+three channels.  The output lies on the input's device:
 a CPU tensor runs the plain PyTorch versions, a CUDA tensor the kernels.
 ``channels_last=False`` reads a 3-D input as ``[N, H, W]`` even when W ≤ 4.
 """
@@ -13,15 +14,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from imageenhancement_mp_tpu_torch.kernels.hist import hist256
+from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
-from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
+from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, treat_as_hwc
+from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
-           "median_blur"]
+           "median_blur", "bilateral_filter", "threshold", "adaptive_threshold"]
+
+
+def _check_u8(img: torch.Tensor) -> None:
+    if img.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 image tensor, got {img.dtype}")
 
 
 def equalize_hist(img: torch.Tensor, per_frame: bool = True, per_channel: bool = True,
@@ -33,8 +43,7 @@ def equalize_hist(img: torch.Tensor, per_frame: bool = True, per_channel: bool =
     if not per_frame:
         raise NotImplementedError(
             "pooled equalize_hist (per_frame=False) is ROADMAP Queue 1 item 4")
-    if img.dtype != torch.uint8:
-        raise TypeError(f"expected uint8 image tensor, got {img.dtype}")
+    _check_u8(img)
     planes, restore = as_planes(img, channels_last=channels_last)
     return restore(equalize_hist_planes(planes))
 
@@ -73,3 +82,70 @@ def median_blur(img: torch.Tensor, ksize: int = 3, channels_last: bool = True) -
     u8, u16, i16 or f32; the kernel takes u8/u16/i16 at ksize 3 and 5."""
     planes, restore = as_planes(img, channels_last=channels_last)
     return restore(median_blur_planes(planes, int(ksize)))
+
+
+def bilateral_filter(img: torch.Tensor, d: int = 5, sigma_color: float = 50.0,
+                     sigma_space: float = 50.0, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.bilateralFilter(img, d, σ_color, σ_space)`` — edge-preserving
+    denoise, uint8.  Grayscale shapes filter per plane (the kernel on CUDA);
+    C=3 colour uses cv2's JOINT semantics (one weight per pixel from the L1
+    colour distance; plain PyTorch).  C ∉ {1, 3} and σ ≤ 0 raise."""
+    _check_u8(img)
+    color = img.dim() in (3, 4) and (
+        treat_as_hwc(img, channels_last) if img.dim() == 3 else True) and img.shape[-1] == 3
+    if img.dim() == 4 and img.shape[-1] not in (1, 3):
+        raise ValueError(f"bilateral_filter needs C in (1, 3) like cv2, got {tuple(img.shape)}")
+    if not color and img.dim() == 3 and treat_as_hwc(img, channels_last) and img.shape[-1] != 1:
+        raise ValueError(f"bilateral_filter needs C in (1, 3) like cv2, got {tuple(img.shape)}")
+    if color:
+        return bilateral_color(img, int(d), float(sigma_color), float(sigma_space))
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(bilateral_planes(planes, int(d), float(sigma_color), float(sigma_space)))
+
+
+def adaptive_threshold(img: torch.Tensor, maxval: float = 255.0, method: str = "mean",
+                       type: str = "binary", block_size: int = 3, C: float = 0.0,
+                       channels_last: bool = True) -> torch.Tensor:
+    """``cv2.adaptiveThreshold(img, maxval, method, type, blockSize, C)`` —
+    exact (uint8).  ``method``: mean | gaussian (the kernel on CUDA, any odd
+    block size); ``type``: binary | binary_inv.  BORDER_REPLICATE."""
+    _check_u8(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(adaptive_threshold_planes(planes, float(maxval), str(method), str(type),
+                                             int(block_size), float(C)))
+
+
+def threshold(img: torch.Tensor, thresh: float = 0.0, maxval: float = 255.0,
+              type: str = "binary", method: str | None = None, channels_last: bool = True):
+    """``cv2.threshold(img, thresh, maxval, type)`` — exact; returns
+    ``(ret, dst)`` like cv2.  u8, u16, i16 or f32.
+
+    ``type``: binary | binary_inv | trunc | tozero | tozero_inv.
+    ``method``: None | "otsu" | "triangle" — compute the threshold from each
+    plane's histogram (uint8 only, like cv2): the histograms in one
+    ``hist256`` launch on CUDA, then cv2's scans on the host.  On a batch,
+    every plane gets its own threshold — ``ret`` is then a NumPy array shaped
+    like the plane structure ([C], [N], or [N,C]) instead of cv2's scalar.
+    """
+    if img.dtype not in (torch.uint8, torch.uint16, torch.int16, torch.float32):
+        raise TypeError(f"expected uint8/uint16/int16/float32 image tensor, got {img.dtype}")
+    planes, restore = as_planes(img, channels_last=channels_last)
+    if method is None:
+        ret = float(thresh) if img.dtype == torch.float32 else float(np.floor(float(thresh)))
+        return ret, restore(threshold_planes(planes, float(thresh), float(maxval), str(type)))
+    if method not in ("otsu", "triangle"):
+        raise ValueError(f"method must be None, 'otsu' or 'triangle', got {method!r}")
+    if img.dtype != torch.uint8:
+        raise TypeError(f"{method} threshold is uint8-only, like cv2")
+    hists = hist256(planes.contiguous()).cpu().numpy()  # [B, 256], plane order
+    plane_px = planes.shape[-2] * planes.shape[-1]
+    ts = np.array([otsu_threshold(h, plane_px) if method == "otsu" else triangle_threshold(h)
+                   for h in hists], dtype=np.int32)
+    out = restore(threshold_planes(planes, torch.from_numpy(ts), float(maxval), str(type)))
+    if img.dim() == 2:
+        ret = float(ts[0])
+    elif img.dim() == 3:
+        ret = ts.astype(np.float64)  # [C] or [N], plane order == as_planes
+    else:
+        ret = ts.reshape(img.shape[0], img.shape[-1]).astype(np.float64)
+    return ret, out

@@ -1,9 +1,10 @@
 """State carried across from the JAX package.
 
 The system has no weights.  Its only state is the fixed-point tap tables
-(``utils/taps.py``, host NumPy in both packages), the per-plane LUTs and
-CLAHE's per-tile LUTs.  The JAX flagship keeps each plane's 256-entry LUT
-as ``[B, 2, 128]`` int32 (``lut2``, imageenhancement_mp_tpu/pipeline.py:210);
+(``utils/taps.py``, host NumPy in both packages), the per-plane LUTs,
+CLAHE's per-tile LUTs, the bilateral disc and colour table, and the f64 taps
+of the Gaussian adaptive threshold.  The JAX flagship keeps each plane's 256-entry LUT
+as ``[B, 2, 128]`` int32 (``lut2``, the JAX package's pipeline.py:210);
 the port keeps ``[B, 256]`` u8.  JAX's CLAHE stage B returns ``[B·gh·gw, S]``
 u8 or u16 tile LUTs, tiles in ``(b, ty, tx)`` order; the port's stage C reads
 the same layout as a contiguous ``[B·gh·gw, S]`` tensor.  Inputs arrive as NumPy arrays, the format both packages
@@ -17,7 +18,8 @@ import torch
 
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
-__all__ = ["planes_from_numpy", "luts_from_lut2", "clahe_luts_from_jax"]
+__all__ = ["planes_from_numpy", "luts_from_lut2", "clahe_luts_from_jax",
+           "bilateral_tables_from_jax", "athresh_taps_from_jax"]
 
 
 def planes_from_numpy(arr: np.ndarray, channels_last: bool = True) -> torch.Tensor:
@@ -49,3 +51,31 @@ def clahe_luts_from_jax(luts, B: int, gh: int, gw: int) -> torch.Tensor:
         raise ValueError(f"expected [{B * gh * gw}, 256] u8 or [{B * gh * gw}, 65536] u16 "
                          f"tile LUTs, got {a.dtype} {a.shape}")
     return torch.from_numpy(a.copy())  # a writable, contiguous copy
+
+
+def bilateral_tables_from_jax(offs, color_w) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's host bilateral tables (``ops/bilateral.py::bilateral_offsets``:
+    the ``(i, j, w0)`` disc list and the ``[256·cn]`` f32 colour table) →
+    the port's CPU tensors: ``[n, 3]`` f32 offsets rows ``(i, j, w0)`` in
+    the same order, as ``kernels/bilateral.py`` reads them, and the f32 table
+    (``[256]`` for gray)."""
+    rows = np.asarray(offs, dtype=np.float64).reshape(-1, 3)
+    if len(rows) == 0 or np.any(rows[:, :2] != np.round(rows[:, :2])) \
+            or np.any(rows[:, 2] != rows[:, 2].astype(np.float32)):
+        raise ValueError("expected a non-empty list of (i, j, w0) with integer i, j "
+                         "and f32-exact w0")
+    cw = np.asarray(color_w)
+    if cw.dtype != np.float32 or cw.shape not in ((256,), (768,)):
+        raise ValueError(f"expected a [256] or [768] f32 colour table, got {cw.dtype} {cw.shape}")
+    return torch.from_numpy(rows.astype(np.float32)), torch.from_numpy(cw.copy())
+
+
+def athresh_taps_from_jax(taps) -> torch.Tensor:
+    """The f64 taps JAX's Gaussian adaptive threshold takes
+    (``ref/ops.py::gaussian_kernel(block_size, 0)``, passed to
+    ``kernels/dfconv.py`` as Python floats) → the port's ``[k]`` f64 CPU
+    tensor for ``kernels/athresh.py``."""
+    t = np.asarray(taps, dtype=np.float64)
+    if t.ndim != 1 or t.shape[0] < 3 or t.shape[0] % 2 == 0:
+        raise ValueError(f"expected an odd number >= 3 of taps, got shape {t.shape}")
+    return torch.from_numpy(t.copy())

@@ -3,7 +3,7 @@ plain PyTorch version.
 
 * :func:`hist256_tiles` — stage A for u8: the 256-bin histogram of every
   tile of every plane, read in place, pad rows and columns through reflected
-  indices (``imageenhancement_mp_tpu/kernels/hist.py::hist256_pallas`` at
+  indices (the JAX package's ``kernels/hist.py::hist256_pallas`` at
   its CLAHE call site, ops/clahe.py:207-212).  Stage A for u16 stays torch on
   both devices, :func:`tile_hists_plain` (a ``bincount`` over
   ``(plane·T + tile)·65536 + v`` offsets): the JAX package computes it in
@@ -208,8 +208,6 @@ def clahe_blend(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
         return clahe_blend_plain(planes, luts, gh, gw, yidx, fy, xidx, fx)
     check_kernel_input("clahe_blend", planes, luts, yidx, fy, xidx, fx)
     B, H, W = planes.shape
-    if H > 65535 * 8:
-        raise ValueError(f"clahe_blend: at most {65535 * 8} rows, got {H}")
     out = torch.empty_like(planes)
     if out.numel():
         launch("clahe_blend", planes.device, planes.data_ptr(), luts.data_ptr(), out.data_ptr(),

@@ -1,8 +1,8 @@
 """Separable u8 Gaussian with optional LUT prologue and unsharp epilogue.
 
 :func:`sep_conv_u8` replaces both TPU conv kernels,
-``imageenhancement_mp_tpu/kernels/conv2.py::sep_conv5_wide`` (wide shapes,
-LUT prologue) and ``imageenhancement_mp_tpu/kernels/conv.py::_sep_conv_planes``
+the JAX package's ``kernels/conv2.py::sep_conv5_wide`` (wide shapes,
+LUT prologue) and the JAX package's ``kernels/conv.py::_sep_conv_planes``
 (any shape), with one CUDA kernel (``csrc/conv.cu``) for every shape and
 every odd ksize ≤ 31 per axis.  :func:`sep_conv_u8_plain` is the same
 function in plain PyTorch.

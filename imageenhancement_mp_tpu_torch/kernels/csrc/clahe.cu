@@ -21,10 +21,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int64_t kMaxGridYZ = 65535;  // planes beyond it stride over gridDim.z
+constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it stride over gridDim.y
 
 // ---------------------------------------------------------------------------
-// hist256_tiles: stage A for u8.  Replaces imageenhancement_mp_tpu/kernels/
+// hist256_tiles: stage A for u8.  Replaces the JAX package's kernels/
 // hist.py::hist256_pallas at its CLAHE call site (ops/clahe.py:207-212),
 // where the TPU first copies the image into a [B*gh*gw, th*tw] tile stack.
 // Here each block reads its tile in place.  Bound by device memory at 1 B/px
@@ -68,7 +68,7 @@ hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, i
 
 // ---------------------------------------------------------------------------
 // clahe_lut: stage B.  The JAX package has no TPU kernel here: it is XLA
-// (imageenhancement_mp_tpu/ops/clahe.py::clahe_tile_luts, :74-97), about ten
+// (the JAX package's ops/clahe.py::clahe_tile_luts, :74-97), about ten
 // small ops over [T, S].  One block per tile does all of it:
 //   clip at clip_abs, sum the excess, raise every bin by excess / S, add 1 at
 //   bins i with i % step == 0 && i / step < excess % S (step = max(S / resid,
@@ -155,7 +155,7 @@ clahe_lut_kernel(const int32_t* __restrict__ hist, L* __restrict__ lut, int32_t 
 
 // ---------------------------------------------------------------------------
 // clahe_blend: stage C.  Replaces both TPU blends,
-// imageenhancement_mp_tpu/kernels/clahe_u16.py::clahe_blend_quad_pallas
+// the JAX package's kernels/clahe_u16.py::clahe_blend_quad_pallas
 // (quadrant blocking and a 256-step packed gather chain, because the TPU has
 // no general gather) and kernels/clahe_blend.py::clahe_blend_pallas (nine
 // stacked neighbour LUTs for the tile splits the quadrant guard rejects).
@@ -184,12 +184,15 @@ clahe_blend_kernel(const P* __restrict__ x, const P* __restrict__ luts, P* __res
   const int x0 = xidx[xx], x1 = xidx[W + xx];
   const float fx = fxv[xx];
   const float gx = __fsub_rn(1.0f, fx);
-  const int ya = blockIdx.y * kBlendRows;
-  const int yb = min(ya + kBlendRows, H);
   const int64_t ntiles = int64_t(gh) * gw;
+  const int64_t nbands = (H + kBlendRows - 1) / kBlendRows;
 
-  // planes stride over gridDim.z, so any number of planes fits the grid
-  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
+  // (plane, row band) pairs stride over gridDim.y, so any number of planes
+  // and rows fits the grid
+  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {
+    const int64_t b = item / nbands;
+    const int ya = int(item - b * nbands) * kBlendRows;
+    const int yb = min(ya + kBlendRows, H);
     const P* lb = luts + b * ntiles * S;
     const int64_t plane = b * int64_t(H) * W;
     for (int y = ya; y < yb; ++y) {
@@ -260,11 +263,11 @@ int ie_clahe_blend(const void* x, const void* luts, void* out, int64_t B, int64_
                    const float* fy, const int32_t* xidx, const float* fx,
                    cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || W > 0x7fffffffLL - kThreads ||
-      (H + kBlendRows - 1) / kBlendRows > 65535)
+      H > 0x7fffffffLL - kBlendRows)
     return int(cudaErrorInvalidValue);
+  const int64_t items = B * ((H + kBlendRows - 1) / kBlendRows);
   const dim3 grid(unsigned((W + kThreads - 1) / kThreads),
-                  unsigned((H + kBlendRows - 1) / kBlendRows),
-                  unsigned(B < kMaxGridYZ ? B : kMaxGridYZ));
+                  unsigned(items < kMaxGridY ? items : kMaxGridY));
   if (elem_bytes == 1) {
     clahe_blend_kernel<uint8_t, 256><<<grid, kThreads, 0, stream>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),

@@ -2,9 +2,9 @@
 // borders, an optional per-plane 256-entry LUT applied to the pixels as they
 // are loaded, and an optional unsharp epilogue addWeighted(src, 1+a, blur, -a).
 //
-// Replaces imageenhancement_mp_tpu/kernels/conv2.py::sep_conv5_wide (the wide
+// Replaces the JAX package's kernels/conv2.py::sep_conv5_wide (the wide
 // layout: packed pixel pairs, banded bf16 MXU pass, vreg-gather LUT) and
-// imageenhancement_mp_tpu/kernels/conv.py::_sep_conv_planes (any shape, host
+// the JAX package's kernels/conv.py::_sep_conv_planes (any shape, host
 // pad) with one kernel for every shape and every odd ksize <= 31 per axis.
 //
 // What bounds it on this card: device memory at 2 B/px is the floor; this
@@ -37,7 +37,7 @@ constexpr int kTileW = 128;
 constexpr int kThreads = 256;
 constexpr int kInH = kTileH + 2 * kMaxR;
 constexpr int kInW = kTileW + 2 * kMaxR + 2;  // +2 keeps rows 4-byte aligned
-constexpr int64_t kMaxGridZ = 65535;          // planes beyond it stride over gridDim.z
+constexpr int64_t kMaxGridY = 65535;  // (plane, row tile) pairs beyond it stride over gridDim.y
 
 struct ConvParams {
   int32_t tv[kMaxTaps];
@@ -58,16 +58,20 @@ sep_conv_u8_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int
   const int tid = threadIdx.x;
   const int kv = prm.kv, kh = prm.kh;
   const int rv = kv >> 1, rh = kh >> 1;
-  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  const int x0 = blockIdx.x * kTileW;
   const int in_h = kTileH + 2 * rv, in_w = kTileW + 2 * rh;
+  const int64_t nty = (H + kTileH - 1) / kTileH;
 
   if (tid < kMaxTaps) {
     tv[tid] = prm.tv[tid];
     th[tid] = prm.th[tid];
   }
 
-  // planes stride over gridDim.z, so any number of planes fits the grid
-  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
+  // (plane, row tile) pairs stride over gridDim.y, so any number of planes
+  // and rows fits the grid
+  for (int64_t item = blockIdx.y; item < B * nty; item += gridDim.y) {
+    const int64_t b = item / nty;
+    const int y0 = int(item - b * nty) * kTileH;
     const int64_t plane = b * int64_t(H) * W;
     if (luts != nullptr) lut[tid] = luts[b * 256 + tid];
     __syncthreads();
@@ -106,7 +110,7 @@ sep_conv_u8_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int
       }
       out[plane + int64_t(y) * W + xx] = uint8_t(res);
     }
-    __syncthreads();  // the next plane overwrites lut and tile
+    __syncthreads();  // the next item overwrites lut and tile
   }
 }
 
@@ -125,8 +129,6 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
       W > 0x7fffffffLL - kTileW || kv < 1 || kv > kMaxTaps || kh < 1 || kh > kMaxTaps ||
       kv % 2 == 0 || kh % 2 == 0)
     return int(cudaErrorInvalidValue);
-  const int64_t gy = (H + kTileH - 1) / kTileH;
-  if (gy > 65535) return int(cudaErrorInvalidValue);
   ConvParams prm = {};
   for (int j = 0; j < kv; ++j) prm.tv[j] = taps_v[j];
   for (int j = 0; j < kh; ++j) prm.th[j] = taps_h[j];
@@ -135,8 +137,9 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
   prm.unsharp = unsharp;
   prm.alpha = alpha;
   prm.beta = beta;
-  const dim3 grid(unsigned((W + kTileW - 1) / kTileW), unsigned(gy),
-                  unsigned(B < kMaxGridZ ? B : kMaxGridZ));
+  const int64_t items = B * ((H + kTileH - 1) / kTileH);
+  const dim3 grid(unsigned((W + kTileW - 1) / kTileW),
+                  unsigned(items < kMaxGridY ? items : kMaxGridY));
   sep_conv_u8_kernel<<<grid, kThreads, 0, stream>>>(x, out, B, int(H), int(W), luts, prm);
   return int(cudaGetLastError());
 }

@@ -41,7 +41,7 @@ int blocks_per_plane(int64_t n) {
 }
 
 // ---------------------------------------------------------------------------
-// hist256: replaces imageenhancement_mp_tpu/kernels/hist.py::hist256_pallas
+// hist256: replaces the JAX package's kernels/hist.py::hist256_pallas
 // (the nibble one-hot MXU dot, whose f32 accumulation forced 2^17-pixel
 // stripes).  Here the bound is device memory: 1 B/px read once.  Each warp
 // counts into its own 256 shared-memory bins, which cuts contention on equal
@@ -93,7 +93,7 @@ hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t
 
 // ---------------------------------------------------------------------------
 // equalize_lut256: replaces the LUT phase of
-// imageenhancement_mp_tpu/kernels/hist.py::equalize_hist_pallas (triangular
+// the JAX package's kernels/hist.py::equalize_hist_pallas (triangular
 // dots on the MXU) and the XLA equalize_lut of ops/histogram.py:92-111.  One
 // block of 256 threads per plane; the work is 256 values, so launch latency
 // bounds it.  A warp-shuffle inclusive scan gives the cdf; the first nonzero
@@ -140,7 +140,7 @@ equalize_lut256_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ l
 }
 
 // ---------------------------------------------------------------------------
-// apply_lut256: replaces imageenhancement_mp_tpu/kernels/hist.py::
+// apply_lut256: replaces the JAX package's kernels/hist.py::
 // apply_lut256_pallas for u8 tables (two 128-lane vreg gathers + select on the
 // TPU).  Bound by device memory at 2 B/px.  The block stages its plane's table
 // in shared memory and maps 16 B per thread per load; when input and output

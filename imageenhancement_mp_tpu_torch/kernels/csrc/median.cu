@@ -1,7 +1,7 @@
 // median_kernel<T, K>: cv2.medianBlur with K in {3, 5} on u8, u16 or i16
 // planes, replicate border, exact.
 //
-// Replaces imageenhancement_mp_tpu/kernels/median.py::median_blur_pallas
+// Replaces the JAX package's kernels/median.py::median_blur_pallas
 // (_median_kernel: double-buffered row stripes with a host edge-pad, taps
 // widened to int32 on the VPU, the networks of kernels/networks.py).
 //
@@ -33,7 +33,7 @@ constexpr int kTileW = 64;
 constexpr int kTileH = 16;
 constexpr int kRowStep = kThreads / kTileW;       // 4 rows apart
 constexpr int kRowsPerThread = kTileH / kRowStep;  // 4 outputs per thread
-constexpr int64_t kMaxGridZ = 65535;               // planes beyond it stride over gridDim.z
+constexpr int64_t kMaxGridY = 65535;  // (plane, row tile) pairs beyond it stride over gridDim.y
 
 __device__ __forceinline__ void cex(int& a, int& b) {
   const int lo = min(a, b);
@@ -74,12 +74,16 @@ median_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t B, int H, in
   __shared__ T tile[kInH][kInW];
 
   const int tid = threadIdx.x;
-  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  const int x0 = blockIdx.x * kTileW;
   const int c = tid % kTileW, r0 = tid / kTileW;
   const int xx = x0 + c;
+  const int64_t nty = (H + kTileH - 1) / kTileH;
 
-  // planes stride over gridDim.z, so any number of planes fits the grid
-  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
+  // (plane, row tile) pairs stride over gridDim.y, so any number of planes
+  // and rows fits the grid
+  for (int64_t item = blockIdx.y; item < B * nty; item += gridDim.y) {
+    const int64_t b = item / nty;
+    const int y0 = int(item - b * nty) * kTileH;
     const int64_t plane = b * int64_t(H) * W;
     for (int i = tid; i < kInH * kInW; i += kThreads) {
       const int rr = i / kInW, cc = i - rr * kInW;
@@ -109,15 +113,16 @@ median_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t B, int H, in
         out[plane + int64_t(y) * W + xx] = T(m);
       }
     }
-    __syncthreads();  // the next plane overwrites the tile
+    __syncthreads();  // the next item overwrites the tile
   }
 }
 
 template <typename T>
 int launch_median(const void* x, void* out, int64_t B, int64_t H, int64_t W, int32_t ksize,
                   cudaStream_t stream) {
-  const dim3 grid(unsigned((W + kTileW - 1) / kTileW), unsigned((H + kTileH - 1) / kTileH),
-                  unsigned(B < kMaxGridZ ? B : kMaxGridZ));
+  const int64_t items = B * ((H + kTileH - 1) / kTileH);
+  const dim3 grid(unsigned((W + kTileW - 1) / kTileW),
+                  unsigned(items < kMaxGridY ? items : kMaxGridY));
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
   if (ksize == 3) {
@@ -135,8 +140,8 @@ extern "C" {
 // x, out: [B, H, W] contiguous; dtype 0 = u8, 1 = u16, 2 = i16; ksize 3 or 5.
 int ie_median(const void* x, void* out, int64_t B, int64_t H, int64_t W, int32_t dtype,
               int32_t ksize, cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || W > 0x7fffffffLL - kTileW ||
-      (H + kTileH - 1) / kTileH > 65535 || (ksize != 3 && ksize != 5))
+  if (B < 1 || H < 1 || W < 1 || W > 0x7fffffffLL - kTileW || H > 0x7fffffffLL - kTileH ||
+      (ksize != 3 && ksize != 5))
     return int(cudaErrorInvalidValue);
   switch (dtype) {
     case 0: return launch_median<uint8_t>(x, out, B, H, W, ksize, stream);

@@ -1,7 +1,7 @@
 """Histogram-family kernels on u8 planes, each beside its plain PyTorch version.
 
 * :func:`hist256` — exact per-plane 256-bin histogram (replaces
-  ``imageenhancement_mp_tpu/kernels/hist.py::hist256_pallas``).
+  the JAX package's ``kernels/hist.py::hist256_pallas``).
 * :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram (the LUT
   phase of ``equalize_hist_pallas`` and ``ops/histogram.py::equalize_lut``).
 * :func:`apply_lut256` — ``cv2.LUT`` with a u8 table, shared or per plane

@@ -1,7 +1,7 @@
 """Exact 3×3 / 5×5 median on u8, u16 or i16 planes, replicate border.
 
 :func:`median_blur` replaces
-``imageenhancement_mp_tpu/kernels/median.py::median_blur_pallas`` with the
+the JAX package's ``kernels/median.py::median_blur_pallas`` with the
 CUDA kernel ``csrc/median.cu::median_kernel<T, K>``.  :func:`median_blur_plain`
 is the same function in plain PyTorch: ``kernels/networks.py`` ``median9``
 (Paeth's 19-comparator network) and ``median25`` (forgetful selection) as
@@ -96,8 +96,6 @@ def median_blur(planes: torch.Tensor, ksize: int) -> torch.Tensor:
         return median_blur_plain(planes, ksize)
     check_kernel_input("median", planes)
     B, H, W = planes.shape
-    if H > 65535 * 16:
-        raise ValueError(f"median_blur: at most {65535 * 16} rows, got {H}")
     out = torch.empty_like(planes)
     if out.numel():
         launch("median", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,

@@ -1,4 +1,4 @@
-"""Enhancement pipeline presets, as ``imageenhancement_mp_tpu/models/presets.py``
+"""Enhancement pipeline presets, as the JAX package's ``models/presets.py``
 names them.
 
 The system has no neural models: its "models" are enhancement recipes

@@ -1,5 +1,5 @@
 """Planes-level ops ``[B, H, W]``: the port's counterparts of
-``imageenhancement_mp_tpu/ops`` for the ported slices.
+the JAX package's ``ops`` for the ported slices.
 
 ``OP_REGISTRY`` maps the JAX registry's names (ops/__init__.py:53-94) to the
 ported ops.  Looking up a name the JAX registry has but the port does not
@@ -9,10 +9,12 @@ unknown name raises ``KeyError``.
 
 from __future__ import annotations
 
+from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 
 __all__ = ["OP_REGISTRY", "LATER"]
 
@@ -20,10 +22,10 @@ __all__ = ["OP_REGISTRY", "LATER"]
 LATER = {
     **dict.fromkeys(("gamma", "log_transform", "contrast_stretch", "convert_scale_abs"), 6),
     "equalize_hist_global": 4,
-    **dict.fromkeys(("adaptive_threshold", "bilateral", "warp_affine", "warp_perspective",
-                     "warp_polar", "remap", "undistort", "fast_nl_means"), 9),
+    **dict.fromkeys(("warp_affine", "warp_perspective", "warp_polar", "remap", "undistort",
+                     "fast_nl_means"), 9),
     **dict.fromkeys((
-        "box_blur", "threshold", "erode", "dilate", "morphology", "sobel", "pyr_down",
+        "box_blur", "erode", "dilate", "morphology", "sobel", "pyr_down",
         "resize", "flip", "rotate", "transpose", "canny", "connected_components",
         "match_template", "box_filter", "corner_harris", "corner_min_eigen_val",
         "calc_back_project", "filter2d", "pyr_up", "laplacian_sharpen", "stack_blur"), 10),
@@ -44,4 +46,7 @@ OP_REGISTRY = _Registry(
     unsharp_mask=unsharp_mask_planes,
     median_blur=median_blur_planes,
     clahe=clahe_planes,
+    bilateral=bilateral_planes,
+    threshold=threshold_planes,
+    adaptive_threshold=adaptive_threshold_planes,
 )

@@ -1,6 +1,6 @@
 """CLAHE: ``cv2.createCLAHE(clip, grid).apply`` on u8 and u16 planes.
 
-The counterpart of ``imageenhancement_mp_tpu/ops/clahe.py``, with ONE route
+The counterpart of the JAX package's ``ops/clahe.py``, with ONE route
 for every geometry: stage A (per-tile histograms) → stage B (clipped tile
 LUTs) → stage C (bilinear blend of the four neighbour LUTs), the kernels of
 ``kernels/clahe.py``.  The JAX package switches between a quadrant kernel, a

@@ -1,6 +1,6 @@
 """Spatial filters on u8 planes: Gaussian blur and unsharp mask.
 
-The u8 branches of ``imageenhancement_mp_tpu/ops/filters.py``
+The u8 branches of the JAX package's ``ops/filters.py``
 ``gaussian_blur_planes`` and ``unsharp_mask_planes``.  Both go through
 ``kernels/conv.py::sep_conv_u8`` with cv2's Q8 taps; u16, i16 and f32 planes
 are ROADMAP Queue 1 item 7.

@@ -1,6 +1,6 @@
 """256-bin histograms and per-plane histogram equalization (u8).
 
-The counterpart of ``imageenhancement_mp_tpu/ops/histogram.py`` for u8
+The counterpart of the JAX package's ``ops/histogram.py`` for u8
 planes.  Every plane size takes one route: the histogram kernel, the
 equalize-LUT kernel, then the LUT-apply kernel (``kernels/hist.py``).
 """

@@ -1,6 +1,6 @@
 """Median filtering: ``cv2.medianBlur``, border = replicate.
 
-The counterpart of ``imageenhancement_mp_tpu/ops/median.py``.  u8, u16 and
+The counterpart of the JAX package's ``ops/median.py``.  u8, u16 and
 i16 planes with ksize 3 or 5 go through ``kernels/median.py::median_blur``
 (the CUDA kernel on a CUDA tensor, its plain network on a CPU one).  f32
 planes, and ksize ≥ 7 for every type, take a plain torch sort over the

@@ -1,7 +1,7 @@
 """Shape canonicalization for the batched op API.
 
 Every op works on a stack of 2-D planes ``[B, H, W]`` (B = N·C), exactly as
-``imageenhancement_mp_tpu/utils/shapes.py`` does, with the same accepted
+the JAX package's ``utils/shapes.py`` does, with the same accepted
 layouts and the same ambiguity rule:
 
     [H, W]          one grayscale image

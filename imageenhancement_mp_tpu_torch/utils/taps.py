@@ -1,9 +1,10 @@
-"""cv2's u8 fixed-point Gaussian taps, as NumPy host tables.
+"""cv2's Gaussian taps, as NumPy host tables: the u8 fixed-point ones and the
+f64 float kernel.
 
-A verbatim copy of the tap functions in ``imageenhancement_mp_tpu/ref/ops.py``
+A verbatim copy of the tap functions in the JAX package's ``ref/ops.py``
 (``_BINOMIAL_FX``, ``_cdf_fixed_taps``, ``gaussian_kernel_fixed``,
-``_auto_sigma``, ``gaussian_axes``).  It is copied, not imported, because
-importing ``imageenhancement_mp_tpu.ref`` runs that package's
+``_auto_sigma``, ``gaussian_kernel``, ``gaussian_axes``).  It is copied, not
+imported, because importing the JAX package's ``ref`` runs that package's
 ``__init__`` and so imports JAX.  ``tests/test_torch_utils.py`` pins each
 copy to the original.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gaussian_kernel_fixed", "gaussian_axes"]
+__all__ = ["gaussian_kernel_fixed", "gaussian_kernel", "gaussian_axes"]
 
 _BINOMIAL_FX = {
     1: np.array([256], np.int64),  # k=1 is the identity (probe: any sigma)
@@ -60,6 +61,17 @@ def gaussian_kernel_fixed(ksize: int, sigma: float = 0.0) -> np.ndarray:
 def _auto_sigma(ksize: int) -> float:
     """cv2's σ=0 fallback formula (used for k > 7)."""
     return 0.3 * ((ksize - 1) * 0.5 - 1.0) + 0.8
+
+
+def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel(ksize, sigma)`` as float64 taps."""
+    if sigma <= 0:
+        if ksize in _BINOMIAL_FX:
+            return _BINOMIAL_FX[ksize] / 256.0
+        sigma = _auto_sigma(ksize)
+    i = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    g = np.exp(-(i * i) / (2.0 * sigma * sigma))
+    return g / g.sum()
 
 
 def gaussian_axes(ksize, sigma: float, sigma_y: float, depth_u8: bool):

@@ -101,7 +101,8 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     tie.unsharp_mask(x, -0.5)
     assert launch_counts == dict.fromkeys(launch_counts, 0)
     assert set(launch_counts) == {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
-                                  "median", "hist256_tiles", "clahe_lut", "clahe_blend"}
+                                  "median", "hist256_tiles", "clahe_lut", "clahe_blend",
+                                  "bilateral", "athresh"}
 
 
 def test_public_functions_reject_what_the_port_does_not_take():

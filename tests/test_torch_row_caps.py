@@ -1,0 +1,70 @@
+"""No row cap in the kernel wrappers (ROADMAP Queue 3, P3).
+
+The JAX package and the port's plain path take planes of any height; the
+kernels must too.  A CUDA kernel cannot run here, so each wrapper is driven
+down its CUDA branch on a CPU tensor: its module's ``on_cuda`` answers True
+and its ``launch`` only records the call.  A ``[1, 1_100_000, 8]`` u8 plane
+(8.8 MB) is taller than 65535 tiles of 16 rows (median) or bands of 8 rows
+(clahe_blend), the grid-axis limit the kernels once put rows on; the wrapper
+must neither raise nor launch more than once.
+"""
+
+import pytest
+import torch
+
+from imageenhancement_mp_tpu_torch.kernels import athresh as kathresh
+from imageenhancement_mp_tpu_torch.kernels import bilateral as kbilateral
+from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
+from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+from imageenhancement_mp_tpu_torch.kernels import median as kmedian
+from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
+from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_tables
+from imageenhancement_mp_tpu_torch.ops.threshold import gaussian_taps
+
+TALL = (1, 1_100_000, 8)
+
+
+def _median(x):
+    return kmedian.median_blur(x, 5)
+
+
+def _clahe_blend(x):
+    B, H, W = x.shape
+    gh, gw, th, tw = tclahe.tile_geometry(H, W, (8, 8))
+    luts = torch.zeros((B * gh * gw, 256), dtype=torch.uint8)
+    tables = (*tclahe._coord_tables(H, th, gh, x.device),
+              *tclahe._coord_tables(W, tw, gw, x.device))
+    return kclahe.clahe_blend(x, luts, gh, gw, *tables)
+
+
+def _sep_conv(x):
+    return kconv.sep_conv_u8(x, (16, 64, 96, 64, 16), (16, 64, 96, 64, 16), 1.0)
+
+
+def _bilateral(x):
+    offsets, lut, r = bilateral_tables(9, 75.0, 75.0, 1, x.device)
+    return kbilateral.bilateral_gray(x, offsets, lut, r)
+
+
+def _athresh(x):
+    return kathresh.adaptive_threshold_gaussian(x, gaussian_taps(11, x.device), 255, 2, False)
+
+
+@pytest.mark.parametrize("module,name,run", [
+    (kmedian, "median", _median),
+    (kclahe, "clahe_blend", _clahe_blend),
+    (kconv, "sep_conv_u8", _sep_conv),
+    (kbilateral, "bilateral", _bilateral),
+    (kathresh, "athresh", _athresh),
+], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh"])
+def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
+    launches = []
+    monkeypatch.setattr(module, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(module, "launch", lambda *args: launches.append(args))
+    x = torch.zeros(TALL, dtype=torch.uint8)
+    out = run(x)
+    assert out.shape == TALL and out.dtype == torch.uint8
+    assert len(launches) == 1
+    kernel, device, *args = launches[0]
+    assert kernel == name and device == x.device
+    assert TALL[1] in args  # the full height reaches the C entry point
