@@ -47,7 +47,26 @@
    2x2160x3840 u8, each with counters of its own (exactly one bilateral, one
    athresh, one hist256 launch, one of each), against the plain path on the
    card and one 4K frame against the plain path on the CPU, and times them.
-7. Prints a one-line JSON per-kernel summary, then, as the last line,
+7. The warp family: holds warp_gather_u8 against its plain version at 0 LSB
+   (linear and nearest; constant border with values 9 and 300, saturated to
+   255 as the ops do, and replicate; rotations 15, 31 and -23 degrees at
+   scales 0.9, 1.1 and 0.125, a shear-translate, three homographies, polar
+   forward and inverse, linear and semilog, random remap maps reaching
+   +-3e9; 1x1 and 2x3 planes, a storage offset of one element, [70000, 8,
+   8], a [1, 2_200_000, 8] plane under the identity map and a
+   1100x1080x1920 batch), checks that the affine and perspective fields
+   built on the card equal the host NumPy fields bit for bit, then drives
+   warp_affine (rot15), warp_polar and remap at 2x2160x3840 u8 through the
+   public functions, each with counters of its own (exactly one
+   warp_gather_u8 launch and no other kernel), against the plain path on the
+   card and one 4K frame against the plain path on the CPU, and times them:
+   the map build and the kernel apart, polar's first (map-building) call
+   apart from its cached calls, and torch's grid_sample (bilinear, f32) as a
+   yardstick that is not the same function.
+8. Prints a one-line JSON per-kernel summary (launches on the main paths,
+   max_abs_err, kernel and plain ms, the bound from bytes or operations at
+   the timed shape, and the time of one PyTorch call computing the same
+   function where there is one), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every check raises on failure; nothing is caught.  Imports nothing of JAX.
@@ -71,6 +90,8 @@ MAIN_KERNELS = ("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8")
 CONFIG5_KERNELS = ("median", "hist256_tiles", "clahe_lut", "clahe_blend", "sep_conv_u8")
 SLICE3_KERNELS = ("bilateral", "athresh")
 KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
+WARP_KERNELS = ("warp_gather_u8",)
+ALL_KERNELS = KERNELS + WARP_KERNELS
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -82,6 +103,7 @@ SOURCES = {
     "clahe_blend": f"{PKG}/kernels/csrc/clahe.cu",
     "bilateral": f"{PKG}/kernels/csrc/bilateral.cu",
     "athresh": f"{PKG}/kernels/csrc/athresh.cu",
+    "warp_gather_u8": f"{PKG}/kernels/csrc/warp.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -94,11 +116,24 @@ REPLACES = {
     "clahe_blend": "imageenhancement_mp_tpu/kernels/clahe_u16.py:201 and imageenhancement_mp_tpu/kernels/clahe_blend.py:136",
     "bilateral": "imageenhancement_mp_tpu/kernels/bilateral.py:158",
     "athresh": "imageenhancement_mp_tpu/kernels/dfconv.py:183",
+    "warp_gather_u8": "imageenhancement_mp_tpu/kernels/warp.py:241",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
 # host enqueue time lands between its events) overstates
 TIMED_RUNS, WARMUPS, CALLS_PER_RUN = 20, 3, 10
+# the least time a kernel could take: H100 SXM data sheet, 3.35 TB/s HBM3,
+# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+
+
+def bound_ms(nbytes: float, ops: float = 0.0, kind: str = "f32") -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the peak
+    rate for their type, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def nvidia_smi_line() -> str:
@@ -178,7 +213,7 @@ def main() -> None:
 
     # -- 3. each kernel against its plain version, on the card -----------------
     rng = np.random.default_rng(0)
-    err = dict.fromkeys(KERNELS, 0)
+    err = dict.fromkeys(ALL_KERNELS, 0)
 
     def on_card(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -717,21 +752,244 @@ def main() -> None:
               f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
               f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
 
+    # -- 7. the warp family -----------------------------------------------------
+    import torch.nn.functional as F
+    from imageenhancement_mp_tpu_torch.kernels import warp as kwarp
+    from imageenhancement_mp_tpu_torch.ops import warp as twarp
+    from imageenhancement_mp_tpu_torch.utils import warp_coords as wc
+
+    before = dict(launch_counts)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_warp, n_fields = 0, 0
+    warp_borders = [("constant", bv) for bv in (9.0, 300.0)] + [("replicate", 0.0)]
+
+    def check_warp(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, what: str,
+                   modes=(False, True)) -> None:
+        """The kernel against its plain version: both modes, both borders
+        (border values saturated as the ops saturate them)."""
+        nonlocal n_warp
+        for nearest in modes:
+            for border, bv in warp_borders:
+                b8 = int(twarp._border_value(torch.uint8, bv))
+                check("warp_gather_u8", kwarp.warp_gather_u8(x, sx, sy, nearest, border, b8),
+                      kwarp.warp_gather_u8_plain(x, sx, sy, nearest, border, b8),
+                      f"{what} nearest={nearest} {border} {bv}")
+                n_warp += 1
+
+    def check_field(got, want_np, what: str) -> None:
+        """A field built on the card against the host NumPy field, bit for bit."""
+        nonlocal n_fields
+        for g, w in zip(got, want_np):
+            w = np.clip(w, -2e9, 2e9)
+            if not np.array_equal(g.cpu().numpy(), w):
+                bad = int((g.cpu().numpy() != w).sum())
+                raise AssertionError(f"{what}: {bad} coordinates differ from the host field")
+        n_fields += 1
+
+    def rot(center, angle, scale):
+        return wc.invert_affine(wc.get_rotation_matrix_2d(center, angle, scale))
+
+    xw = rand_u8((2, 240, 320))
+    oh, ow = 224, 300  # ow % 16 = 12: both the body and the tail of the field
+    affines = {f"rot{a} x{s}": rot((160.0, 120.0), a, s)
+               for a in (15.0, 31.0, -23.0) for s in (0.9, 1.1, 0.125)}
+    affines["shear-translate"] = wc.invert_affine(np.array([[1.0, 0.3, -10.0], [0.1, 0.9, 5.5]]))
+    homographies = {
+        "homography mild": wc.invert_perspective(
+            np.array([[1.0, 0.05, -5.0], [0.02, 0.98, 3.0], [2e-4, 1e-4, 1.0]])),
+        "homography strong": wc.invert_perspective(
+            np.array([[0.9, -0.2, 4.0], [0.15, 1.1, -2.0], [3e-3, -2e-3, 1.0]])),
+        "homography zero denominator": np.array([[1.0, 0.0, 2.0], [0.0, 1.0, 1.0],
+                                                 [1.0, 0.0, -5.0]]),
+    }
+    for name, Mi in affines.items():
+        sx, sy = twarp.affine_field(Mi, oh, ow, dev)
+        check_field((sx, sy), wc.warp_affine_coords_f32(Mi, oh, ow), f"affine field {name}")
+        check_warp(xw, sx, sy, f"{name} 2x240x320 -> {oh}x{ow}")
+    for name, Mi in homographies.items():
+        sx, sy = twarp.perspective_field(Mi, oh, ow, dev)
+        check_field((sx, sy), wc.warp_perspective_coords_f32(Mi, oh, ow), f"field {name}")
+        check_warp(xw, sx, sy, f"{name} 2x240x320 -> {oh}x{ow}")
+    # the 4K rot15 field of the main path, and a 4K perspective field
+    M15 = wc.get_rotation_matrix_2d((1920.0, 1080.0), 15.0, 1.0)
+    Mi15 = wc.invert_affine(M15)
+    check_field(twarp.affine_field(Mi15, 2160, 3840, dev),
+                wc.warp_affine_coords_f32(Mi15, 2160, 3840), "affine field rot15 2160x3840")
+    Mp4k = homographies["homography mild"]
+    check_field(twarp.perspective_field(Mp4k, 2160, 3840, dev),
+                wc.warp_perspective_coords_f32(Mp4k, 2160, 3840), "perspective field 2160x3840")
+    for inverse in (False, True):
+        for log in (False, True):
+            dsize = (320, 240) if inverse else (200, 360)
+            mx, my = twarp.polar_maps(240, 320, dsize, (150.0, 110.0), 140.0, log, inverse, dev)
+            src = torch.cat([xw[:, -1:], xw, xw[:, :1]], dim=1).contiguous() if inverse else xw
+            check_warp(src, mx, my, f"polar inverse={inverse} log={log}")
+    mx = torch.rand((oh, ow), generator=gen, device=dev) * 328 - 4
+    my = torch.rand((oh, ow), generator=gen, device=dev) * 248 - 4
+    far = torch.rand((oh, ow), generator=gen, device=dev) < 0.05
+    mx = torch.where(far, torch.where(my > 120, 3e9, -3e9), mx).contiguous()
+    my = torch.where(torch.rand((oh, ow), generator=gen, device=dev) < 0.05,
+                     torch.where(mx > 160, -3e9, 3e9), my).contiguous()
+    check_warp(xw, mx, my, "random remap maps with +-3e9")
+    for shape, out_hw in (((2, 1, 1), (3, 4)), ((2, 2, 3), (4, 5))):
+        xs = rand_u8(shape)
+        Mi = rot(((shape[2] - 1) / 2, (shape[1] - 1) / 2), 20.0, 0.7)
+        check_warp(xs, *twarp.affine_field(Mi, *out_hw, dev), f"{shape} plane")
+    xm = misaligned(xw)
+    check_warp(xm, *twarp.affine_field(affines["rot31.0 x1.1"], oh, ow, dev), "offset 1")
+    many = rand_u8((70000, 8, 8))
+    check_warp(many, *twarp.affine_field(rot((3.5, 3.5), 31.0, 1.1), 8, 8, dev), "70000x8x8")
+    tall = rand_u8((1, 2_200_000, 8))
+    ty, tx = torch.meshgrid(torch.arange(2_200_000, dtype=torch.float32, device=dev),
+                            torch.arange(8, dtype=torch.float32, device=dev), indexing="ij")
+    tx, ty = tx.contiguous(), ty.contiguous()
+    for nearest in (False, True):
+        got = kwarp.warp_gather_u8(tall, tx, ty, nearest, "constant", 0)
+        check("warp_gather_u8", got, kwarp.warp_gather_u8_plain(tall, tx, ty, nearest), "1x2200000x8")
+        check("warp_gather_u8", got, tall, "1x2200000x8 identity map against the input")
+        n_warp += 1
+    del many, tall, tx, ty, xm
+    big = torch.randint(0, 256, (1100, 1080, 1920), generator=gen, device=dev, dtype=torch.uint8)
+    fb = twarp.affine_field(rot((960.0, 540.0), 15.0, 1.0), 1080, 1920, dev)
+    for nearest in (False, True):
+        check("warp_gather_u8", kwarp.warp_gather_u8(big, *fb, nearest)[-2:],
+              kwarp.warp_gather_u8_plain(big[-2:], *fb, nearest), "1100x1080x1920, last planes")
+        n_warp += 1
+    del big, fb
+    torch.cuda.synchronize()
+    if launch_counts["warp_gather_u8"] <= before["warp_gather_u8"]:
+        raise AssertionError("warp_gather_u8: the comparison phase launched no kernel")
+    print(f"warp_gather_u8 vs plain on the card: 0 LSB over {n_warp} cases; {n_fields} fields "
+          "built on the card equal the host NumPy fields bit for bit")
+
+    # the main paths through the public functions, each with counters of its own
+    H4, W4 = 2160, 3840
+    polar_args = ((1920, 2160), (1920.0, 1080.0), 1900.0)
+    mx4 = (torch.rand((H4, W4), generator=gen, device=dev) * (W4 + 4) - 2).contiguous()
+    my4 = (torch.rand((H4, W4), generator=gen, device=dev) * (H4 + 4) - 2).contiguous()
+    twarp._polar_maps_cached.cache_clear()
+    warp_paths = [  # label, public call, plain path on the card
+        ("warp_affine rot15", lambda x: port.warp_affine(x, M15, (H4, W4)),
+         lambda x: kwarp.warp_gather_u8_plain(x, *twarp.affine_field(Mi15, H4, W4, x.device))),
+        ("warp_polar((1920, 2160), (1920, 1080), 1900)", lambda x: port.warp_polar(x, *polar_args),
+         lambda x: kwarp.warp_gather_u8_plain(x, *twarp.polar_maps(
+             H4, W4, *polar_args, False, False, x.device))),
+        ("remap linear, random maps", lambda x: port.remap(x, mx4.to(x.device), my4.to(x.device)),
+         lambda x: kwarp.warp_gather_u8_plain(x, mx4, my4)),
+    ]
+    warp_launches = None
+    for label, fn, plain in warp_paths:
+        label = f"{label} 2x2160x3840 u8"
+        out, got = drive(label, lambda: fn(g4k), {"warp_gather_u8": 1})
+        if warp_launches is None:
+            warp_launches = got
+        want = plain(g4k)
+        if out.dtype != torch.uint8 or out.device != dev or out.shape[0] != 2:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype} {out.device}")
+        if out.float().std() == 0:
+            raise AssertionError(f"{label}: output is constant")
+        e, e_cpu = max_err(out, want), max_err(out[:1].cpu(), fn(torch.from_numpy(x4k[:1])))
+        print(f"{label}: kernel path vs plain path on the card, max abs err {e}; one 4K frame "
+              f"vs the plain path on the CPU, max abs err {e_cpu}")
+        if e or e_cpu:
+            raise AssertionError(f"{label}: kernel path differs from the plain path")
+
+    # time: the kernel alone at the rot15 field, the map build alone, each path
+    f15 = twarp.affine_field(Mi15, H4, W4, dev)
+    (k_ms, k_iqr) = time_ms(lambda: kwarp.warp_gather_u8(g4k, *f15))
+    (p_ms, p_iqr) = time_ms(lambda: kwarp.warp_gather_u8_plain(g4k, *f15), 5, 2)
+    ms["warp_gather_u8"] = (k_ms, p_ms)
+    print(f"  warp_gather_u8 at (2, 2160, 3840) rot15 linear: kernel {k_ms:.4f} ms (IQR "
+          f"{k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    b_ms, b_iqr = time_ms(lambda: twarp.affine_field(Mi15, H4, W4, dev))
+    print(f"  affine field build rot15 2160x3840 on the card: {b_ms:.4f} ms (IQR {b_iqr:.4f})"
+          f"  [{smi}]")
+    firsts = []
+    for _ in range(3):
+        twarp._polar_maps_cached.cache_clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.warp_polar(g4k, *polar_args)
+        torch.cuda.synchronize()
+        firsts.append((time.perf_counter() - t0) * 1e3)
+    print(f"  warp_polar first call (host map build, copy, kernel): median of 3 "
+          f"{statistics.median(firsts):.4f} ms on the host clock {[round(t, 4) for t in firsts]}"
+          f"  [{smi}]")
+    xf = g4k.float()[:, None]
+    grid = torch.stack((f15[0] * (2 / (W4 - 1)) - 1, f15[1] * (2 / (H4 - 1)) - 1), -1)
+    grid = grid[None].expand(2, H4, W4, 2).contiguous()
+    gs_ms, gs_iqr = time_ms(lambda: F.grid_sample(xf, grid, mode="bilinear",
+                                                  padding_mode="zeros", align_corners=True))
+    print(f"  yardstick, not the same function: torch grid_sample bilinear on f32 "
+          f"[2, 1, 2160, 3840] at the rot15 grid (no cv2 rounding, f32 in and out) "
+          f"{gs_ms:.4f} ms (IQR {gs_iqr:.4f})  [{smi}]")
+    del xf, grid
+    out_px = {"warp_affine rot15": 2 * H4 * W4, "warp_polar": 2 * 2160 * 1920,
+              "remap": 2 * H4 * W4}
+    path_bounds = {"warp_affine rot15": bound_ms(6 * 2 * H4 * W4)[0],
+                   "warp_polar": bound_ms(2160 * 1920 * (8 + 2) + 2 * H4 * W4)[0],
+                   "remap": bound_ms(6 * 2 * H4 * W4)[0]}
+    for (label, fn, plain), key in zip(warp_paths, out_px):
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(lambda: fn(g4k)), time_ms(lambda: plain(g4k), 5, 2)
+        gpix = out_px[key] / 1e9
+        print(f"{label} 2x2160x3840 u8: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = "
+              f"{gpix / (k_ms / 1e3):.3f} GPix/s (output pixels), plain path {p_ms:.4f} ms "
+              f"(IQR {p_iqr:.4f}) = {gpix / (p_ms / 1e3):.3f} GPix/s, bound "
+              f"{path_bounds[key]:.4f} ms (bytes), max abs err 0  [{smi}]")
+
+    # -- 8. bounds and library calls at the timed shapes ------------------------
+    B8, n8, n5 = x8.shape[0], x8.numel(), 2 * H4 * W4
+    T5 = 2 * geo5[0] * geo5[1]
+    tab5 = sum(t.numel() * t.element_size() for t in tables5)
+    n_off = bil9[0].shape[0]
+    bounds = {
+        "hist256": bound_ms(n8 + B8 * 256 * 4),
+        "equalize_lut256": bound_ms(B8 * 256 * 4 + B8 * 256),
+        "apply_lut256": bound_ms(2 * n8 + B8 * 256),
+        # the integer conv has no rate in the table; the f32 epilogue is 2 FMAs
+        "sep_conv_u8": bound_ms(2 * n8 + B8 * 256, 4.0 * n8),
+        "median": bound_ms(2 * n5),  # integer min/max only
+        "hist256_tiles": bound_ms(n5 + T5 * 256 * 4),
+        "clahe_lut": bound_ms(T5 * 256 * 4 + T5 * 256),
+        "clahe_blend": bound_ms(2 * n5 + T5 * 256 + tab5, 9.0 * n5),
+        # per disc offset a weight product, num += w*v (2) and den += w; one divide
+        "bilateral": bound_ms(2 * n5 + n_off * 12 + 256 * 4, (4.0 * n_off + 1) * n5),
+        # block 11: 11 multiplies and 11 adds in each of the two passes, f64
+        "athresh": bound_ms(2 * n5 + 11 * 8, 44.0 * n5, "f64"),
+        # source once, output once, both f32 maps once; 9 f32 ops per output px
+        "warp_gather_u8": bound_ms(6 * n5, 9.0 * n5),
+    }
+    library = dict.fromkeys(ALL_KERNELS)
+    idx_h = (x8.view(B8, -1).long() + 256 * torch.arange(B8, device=dev)[:, None]).view(-1)
+    if not torch.equal(torch.bincount(idx_h, minlength=256 * B8).view(B8, 256).int(), h8):
+        raise AssertionError("torch.bincount over plane-offset indices differs from hist256")
+    library["hist256"] = time_ms(lambda: torch.bincount(idx_h, minlength=256 * B8))[0]
+    idx_l = x8.view(B8, -1).long()
+    if not torch.equal(torch.gather(l8, 1, idx_l).view_as(x8), khist.apply_lut256(x8, l8)):
+        raise AssertionError("torch.gather with the LUTs differs from apply_lut256")
+    library["apply_lut256"] = time_ms(lambda: torch.gather(l8, 1, idx_l))[0]
+    del idx_h, idx_l
+    for name in ("hist256", "apply_lut256"):
+        print(f"  library call for {name}: {library[name]:.4f} ms (one torch call on int64 "
+              f"indices made beforehand)  [{smi}]")
+
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its four kernels, get_preset's config 5 call for the
-    # config 5 kernels, the bilateral -> adaptive_threshold pipeline for the rest
+    # config 5 kernels, the bilateral -> adaptive_threshold pipeline for
+    # bilateral and athresh, the warp_affine rot15 call for warp_gather_u8
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
-                     **launches, **{n: launches3[n] for n in SLICE3_KERNELS}}
+                     **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
+                     **{n: warp_launches[n] for n in WARP_KERNELS}}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
          "launches": path_launches[n], "max_abs_err": err[n], "ms": ms[n][0],
-         "plain_ms": ms[n][1]}
-        for n in KERNELS]}
+         "plain_ms": ms[n][1], "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+         "library_ms": library[n]}
+        for n in ALL_KERNELS]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -2,10 +2,11 @@
 
 The fused hist-eq → unsharp main path, config 5 (median → CLAHE → unsharp)
 through presets, ``make_pipeline`` and ``stream_frames``, the ops they are
-made of, and bilateral filtering and (adaptive) thresholding, on torch
-tensors.  A CPU tensor runs plain PyTorch; a CUDA tensor runs the
-hand-written Hopper kernels in ``kernels/csrc`` (built with nvcc at first
-use), or raises.  This package imports neither JAX nor the JAX package.
+made of, bilateral filtering, (adaptive) thresholding and the warp family
+(affine, perspective, polar, remap, undistort), on torch tensors.  A CPU
+tensor runs plain PyTorch; a CUDA tensor runs the hand-written Hopper
+kernels in ``kernels/csrc`` (built with nvcc at first use), or raises.  This
+package imports neither JAX nor the JAX package.
 """
 
 from imageenhancement_mp_tpu_torch.api import (
@@ -15,13 +16,24 @@ from imageenhancement_mp_tpu_torch.api import (
     equalize_hist,
     equalize_unsharp,
     gaussian_blur,
+    get_affine_transform,
+    get_perspective_transform,
+    get_rotation_matrix_2d,
+    init_undistort_rectify_map,
     median_blur,
+    remap,
     threshold,
+    undistort,
     unsharp_mask,
+    warp_affine,
+    warp_perspective,
+    warp_polar,
 )
 from imageenhancement_mp_tpu_torch.models.presets import get_preset
 from imageenhancement_mp_tpu_torch.pipeline import make_pipeline, stream_frames
 
 __all__ = ["adaptive_threshold", "bilateral_filter", "clahe", "equalize_hist", "equalize_unsharp",
-           "gaussian_blur", "get_preset", "make_pipeline", "median_blur", "stream_frames",
-           "threshold", "unsharp_mask"]
+           "gaussian_blur", "get_affine_transform", "get_perspective_transform", "get_preset",
+           "get_rotation_matrix_2d", "init_undistort_rectify_map", "make_pipeline", "median_blur",
+           "remap", "stream_frames", "threshold", "undistort", "unsharp_mask", "warp_affine",
+           "warp_perspective", "warp_polar"]

@@ -21,12 +21,18 @@ from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsh
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
+from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
+                                                    warp_affine_planes, warp_perspective_planes,
+                                                    warp_polar_planes)
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
+from imageenhancement_mp_tpu_torch.utils import warp_coords
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
-           "median_blur", "bilateral_filter", "threshold", "adaptive_threshold"]
+           "median_blur", "bilateral_filter", "threshold", "adaptive_threshold", "warp_affine",
+           "warp_perspective", "remap", "warp_polar", "undistort", "get_rotation_matrix_2d",
+           "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -149,3 +155,86 @@ def threshold(img: torch.Tensor, thresh: float = 0.0, maxval: float = 255.0,
     else:
         ret = ts.reshape(img.shape[0], img.shape[-1]).astype(np.float64)
     return ret, out
+
+
+def warp_affine(img: torch.Tensor, M, dsize, interpolation: str = "linear",
+                border: str = "constant", border_value: float = 0.0, inverse_map: bool = False,
+                channels_last: bool = True) -> torch.Tensor:
+    """``cv2.warpAffine(img, M, (ow, oh), ...)`` — ``dsize`` is (oh, ow)
+    row-major, ``M`` a 2×3 matrix.  Exact for every dtype (u8/u16/i16/f32):
+    cv2 5.0's hybrid f32 coordinate field and single-FMA lerp for
+    u8/u16/f32 (u8 linear and nearest through the gather kernel on CUDA),
+    cv2's legacy fixed point with float tab weights for i16; ``cubic`` and
+    ``lanczos4`` as the JAX package's.  ``border``: constant (with
+    ``border_value``, saturated like cv2) or replicate.  ``inverse_map`` is
+    cv2's WARP_INVERSE_MAP."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(warp_affine_planes(planes, np.asarray(M, np.float64).reshape(2, 3),
+                                      (int(dsize[0]), int(dsize[1])), str(interpolation),
+                                      str(border), float(border_value), bool(inverse_map)))
+
+
+def warp_perspective(img: torch.Tensor, M, dsize, interpolation: str = "linear",
+                     border: str = "constant", border_value: float = 0.0,
+                     inverse_map: bool = False, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.warpPerspective(img, M, (ow, oh), ...)`` — ``dsize`` is (oh, ow),
+    ``M`` a 3×3 homography; the same dtypes, borders and interpolations as
+    :func:`warp_affine`.  The perspective field is divided on the device,
+    tensor by tensor (IEEE f32)."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(warp_perspective_planes(planes, np.asarray(M, np.float64).reshape(3, 3),
+                                           (int(dsize[0]), int(dsize[1])), str(interpolation),
+                                           str(border), float(border_value),
+                                           bool(inverse_map)))
+
+
+def remap(img: torch.Tensor, map_x, map_y, interpolation: str = "linear",
+          border: str = "constant", border_value: float = 0.0,
+          channels_last: bool = True) -> torch.Tensor:
+    """``cv2.remap`` with f32 coordinate maps ``(oh, ow)`` (tensors or NumPy
+    arrays), shared by every plane of the batch as in cv2.  u8 linear and
+    nearest through the gather kernel on CUDA."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(remap_planes(planes, map_x, map_y, str(interpolation), str(border),
+                                float(border_value)))
+
+
+def warp_polar(img: torch.Tensor, dsize, center, max_radius: float, log: bool = False,
+               inverse: bool = False, interpolation: str = "linear",
+               channels_last: bool = True) -> torch.Tensor:
+    """``cv2.warpPolar`` with ``WARP_FILL_OUTLIERS`` — ``dsize`` is cv2's
+    (width, height) of the output; ``log=True`` is ``WARP_POLAR_LOG``,
+    ``inverse=True`` maps a polar image back to cartesian.  cv2's maps are
+    reproduced on the host once per geometry and kept on the device."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(warp_polar_planes(planes, (int(dsize[0]), int(dsize[1])),
+                                     (float(center[0]), float(center[1])), float(max_radius),
+                                     bool(log), bool(inverse), str(interpolation)))
+
+
+def undistort(img: torch.Tensor, K, dist, new_K=None, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.undistort`` — cv2's quantized-map path: u8 through the 32×32
+    integer tab, the other dtypes through the float tab."""
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(undistort_planes(planes, K, dist, new_K))
+
+
+def get_rotation_matrix_2d(center, angle_deg: float, scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D`` (host f64; ``center`` is (cx, cy) like cv2)."""
+    return warp_coords.get_rotation_matrix_2d(center, angle_deg, scale)
+
+
+def get_affine_transform(src, dst) -> np.ndarray:
+    """``cv2.getAffineTransform`` (3 point pairs → 2×3 f64)."""
+    return warp_coords.get_affine_transform(src, dst)
+
+
+def get_perspective_transform(src, dst) -> np.ndarray:
+    """``cv2.getPerspectiveTransform`` (4 point pairs → 3×3 f64)."""
+    return warp_coords.get_perspective_transform(src, dst)
+
+
+def init_undistort_rectify_map(K, dist, size, new_K=None):
+    """``cv2.initUndistortRectifyMap`` (host f32 maps; ``size`` is (H, W)) —
+    feed the result to :func:`remap`."""
+    return warp_coords.init_undistort_rectify_map(K, dist, size, new_K)

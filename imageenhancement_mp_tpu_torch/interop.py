@@ -2,8 +2,8 @@
 
 The system has no weights.  Its only state is the fixed-point tap tables
 (``utils/taps.py``, host NumPy in both packages), the per-plane LUTs,
-CLAHE's per-tile LUTs, the bilateral disc and colour table, and the f64 taps
-of the Gaussian adaptive threshold.  The JAX flagship keeps each plane's 256-entry LUT
+CLAHE's per-tile LUTs, the bilateral disc and colour table, the f64 taps
+of the Gaussian adaptive threshold and the warps' f32 coordinate fields.  The JAX flagship keeps each plane's 256-entry LUT
 as ``[B, 2, 128]`` int32 (``lut2``, the JAX package's pipeline.py:210);
 the port keeps ``[B, 256]`` u8.  JAX's CLAHE stage B returns ``[B·gh·gw, S]``
 u8 or u16 tile LUTs, tiles in ``(b, ty, tx)`` order; the port's stage C reads
@@ -19,7 +19,7 @@ import torch
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
 __all__ = ["planes_from_numpy", "luts_from_lut2", "clahe_luts_from_jax",
-           "bilateral_tables_from_jax", "athresh_taps_from_jax"]
+           "bilateral_tables_from_jax", "athresh_taps_from_jax", "warp_maps_from_jax"]
 
 
 def planes_from_numpy(arr: np.ndarray, channels_last: bool = True) -> torch.Tensor:
@@ -79,3 +79,17 @@ def athresh_taps_from_jax(taps) -> torch.Tensor:
     if t.ndim != 1 or t.shape[0] < 3 or t.shape[0] % 2 == 0:
         raise ValueError(f"expected an odd number >= 3 of taps, got shape {t.shape}")
     return torch.from_numpy(t.copy())
+
+
+def warp_maps_from_jax(sx, sy) -> tuple[torch.Tensor, torch.Tensor]:
+    """A warp's only state, its coordinate field: the f32 ``(oh, ow)`` maps
+    the JAX package bakes with ``ref/``'s f32 functions
+    (``warp_affine_coords_f32``, ``warp_perspective_coords_f32``,
+    ``_warp_polar_maps``) → the port's contiguous f32 CPU tensors, as
+    ``kernels/warp.py::warp_gather_u8`` and ``ops/warp.py::remap_planes``
+    read them."""
+    a, b = np.asarray(sx), np.asarray(sy)
+    if a.dtype != np.float32 or b.dtype != np.float32 or a.ndim != 2 or a.shape != b.shape:
+        raise ValueError(f"expected two f32 (oh, ow) maps of one shape, got {a.dtype} {a.shape} "
+                         f"and {b.dtype} {b.shape}")
+    return torch.from_numpy(a.copy()), torch.from_numpy(b.copy())

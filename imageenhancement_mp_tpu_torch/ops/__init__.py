@@ -15,6 +15,9 @@ from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsh
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
+from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
+                                                    warp_affine_planes, warp_perspective_planes,
+                                                    warp_polar_planes)
 
 __all__ = ["OP_REGISTRY", "LATER"]
 
@@ -22,8 +25,7 @@ __all__ = ["OP_REGISTRY", "LATER"]
 LATER = {
     **dict.fromkeys(("gamma", "log_transform", "contrast_stretch", "convert_scale_abs"), 6),
     "equalize_hist_global": 4,
-    **dict.fromkeys(("warp_affine", "warp_perspective", "warp_polar", "remap", "undistort",
-                     "fast_nl_means"), 9),
+    "fast_nl_means": 9,
     **dict.fromkeys((
         "box_blur", "erode", "dilate", "morphology", "sobel", "pyr_down",
         "resize", "flip", "rotate", "transpose", "canny", "connected_components",
@@ -49,4 +51,9 @@ OP_REGISTRY = _Registry(
     bilateral=bilateral_planes,
     threshold=threshold_planes,
     adaptive_threshold=adaptive_threshold_planes,
+    warp_affine=warp_affine_planes,
+    warp_perspective=warp_perspective_planes,
+    warp_polar=warp_polar_planes,
+    remap=remap_planes,
+    undistort=undistort_planes,
 )

@@ -16,7 +16,8 @@ from imageenhancement_mp_tpu_torch.models.presets import PRESETS
 from imageenhancement_mp_tpu_torch.ops import LATER, OP_REGISTRY
 
 KERNELS = {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
-           "median", "hist256_tiles", "clahe_lut", "clahe_blend", "bilateral", "athresh"}
+           "median", "hist256_tiles", "clahe_lut", "clahe_blend", "bilateral", "athresh",
+           "warp_gather_u8"}
 
 
 def _img(shape, seed):
@@ -81,7 +82,8 @@ def test_stream_frames_on_cpu_equals_direct_calls(depth):
 def test_registry_names_and_errors():
     assert set(OP_REGISTRY) == {"equalize_hist", "gaussian_blur", "unsharp_mask",
                                 "median_blur", "clahe", "bilateral", "threshold",
-                                "adaptive_threshold"}
+                                "adaptive_threshold", "warp_affine", "warp_perspective",
+                                "warp_polar", "remap", "undistort"}
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         OP_REGISTRY["gamma"]
     with pytest.raises(KeyError):

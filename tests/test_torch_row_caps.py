@@ -17,6 +17,7 @@ from imageenhancement_mp_tpu_torch.kernels import bilateral as kbilateral
 from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
 from imageenhancement_mp_tpu_torch.kernels import conv as kconv
 from imageenhancement_mp_tpu_torch.kernels import median as kmedian
+from imageenhancement_mp_tpu_torch.kernels import warp as kwarp
 from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_tables
 from imageenhancement_mp_tpu_torch.ops.threshold import gaussian_taps
@@ -50,13 +51,21 @@ def _athresh(x):
     return kathresh.adaptive_threshold_gaussian(x, gaussian_taps(11, x.device), 255, 2, False)
 
 
+def _warp_gather(x):
+    B, H, W = x.shape
+    sy, sx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    return kwarp.warp_gather_u8(x, sx.contiguous(), sy.contiguous())
+
+
 @pytest.mark.parametrize("module,name,run", [
     (kmedian, "median", _median),
     (kclahe, "clahe_blend", _clahe_blend),
     (kconv, "sep_conv_u8", _sep_conv),
     (kbilateral, "bilateral", _bilateral),
     (kathresh, "athresh", _athresh),
-], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh"])
+    (kwarp, "warp_gather_u8", _warp_gather),
+], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh", "warp_gather_u8"])
 def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
     launches = []
     monkeypatch.setattr(module, "on_cuda", lambda t, what: True)
