@@ -63,7 +63,25 @@
    the map build and the kernel apart, polar's first (map-building) call
    apart from its cached calls, and torch's grid_sample (bilinear, f32) as a
    yardstick that is not the same function.
-8. Prints a one-line JSON per-kernel summary (launches on the main paths,
+8. Computes each kernel's bound at its timed shape and times the PyTorch
+   calls that compute the same function (bincount, gather).
+9. Colour conversion and non-local means: holds take_table against its
+   plain version at 0 LSB (the K15 probe's [8, 128] inputs against their
+   expected output; shared [L] and per-plane [B, L] tables, int32 and
+   int64, L in {1, 128, 256, 3072, 4096, 36864, 35937} and on both sides of
+   the shared-memory limit, indices at 0, at L - 1 and beyond both ends,
+   1x1 planes, a storage offset of one element, [70000, 8, 8] and
+   [1, 2_200_000, 8]); runs every cvt_color code and dtype on 2x270x480
+   card against CPU (0 LSB, the f32 tolerances, +-1 on u8 luv2rgb with the
+   share printed); then drives cvt_color rgb2lab, lab2rgb, rgb2luv and
+   rgb2gray at 32x1080x1920x3, clahe_lab at 1x2160x3840x3 and the four
+   non-local-means functions at 1080p (and u16 L1 at 512x512), each with
+   counters of its own (exactly 6, 9, 25, 0, 15 plus the three CLAHE
+   stages, 441, 891, 1323 and 441 take_table launches), against the plain
+   path on the card (the same ops with take_table_plain) and on the CPU at
+   0 LSB, and times them; then times take_table alone at the rgb2lab shape
+   beside its bound and torch.take.
+10. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -74,6 +92,7 @@ Every check raises on failure; nothing is caught.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -91,7 +110,8 @@ CONFIG5_KERNELS = ("median", "hist256_tiles", "clahe_lut", "clahe_blend", "sep_c
 SLICE3_KERNELS = ("bilateral", "athresh")
 KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
 WARP_KERNELS = ("warp_gather_u8",)
-ALL_KERNELS = KERNELS + WARP_KERNELS
+TAKE_KERNELS = ("take_table",)
+ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -104,6 +124,7 @@ SOURCES = {
     "bilateral": f"{PKG}/kernels/csrc/bilateral.cu",
     "athresh": f"{PKG}/kernels/csrc/athresh.cu",
     "warp_gather_u8": f"{PKG}/kernels/csrc/warp.cu",
+    "take_table": f"{PKG}/kernels/csrc/take.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -117,6 +138,7 @@ REPLACES = {
     "bilateral": "imageenhancement_mp_tpu/kernels/bilateral.py:158",
     "athresh": "imageenhancement_mp_tpu/kernels/dfconv.py:183",
     "warp_gather_u8": "imageenhancement_mp_tpu/kernels/warp.py:241",
+    "take_table": "imageenhancement_mp_tpu/kernels/hist.py:415 and imageenhancement_mp_tpu/kernels/hist.py:87",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -168,6 +190,243 @@ def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[flo
         times.append(start.elapsed_time(end) / calls)
     q1, q2, q3 = statistics.quantiles(times, n=4)
     return q2, q3 - q1
+
+
+def noisy(lead: tuple, H: int, W: int, trail: tuple, seed: int, sigma: float) -> np.ndarray:
+    """A smooth pattern plus Gaussian noise of ``sigma``, u8, of shape
+    ``lead + (H, W) + trail``: the kind of frame non-local means is for."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.ogrid[0:H, 0:W]
+    base = 128 + 60 * np.sin(yy / 9.0) + 50 * np.cos(xx / 13.0)
+    base = base.reshape(base.shape + (1,) * len(trail))
+    return np.clip(base + rng.normal(0, sigma, lead + (H, W) + trail), 0, 255).astype(np.uint8)
+
+
+def colour_and_nlmeans(port, dev, smi, gen, on_card, misaligned, check, drive, clahe_plain,
+                       ms, bounds, library) -> dict:
+    """Phase 9: take_table against its plain version, then cvt_color,
+    clahe_lab and the four non-local-means functions on the card, each with
+    counters of its own, against the plain path on the card and the CPU, and
+    timed.  Fills ``ms``, ``bounds`` and ``library`` for take_table and
+    returns the counts of the cvt_color rgb2lab call."""
+    from imageenhancement_mp_tpu_torch.api import _CVT_CODES
+    from imageenhancement_mp_tpu_torch.kernels import launch_counts
+    from imageenhancement_mp_tpu_torch.kernels import take as ktake
+    from imageenhancement_mp_tpu_torch.ops import color as tcolor
+    from imageenhancement_mp_tpu_torch.ops import nlmeans as tnlm
+
+    I32, I64 = torch.int32, torch.int64
+    before = dict(launch_counts)
+    n_take = 0
+
+    def rand_table(shape, dtype) -> torch.Tensor:
+        t = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=dev, dtype=I64)
+        return (t * 4099).to(dtype) if dtype == I64 else t.to(dtype)  # int64: past 32 bits
+
+    def rand_idx(shape, lo: int, hi: int) -> torch.Tensor:
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=I32)
+
+    def check_take(idx: torch.Tensor, tab: torch.Tensor, what: str) -> None:
+        nonlocal n_take
+        check("take_table", ktake.take_table(idx, tab), ktake.take_table_plain(idx, tab), what)
+        n_take += 1
+
+    # (a) the K15 probe's inputs, then shared and per-plane tables of both
+    # types, lengths on both sides of the shared-memory limit, indices at 0,
+    # at L - 1 and beyond both ends (clamped), tiny planes, offset 1
+    tn = torch.arange(8 * 128, dtype=I32, device=dev).view(8, 128)
+    ixn = (tn * 7 + 3) % 128
+    check("take_table", ktake.take_table(ixn, tn),
+          tn[torch.arange(8, device=dev)[:, None], ixn.long()], "K15 probe, its expected output")
+    check_take(ixn, tn, "K15 probe")
+    for dtype in (I32, I64):
+        at_limit = ktake.SMEM_TABLE_BYTES // torch.empty((), dtype=dtype).element_size()
+        for L in (1, 128, 256, 3072, 4096, 36864, 35937, at_limit, at_limit + 1):
+            for per_plane in (False, True):
+                for shape in ((3, 37, 131), (2, 1, 1)):
+                    idx = rand_idx(shape, -3, L + 3)
+                    idx.view(-1)[0], idx.view(-1)[-1] = 0, L - 1
+                    tab = rand_table((shape[0], L) if per_plane else (L,), dtype)
+                    what = f"{dtype} L={L} per_plane={per_plane} {shape}"
+                    check_take(idx, tab, what)
+                    check_take(misaligned(idx), tab, what + " offset 1")
+    many = rand_idx((70000, 8, 8), -1, 129)
+    check_take(many, rand_table((70000, 128), I32), "[70000, 8, 8] per-plane int32 L=128")
+    check_take(rand_idx((70000, 8, 8), 0, 36864), rand_table((36864,), I64),
+               "[70000, 8, 8] shared int64 L=36864")
+    tall = rand_idx((1, 2_200_000, 8), -1, 4097)
+    check_take(tall, rand_table((1, 4096), I32), "[1, 2200000, 8] per-plane int32 L=4096")
+    check_take(rand_idx((1, 2_200_000, 8), 0, 35937), rand_table((35937,), I64),
+               "[1, 2200000, 8] shared int64 L=35937")
+    del many, tall
+    torch.cuda.synchronize()
+    if launch_counts["take_table"] <= before["take_table"]:
+        raise AssertionError("take_table: the comparison phase launched no kernel")
+    print(f"take_table vs plain on the card: 0 LSB over {n_take} cases (the K15 probe, int32 "
+          f"and int64, shared and per-plane tables, L from 1 to 36864 and on both sides of "
+          f"the {ktake.SMEM_TABLE_BYTES}-byte shared-memory limit, 1x1 planes, offset 1, "
+          "[70000, 8, 8], [1, 2200000, 8])")
+
+    # every code and dtype on small images, card against the CPU: 0 LSB on
+    # the integer paths and the f32 fma32 chains, the stated tolerances on
+    # the f32 XYZ (1e-6), Lab and Luv forwards (1e-3), inverses (1e-5), and
+    # +-1 on u8 luv2rgb (f32 pow), with the share of differing values
+    rng = np.random.default_rng(24)
+    small = {np.uint8: rng.integers(0, 256, (2, 270, 480, 4), dtype=np.uint8),
+             np.uint16: rng.integers(0, 65536, (2, 270, 480, 4)).astype(np.uint16),
+             np.float32: rng.random((2, 270, 480, 4), dtype=np.float32)}
+    f32_tol = {"xyz": (1e-6, 1e-6), "lab": (1e-3, 1e-5), "luv": (1e-3, 1e-5)}
+    n_codes, worst = 0, {}
+    for code in _CVT_CODES:
+        for dtype, x in small.items():
+            x = x if code[:4] in ("rgba", "bgra") else np.ascontiguousarray(x[..., :3])
+            try:
+                want = port.cvt_color(torch.from_numpy(x), code)
+            except TypeError:
+                continue  # a dtype the code does not take (the CPU tests check the card's error)
+            got = port.cvt_color(on_card(x), code).cpu()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"cvt_color {code} {dtype.__name__}: {got.shape} {got.dtype}")
+            space = next(s for s in ("ycrcb", "hsv", "hls", "xyz", "lab", "luv", "gray")
+                         if s in code)
+            e = float((got.double() - want.double()).abs().max())
+            if dtype == np.float32 and space in f32_tol:
+                tol = f32_tol[space][0 if code.startswith(("rgb", "bgr")) else 1]
+            elif code.startswith("luv") and dtype == np.uint8:
+                tol = 1
+                print(f"cvt_color {code} u8 card vs CPU: max {e:.0f}, "
+                      f"{float((got != want).double().mean()):.6%} of values differ")
+            else:
+                tol = 0
+            worst[f"{code} {dtype.__name__}"] = e
+            if e > tol:
+                raise AssertionError(f"cvt_color {code} {dtype.__name__}: card vs CPU {e} > {tol}")
+            n_codes += 1
+    print(f"cvt_color card vs CPU on 2x270x480: {n_codes} code/dtype pairs within their "
+          f"tolerances; f32 worst: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()
+                                                 if k.endswith("float32") and v))
+
+    # (b) the public functions, each with counters of its own; the plain path
+    # on the card is the same ops with take_table_plain in place of the kernel
+    @contextlib.contextmanager
+    def plain_takes():
+        counts = dict(launch_counts)
+        tcolor.take_table = tnlm.take_table = ktake.take_table_plain
+        try:
+            yield
+        finally:
+            tcolor.take_table = tnlm.take_table = ktake.take_table
+        if dict(launch_counts) != counts:
+            raise AssertionError("the plain path launched a kernel")
+
+    def plain(fn):
+        def run():
+            with plain_takes():
+                return fn()
+        return run
+
+    def plain_clahe_lab(img: torch.Tensor) -> torch.Tensor:
+        with plain_takes():
+            lab = tcolor.rgb_to_lab_nhwc(img)
+            L = clahe_plain(lab[..., 0].reshape((-1,) + tuple(lab.shape[-3:-1])), 2.0, (8, 8))
+            L = L.reshape(lab.shape[:-1])
+            return tcolor.lab_to_rgb_nhwc(torch.cat([L[..., None], lab[..., 1:]], dim=-1))
+
+    x_c = np.random.default_rng(20).integers(0, 256, (32, 1080, 1920, 3), dtype=np.uint8)
+    x_lab = np.random.default_rng(21).integers(0, 256, (32, 1080, 1920, 3), dtype=np.uint8)
+    x_4k = np.random.default_rng(22).integers(0, 256, (1, 2160, 3840, 3), dtype=np.uint8)
+    x_gray = noisy((), 1080, 1920, (), 23, 8.0)
+    x_col = noisy((), 1080, 1920, (3,), 24, 3.0)
+    x_multi = noisy((3,), 1080, 1920, (), 25, 3.0)
+    x_u16 = np.clip(noisy((), 512, 512, (), 26, 0.0).astype(np.float64) * 257
+                    + np.random.default_rng(26).normal(0, 400, (512, 512)), 0, 65535
+                    ).astype(np.uint16)
+    paths = [  # label, input, public call, takes, other launches, plain path (None: plain())
+        ("cvt_color rgb2lab 32x1080x1920x3 u8", x_c, lambda x: port.cvt_color(x, "rgb2lab"),
+         6, {}, None),
+        ("cvt_color lab2rgb 32x1080x1920x3 u8", x_lab, lambda x: port.cvt_color(x, "lab2rgb"),
+         9, {}, None),
+        ("cvt_color rgb2luv 32x1080x1920x3 u8", x_c, lambda x: port.cvt_color(x, "rgb2luv"),
+         25, {}, None),
+        ("cvt_color rgb2gray 32x1080x1920x3 u8", x_c, lambda x: port.cvt_color(x, "rgb2gray"),
+         0, {}, None),
+        ("clahe_lab(2.0, 8x8) 1x2160x3840x3 u8", x_4k, lambda x: port.clahe_lab(x, 2.0, (8, 8)),
+         15, {"hist256_tiles": 1, "clahe_lut": 1, "clahe_blend": 1}, plain_clahe_lab),
+        ("fast_nl_means_denoising(h=10, 7, 21) 1080x1920 u8", x_gray,
+         lambda x: port.fast_nl_means_denoising(x, 10.0, 7, 21), 441, {}, None),
+        ("fast_nl_means_denoising_colored(3, 3, 7, 21) 1080x1920x3 u8", x_col,
+         lambda x: port.fast_nl_means_denoising_colored(x, 3.0, 3.0, 7, 21), 891, {}, None),
+        ("fast_nl_means_denoising_multi(frames, 1, 3, h=3) 3x1080x1920 u8", x_multi,
+         lambda x: port.fast_nl_means_denoising_multi(x, 1, 3, 3.0, 7, 21), 1323, {}, None),
+        ("fast_nl_means_denoising(h=30000, 7, 21, l1) 512x512 u16", x_u16,
+         lambda x: port.fast_nl_means_denoising(x, 30000.0, 7, 21, norm_type="l1"), 441, {},
+         None),
+    ]
+    rgb2lab_counts = None
+    for label, x, fn, takes, others, plain_fn in paths:
+        g = on_card(x)
+        plain_run = (lambda: plain_fn(g)) if plain_fn else plain(lambda: fn(g))
+        out, got = drive(label, lambda: fn(g), {"take_table": takes, **others})
+        if rgb2lab_counts is None:
+            rgb2lab_counts = got
+        want = plain_run()
+        one = x[:1] if x.shape[0] == 32 else x
+        cpu = fn(torch.from_numpy(one))
+        if out.dtype != cpu.dtype or out.device != dev or out.shape[1:] != cpu.shape[1:]:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype} {out.device}")
+        if out.float().std() == 0:
+            raise AssertionError(f"{label}: output is constant")
+        if "nl_means" in label and torch.equal(out.cpu(), torch.from_numpy(
+                x[1] if "multi" in label else x)):
+            raise AssertionError(f"{label}: the output equals the input")
+        e = max_err(out, want)
+        e_cpu = max_err(out[:1].cpu() if x.shape[0] == 32 else out.cpu(), cpu)
+        print(f"{label}: kernel path vs plain path on the card, max abs err {e}; "
+              f"{'one image' if x.shape[0] == 32 else 'the same input'} vs the plain path on "
+              f"the CPU, max abs err {e_cpu}")
+        if e or e_cpu:
+            raise AssertionError(f"{label}: kernel path differs from the plain path")
+        del out, want, cpu
+        runs = (5, 2) if "nl_means" in label else (TIMED_RUNS, CALLS_PER_RUN)
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(lambda: fn(g), *runs), time_ms(plain_run, 5, 2)
+        pixels = x[1].size if "multi" in label else x.size // (3 if x.shape[-1] == 3 else 1)
+        gpix = pixels / 1e9
+        print(f"{label}: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = {gpix / (k_ms / 1e3):.4f}"
+              f" GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}), {takes} take_table "
+              f"launches per call  [{smi}]")
+        del g
+
+    # (c) take_table alone at the rgb2lab shape (its first lookup: the gamma
+    # table, 256 int32 entries in shared memory), beside torch.take
+    gc = on_card(x_c[..., 0])
+    idx = gc.to(I32)
+    gamma = tcolor._lab_device_tabs(dev)[0]
+    (k_ms, k_iqr), (p_ms, p_iqr) = (time_ms(lambda: ktake.take_table(idx, gamma)),
+                                    time_ms(lambda: ktake.take_table_plain(idx, gamma), 10, 3))
+    ms["take_table"] = (k_ms, p_ms)
+    bounds["take_table"] = bound_ms(8 * idx.numel() + 4 * gamma.numel())
+    idx64 = idx.long()
+    if not torch.equal(torch.take(gamma, idx64), ktake.take_table(idx, gamma)):
+        raise AssertionError("torch.take differs from take_table")
+    library["take_table"] = time_ms(lambda: torch.take(gamma, idx64))[0]
+    print(f"  take_table at {tuple(idx.shape)}, 256-entry int32 table: kernel {k_ms:.4f} ms "
+          f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound "
+          f"{bounds['take_table'][0]:.4f} ms (bytes), torch.take on int64 indices made "
+          f"beforehand {library['take_table']:.4f} ms  [{smi}]")
+    del idx64
+    # the route through L1/L2 at the same shape, and one lookup of the
+    # non-local-means loop (its live LUT, one 1080p frame)
+    abxz = tcolor._lab_device_tabs(dev)[7]
+    idx_l2 = rand_idx(tuple(idx.shape), 0, abxz.numel())
+    l2_ms, l2_iqr = time_ms(lambda: ktake.take_table(idx_l2, abxz))
+    lut = tnlm._lut(10.0, 7, 21, 1, 1, "l2", 255, dev)[0]
+    idx_nlm = rand_idx((1, 1080, 1920), 0, lut.numel())
+    n_ms, n_iqr = time_ms(lambda: ktake.take_table(idx_nlm, lut))
+    print(f"  take_table at {tuple(idx.shape)}, 36864-entry int32 table (L1/L2 route): "
+          f"{l2_ms:.4f} ms (IQR {l2_iqr:.4f}); at (1, 1080, 1920) with the {lut.numel()}-entry "
+          f"NLMeans LUT: {n_ms:.4f} ms (IQR {n_iqr:.4f}), bound "
+          f"{bound_ms(8 * idx_nlm.numel())[0]:.4f} ms  [{smi}]")
+    return rgb2lab_counts
 
 
 def main() -> None:
@@ -973,13 +1232,26 @@ def main() -> None:
         print(f"  library call for {name}: {library[name]:.4f} ms (one torch call on int64 "
               f"indices made beforehand)  [{smi}]")
 
+    # -- 9. colour conversion and non-local means: take_table ------------------
+    take_launches = colour_and_nlmeans(port, dev, smi, gen, on_card, misaligned, check, drive,
+                                       clahe_plain, ms, bounds, library)
+
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its four kernels, get_preset's config 5 call for the
     # config 5 kernels, the bilateral -> adaptive_threshold pipeline for
-    # bilateral and athresh, the warp_affine rot15 call for warp_gather_u8
+    # bilateral and athresh, the warp_affine rot15 call for warp_gather_u8,
+    # cvt_color rgb2lab for take_table
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
                      **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
-                     **{n: warp_launches[n] for n in WARP_KERNELS}}
+                     **{n: warp_launches[n] for n in WARP_KERNELS},
+                     **{n: take_launches[n] for n in TAKE_KERNELS}}
+    # the bounds of the two TPU kernels still to port, from their shapes:
+    # K13 reads 8x1080x1920 u8 planes once and writes 9 u8 outputs (the 9
+    # tables of 256 entries per plane once); K14 reads and writes 2x2160x3840
+    n13, n14 = 8 * 1080 * 1920, 2 * 2160 * 3840
+    print(f"bounds still to port: K13 apply_luts_multi_pallas [8, 1080, 1920] u8, K = 9: "
+          f"{bound_ms(n13 + 9 * n13 + 8 * 9 * 256)[0]:.6f} ms (bytes); K14 "
+          f"median_unsharp_pallas [2, 2160, 3840] u8: {bound_ms(2 * n14)[0]:.6f} ms (bytes)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],

@@ -3,8 +3,10 @@ the JAX package's ``api.py``.
 
 Each accepts ``[H,W]``, ``[H,W,C]``, ``[N,H,W]`` or ``[N,H,W,C]`` images
 (u8, and u16/i16/f32 where a function says so) and works per plane (per
-image × channel), except colour ``bilateral_filter``, whose weights join the
-three channels.  The output lies on the input's device:
+image × channel), except colour ``bilateral_filter`` and the
+``fast_nl_means_*`` functions, whose weights join the channels, and the
+colour conversions, which take ``[..,H,W,C]`` pixels.  The output lies on
+the input's device:
 a CPU tensor runs the plain PyTorch versions, a CUDA tensor the kernels.
 ``channels_last=False`` reads a 3-D input as ``[N, H, W]`` even when W ≤ 4.
 """
@@ -19,20 +21,26 @@ from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilater
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
+from imageenhancement_mp_tpu_torch.ops import color
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops.nlmeans import (fast_nl_means_multi_vec,
+                                                       fast_nl_means_u16_vec, fast_nl_means_vec)
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
                                                     warp_polar_planes)
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
 from imageenhancement_mp_tpu_torch.utils import warp_coords
-from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, treat_as_hwc
+from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
            "median_blur", "bilateral_filter", "threshold", "adaptive_threshold", "warp_affine",
            "warp_perspective", "remap", "warp_polar", "undistort", "get_rotation_matrix_2d",
-           "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map"]
+           "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map",
+           "cvt_color", "cvt_gray", "equalize_luma", "clahe_lab", "fast_nl_means_denoising",
+           "fast_nl_means_denoising_colored", "fast_nl_means_denoising_multi",
+           "fast_nl_means_denoising_colored_multi"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -238,3 +246,210 @@ def init_undistort_rectify_map(K, dist, size, new_K=None):
     """``cv2.initUndistortRectifyMap`` (host f32 maps; ``size`` is (H, W)) —
     feed the result to :func:`remap`."""
     return warp_coords.init_undistort_rectify_map(K, dist, size, new_K)
+
+
+# -- colour conversion ---------------------------------------------------------
+
+_CVT_CODES = (
+    "rgb2gray", "bgr2gray", "rgba2gray", "bgra2gray",
+    "rgb2ycrcb", "bgr2ycrcb", "ycrcb2rgb", "ycrcb2bgr",
+    "rgb2hsv", "bgr2hsv", "hsv2rgb", "hsv2bgr",
+    "rgb2hls", "bgr2hls", "hls2rgb", "hls2bgr",
+    "rgb2xyz", "bgr2xyz", "xyz2rgb", "xyz2bgr",
+    "rgb2lab", "bgr2lab", "lab2rgb", "lab2bgr",
+    "rgb2luv", "bgr2luv", "luv2rgb", "luv2bgr",
+)
+
+
+def _check_image_dtype(img: torch.Tensor) -> None:
+    if img.dtype not in (torch.uint8, torch.uint16, torch.float32):
+        raise TypeError(f"expected uint8/uint16/float32 image tensor, got {img.dtype}")
+
+
+def cvt_color(img: torch.Tensor, code: str) -> torch.Tensor:
+    """``cv2.cvtColor`` — codes ``{rgb,bgr,rgba,bgra}2gray``,
+    ``{rgb,bgr}2{ycrcb,hsv,hls,xyz,lab,luv}`` and their inverses on
+    ``[..,H,W,C]``.  Gray/YCrCb: u8/u16 exact, f32 cv2's FMA chains.
+    HSV/HLS: u8, exact.  XYZ/Lab: u8 exact both ways (Lab through table
+    lookups, the ``take_table`` kernel on CUDA); f32 the float formulas.
+    Luv: u8 forward through cv2's packed trilinear tables, u8 inverse and
+    f32 both ways through the float formulas."""
+    _check_image_dtype(img)
+    code = str(code).lower()
+    if code not in _CVT_CODES:
+        raise ValueError(f"code must be one of {_CVT_CODES}, got {code!r}")
+    if img.dim() not in (3, 4):
+        raise ValueError(f"expected [H,W,C] or [N,H,W,C], got {tuple(img.shape)}")
+    fwd = "bgr" if code.startswith("b") else "rgb"
+    inv = "bgr" if code.endswith("bgr") else "rgb"
+    if code.endswith("2gray"):
+        return color.cvt_gray_nhwc(img, fwd)
+    for name, to_fn, from_fn in (("ycrcb", color.rgb_to_ycrcb_nhwc, color.ycrcb_to_rgb_nhwc),
+                                 ("hsv", color.rgb_to_hsv_nhwc, color.hsv_to_rgb_nhwc),
+                                 ("hls", color.rgb_to_hls_nhwc, color.hls_to_rgb_nhwc),
+                                 ("xyz", color.rgb_to_xyz_nhwc, color.xyz_to_rgb_nhwc),
+                                 ("lab", color.rgb_to_lab_nhwc, color.lab_to_rgb_nhwc),
+                                 ("luv", color.rgb_to_luv_nhwc, color.luv_to_rgb_nhwc)):
+        if code.endswith("2" + name):
+            return to_fn(img, fwd)
+        if code.startswith(name):
+            return from_fn(img, inv)
+    raise AssertionError(code)  # every code is handled above
+
+
+def cvt_gray(img: torch.Tensor, order: str = "rgb") -> torch.Tensor:
+    """``cv2.cvtColor(img, COLOR_{RGB,BGR}[A]2GRAY)`` on ``[H,W,C]`` or
+    ``[N,H,W,C]``, C ∈ {3,4} (alpha ignored).  u8/u16 exact (15-bit
+    sum-preserving fixed point); f32 cv2's two-FMA chain.  The channel axis
+    is dropped."""
+    _check_image_dtype(img)
+    if img.dim() not in (3, 4):
+        raise ValueError(f"expected [H,W,C] or [N,H,W,C], got {tuple(img.shape)}")
+    return color.cvt_gray_nhwc(img, str(order))
+
+
+def _check_u8_rgb(img: torch.Tensor, what: str) -> None:
+    if img.dtype != torch.uint8:
+        raise TypeError(f"{what}, got {img.dtype}")
+    if img.dim() not in (3, 4) or img.shape[-1] != 3:
+        raise ValueError(f"expected [H,W,3] or [N,H,W,3], got {tuple(img.shape)}")
+
+
+def equalize_luma(img: torch.Tensor, order: str = "rgb") -> torch.Tensor:
+    """Colour histogram equalization: RGB → YCrCb, ``cv2.equalizeHist`` on
+    the luma plane, back to RGB — exact at every stage.  uint8 ``[H,W,3]``
+    or ``[N,H,W,3]``."""
+    _check_u8_rgb(img, "equalize_luma is uint8 (cv2.equalizeHist is 8-bit)")
+    ycc = color.rgb_to_ycrcb_nhwc(img, order)
+    y = equalize_hist_planes(ycc[..., 0].reshape((-1,) + tuple(ycc.shape[-3:-1])))
+    y = y.reshape(ycc.shape[:-1])
+    return color.ycrcb_to_rgb_nhwc(torch.cat([y[..., None], ycc[..., 1:]], dim=-1), order)
+
+
+def clahe_lab(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: tuple[int, int] = (8, 8),
+              order: str = "rgb") -> torch.Tensor:
+    """Colour CLAHE: RGB → Lab (cv2's u8 fixed point), CLAHE on the L plane
+    only, back to RGB — cv2's ``cvtColor → CLAHE-on-L → cvtColor`` recipe,
+    exact.  uint8 ``[H,W,3]`` or ``[N,H,W,3]``; ``tile_grid`` is (rows,
+    cols)."""
+    _check_u8_rgb(img, "clahe_lab is uint8 (cv2 Lab u8 path)")
+    if order not in ("rgb", "bgr"):
+        raise ValueError(f"order must be 'rgb' or 'bgr', got {order!r}")
+    lab = color.rgb_to_lab_nhwc(img, order)
+    L = clahe_planes(lab[..., 0].reshape((-1,) + tuple(lab.shape[-3:-1])), float(clip_limit),
+                     tuple(tile_grid))
+    L = L.reshape(lab.shape[:-1])
+    return color.lab_to_rgb_nhwc(torch.cat([L[..., None], lab[..., 1:]], dim=-1), order)
+
+
+# -- non-local means -----------------------------------------------------------
+
+def fast_nl_means_denoising(img: torch.Tensor, h: float = 10.0, template_window: int = 7,
+                            search_window: int = 21, channels_last: bool = True,
+                            norm_type: str = "l2") -> torch.Tensor:
+    """``cv2.fastNlMeansDenoising`` — bit-exact, uint8 (L2 or L1) or uint16
+    (L1 only, cv2's own constraint; int64 accumulators).  Multichannel inputs
+    follow cv2's vector-pixel semantics: one joint SSD over the channels
+    drives a shared weight.  A 3-D input with last dim ≤ 4 is one [H,W,C]
+    image (the ``as_planes`` ambiguity rule)."""
+    t, s = int(template_window), int(search_window)
+    if t % 2 == 0 or s % 2 == 0:
+        raise ValueError("window sizes must be odd")
+    if norm_type not in ("l1", "l2"):
+        raise ValueError(f"norm_type must be 'l1' or 'l2', got {norm_type!r}")
+    if img.dtype == torch.uint16:
+        if norm_type != "l1":
+            raise ValueError("uint16 fastNlMeansDenoising requires norm_type='l1'"
+                             " (cv2's own constraint)")
+        vec, restore = as_vec(img, channels_last=channels_last)
+        return restore(fast_nl_means_u16_vec(vec, float(h), t, s))
+    _check_u8(img)
+    vec, restore = as_vec(img, channels_last=channels_last)
+    return restore(fast_nl_means_vec(vec, float(h), t, s, str(norm_type)))
+
+
+def _check_colored(img: torch.Tensor, order: str, t: int, s: int, what: str) -> None:
+    if img.dtype != torch.uint8:
+        raise TypeError(f"{what} is uint8, got {img.dtype}")
+    if order not in ("rgb", "bgr"):
+        raise ValueError(f"order must be 'rgb' or 'bgr', got {order!r}")
+    if t % 2 == 0 or s % 2 == 0:
+        raise ValueError("window sizes must be odd")
+
+
+def fast_nl_means_denoising_colored(img: torch.Tensor, h: float = 3.0, h_color: float = 3.0,
+                                    template_window: int = 7, search_window: int = 21,
+                                    order: str = "rgb") -> torch.Tensor:
+    """``cv2.fastNlMeansDenoisingColored`` — bit-exact: convert with the
+    linear-RGB Lab variant (COLOR_LBGR2Lab), denoise L alone with ``h`` and
+    the (a, b) pair as one 2-channel vector image with ``h_color``, convert
+    back.  uint8 ``[H,W,3]`` or ``[N,H,W,3]``."""
+    t, s = int(template_window), int(search_window)
+    _check_colored(img, order, t, s, "fastNlMeansDenoisingColored")
+    if img.dim() not in (3, 4) or img.shape[-1] != 3:
+        raise ValueError(f"expected [H,W,3] or [N,H,W,3], got {tuple(img.shape)}")
+    lab = color.rgb_to_lab_nhwc(img, order, srgb=False)
+    batched = lab if lab.dim() == 4 else lab[None]
+    L = fast_nl_means_vec(batched[..., :1], float(h), t, s)
+    ab = fast_nl_means_vec(batched[..., 1:3], float(h_color), t, s)
+    out = color.lab_to_rgb_nhwc(torch.cat([L, ab], dim=-1), order, srgb=False)
+    return out if lab.dim() == 4 else out[0]
+
+
+def _temporal_stack(frames, idx: int, tw: int) -> torch.Tensor:
+    tw, idx = int(tw), int(idx)
+    if tw % 2 == 0:
+        raise ValueError("temporalWindowSize must be odd")
+    n = frames.shape[0] if isinstance(frames, torch.Tensor) else len(frames)
+    lo = idx - tw // 2
+    if lo < 0 or idx + tw // 2 >= n:
+        raise ValueError("temporal window exceeds the frame list")
+    if isinstance(frames, torch.Tensor):
+        stack = frames[lo:lo + tw]
+    else:
+        stack = torch.stack([f if isinstance(f, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(f)) for f in frames[lo:lo + tw]])
+    if stack.dtype != torch.uint8:
+        raise TypeError("fastNlMeansDenoisingMulti requires uint8 frames")
+    return stack
+
+
+def fast_nl_means_denoising_multi(frames, img_to_denoise_index: int, temporal_window_size: int,
+                                  h: float = 3.0, template_window: int = 7,
+                                  search_window: int = 21) -> torch.Tensor:
+    """``cv2.fastNlMeansDenoisingMulti`` — bit-exact temporal NLMeans: the
+    search set is every spatial offset in every frame of the odd
+    ``temporal_window_size`` window centred on ``img_to_denoise_index``;
+    templates come from the target frame.  ``frames`` is a ``[T,H,W]`` or
+    ``[T,H,W,C]`` uint8 tensor (or a list of frames); returns the denoised
+    target frame."""
+    stack = _temporal_stack(frames, img_to_denoise_index, temporal_window_size)
+    if stack.dim() not in (3, 4) or (stack.dim() == 4 and stack.shape[-1] not in (1, 2, 3, 4)):
+        raise ValueError(f"expected [T,H,W] or [T,H,W,C<=4] frames, got {tuple(stack.shape)}")
+    t, s = int(template_window), int(search_window)
+    if t % 2 == 0 or s % 2 == 0:
+        raise ValueError("window sizes must be odd")
+    vec = stack if stack.dim() == 4 else stack[..., None]
+    out = fast_nl_means_multi_vec(vec[:, None], float(h), t, s)[0]
+    return out if stack.dim() == 4 else out[..., 0]
+
+
+def fast_nl_means_denoising_colored_multi(frames, img_to_denoise_index: int,
+                                          temporal_window_size: int, h: float = 3.0,
+                                          h_color: float = 3.0, template_window: int = 7,
+                                          search_window: int = 21,
+                                          order: str = "rgb") -> torch.Tensor:
+    """``cv2.fastNlMeansDenoisingColoredMulti`` — bit-exact: every window
+    frame converted with the linear-RGB Lab variant, temporal NLMeans on L
+    with ``h`` and on the (a, b) pairs with ``h_color``, the target
+    converted back.  ``frames`` is a ``[T,H,W,3]`` uint8 tensor (or a
+    list); returns the denoised target."""
+    stack = _temporal_stack(frames, img_to_denoise_index, temporal_window_size)
+    if stack.dim() != 4 or stack.shape[-1] != 3:
+        raise ValueError(f"expected [T,H,W,3] frames, got {tuple(stack.shape)}")
+    t, s = int(template_window), int(search_window)
+    _check_colored(stack, order, t, s, "fastNlMeansDenoisingColoredMulti")
+    lab = color.rgb_to_lab_nhwc(stack, order, srgb=False)[:, None]
+    L = fast_nl_means_multi_vec(lab[..., :1], float(h), t, s)
+    ab = fast_nl_means_multi_vec(lab[..., 1:3], float(h_color), t, s)
+    return color.lab_to_rgb_nhwc(torch.cat([L, ab], dim=-1)[0], order, srgb=False)

@@ -3,7 +3,8 @@
 The system has no weights.  Its only state is the fixed-point tap tables
 (``utils/taps.py``, host NumPy in both packages), the per-plane LUTs,
 CLAHE's per-tile LUTs, the bilateral disc and colour table, the f64 taps
-of the Gaussian adaptive threshold and the warps' f32 coordinate fields.  The JAX flagship keeps each plane's 256-entry LUT
+of the Gaussian adaptive threshold, the warps' f32 coordinate fields, the
+u8 Lab and Luv tables and the non-local-means weight LUT.  The JAX flagship keeps each plane's 256-entry LUT
 as ``[B, 2, 128]`` int32 (``lut2``, the JAX package's pipeline.py:210);
 the port keeps ``[B, 256]`` u8.  JAX's CLAHE stage B returns ``[B·gh·gw, S]``
 u8 or u16 tile LUTs, tiles in ``(b, ty, tx)`` order; the port's stage C reads
@@ -16,10 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from imageenhancement_mp_tpu_torch.utils.nlm_tables import nlm_weight_lut
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
 __all__ = ["planes_from_numpy", "luts_from_lut2", "clahe_luts_from_jax",
-           "bilateral_tables_from_jax", "athresh_taps_from_jax", "warp_maps_from_jax"]
+           "bilateral_tables_from_jax", "athresh_taps_from_jax", "warp_maps_from_jax",
+           "color_tables_from_jax", "nlm_lut_from_jax"]
 
 
 def planes_from_numpy(arr: np.ndarray, channels_last: bool = True) -> torch.Tensor:
@@ -93,3 +96,51 @@ def warp_maps_from_jax(sx, sy) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"expected two f32 (oh, ow) maps of one shape, got {a.dtype} {a.shape} "
                          f"and {b.dtype} {b.shape}")
     return torch.from_numpy(a.copy()), torch.from_numpy(b.copy())
+
+
+def color_tables_from_jax(lab_tabs, luv_tabs) -> tuple[tuple, tuple]:
+    """The JAX package's u8 colour tables → the port's CPU layouts.
+
+    ``lab_tabs``: the nine of ``ops/color.py::_lab_device_tabs`` (``gamma_b,
+    cbrt_b, y_b, ify_b, adiv, bdiv, minab, abxz, invg``: int32 tables, and
+    ``minab`` an integer) → the same nine as ``ops/color.py::_lab_device_tabs``
+    holds them: contiguous int32 tensors and ``minab`` an int.
+    ``luv_tabs``: ``ops/color.py::_luv_host_tabs`` (the ``[256]`` input table
+    and the ``[35937, 3]`` grid) → the first four of
+    ``ops/color.py::_luv_device_tabs``: the input table and the grid's three
+    columns, ``[35937]`` each."""
+    if len(lab_tabs) != 9 or len(luv_tabs) != 2:
+        raise ValueError("expected the nine Lab tables and the two Luv tables")
+    lab = [np.array(a) for a in lab_tabs]  # copies: JAX's arrays are read-only
+    sizes = (256, 3072, 256, 256, 256, 256, None, 36864, 4096)
+    for a, n in zip(lab, sizes):
+        if n is not None and (a.shape != (n,) or a.dtype != np.int32):
+            raise ValueError(f"expected a [{n}] int32 Lab table, got {a.dtype} {a.shape}")
+    if lab[6].shape != () or not np.issubdtype(lab[6].dtype, np.integer):
+        raise ValueError(f"expected minab as an integer, got {lab[6]!r}")
+    tab, grid = (np.array(a) for a in luv_tabs)
+    if tab.shape != (256,) or grid.shape != (33 ** 3, 3) or tab.dtype != np.int32 \
+            or grid.dtype != np.int32:
+        raise ValueError(f"expected a [256] and a [35937, 3] int32 Luv table, got "
+                         f"{tab.dtype} {tab.shape} and {grid.dtype} {grid.shape}")
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    lab_t = (*map(as_t, lab[:6]), int(lab[6]), as_t(lab[7]), as_t(lab[8]))
+    return lab_t, (as_t(tab), *(as_t(grid[:, c]) for c in range(3)))
+
+
+def nlm_lut_from_jax(lut, h: float, t: int, s: int, cn: int = 1, temporal: int = 1,
+                     norm: str = "l2", maxval: int = 255) -> tuple[torch.Tensor, int, int]:
+    """The weight LUT the JAX package's ``ops/nlmeans.py`` builds for these
+    parameters (the live prefix of ``ref/ops.py::_nlm_weight_lut``: int32
+    for u8, int64 for u16, ``maxval`` 65535) → the port's triple, as
+    ``ops/nlmeans.py::_lut`` returns it: the CPU table, its bin shift and its
+    last index.  Raises when the table's length or dtype does not fit the
+    parameters."""
+    w, bs, _ = nlm_weight_lut(float(h), int(t), int(s), int(cn), temporal=int(temporal),
+                              norm=str(norm), maxval=int(maxval))
+    a = np.asarray(lut)
+    dtype = np.int64 if maxval > 255 else np.int32
+    if a.shape != w.shape or a.dtype != dtype:
+        raise ValueError(f"expected a {w.shape} {np.dtype(dtype)} LUT for these parameters, "
+                         f"got {a.dtype} {a.shape}")
+    return torch.from_numpy(a.copy()), bs, len(a) - 1

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "ie_bilateral": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P),
     "ie_athresh": (_P, _P, _P, _I64, _I64, _I64, _P, _I32, _I32, _I32, _I32, _P),
     "ie_warp_gather_u8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _P),
+    "ie_take_table": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P),
 }
 
 # One plain integer per kernel wrapper: the launches made in this process.

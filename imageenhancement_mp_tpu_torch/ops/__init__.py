@@ -14,6 +14,7 @@ from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops.nlmeans import fast_nl_means_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
@@ -25,7 +26,6 @@ __all__ = ["OP_REGISTRY", "LATER"]
 LATER = {
     **dict.fromkeys(("gamma", "log_transform", "contrast_stretch", "convert_scale_abs"), 6),
     "equalize_hist_global": 4,
-    "fast_nl_means": 9,
     **dict.fromkeys((
         "box_blur", "erode", "dilate", "morphology", "sobel", "pyr_down",
         "resize", "flip", "rotate", "transpose", "canny", "connected_components",
@@ -56,4 +56,5 @@ OP_REGISTRY = _Registry(
     warp_polar=warp_polar_planes,
     remap=remap_planes,
     undistort=undistort_planes,
+    fast_nl_means=fast_nl_means_planes,
 )

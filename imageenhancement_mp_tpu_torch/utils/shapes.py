@@ -20,6 +20,8 @@ from typing import Callable, Tuple
 
 import torch
 
+__all__ = ["treat_as_hwc", "as_vec", "as_planes"]
+
 Restore = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -27,6 +29,25 @@ def treat_as_hwc(img: torch.Tensor, channels_last: bool = True) -> bool:
     """A 3-D tensor is one ``[H, W, C]`` image iff ``channels_last`` and its
     last dim is ≤ 4 (the single layout rule of both packages)."""
     return img.dim() == 3 and channels_last and img.shape[-1] in (1, 2, 3, 4)
+
+
+def as_vec(img: torch.Tensor, channels_last: bool = True) -> Tuple[torch.Tensor, Restore]:
+    """Canonicalize to ``[N, H, W, C]`` vector-pixel batches (for ops whose
+    cv2 semantics join the channels, such as fastNlMeansDenoising's joint
+    SSD) and return the undo function.  The same ambiguity rule as
+    :func:`as_planes`: a 3-D input is one ``[H, W, C]`` image iff
+    :func:`treat_as_hwc`, otherwise a grayscale ``[N, H, W]`` batch (C = 1);
+    4-D is always ``[N, H, W, C]``."""
+    nd = img.dim()
+    if nd == 2:
+        return img[None, ..., None], lambda out: out[0, ..., 0]
+    if nd == 3:
+        if treat_as_hwc(img, channels_last):
+            return img[None], lambda out: out[0]
+        return img[..., None], lambda out: out[..., 0]
+    if nd == 4:
+        return img, lambda out: out
+    raise ValueError(f"expected 2-4 dims ([N,]H,W[,C]), got shape {tuple(img.shape)}")
 
 
 def as_planes(img: torch.Tensor, channels_last: bool = True) -> Tuple[torch.Tensor, Restore]:

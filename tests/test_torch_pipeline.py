@@ -102,7 +102,7 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     assert launch_counts == dict.fromkeys(launch_counts, 0)
     assert set(launch_counts) == {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
                                   "median", "hist256_tiles", "clahe_lut", "clahe_blend",
-                                  "bilateral", "athresh", "warp_gather_u8"}
+                                  "bilateral", "athresh", "warp_gather_u8", "take_table"}
 
 
 def test_public_functions_reject_what_the_port_does_not_take():

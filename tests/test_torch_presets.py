@@ -17,7 +17,7 @@ from imageenhancement_mp_tpu_torch.ops import LATER, OP_REGISTRY
 
 KERNELS = {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
            "median", "hist256_tiles", "clahe_lut", "clahe_blend", "bilateral", "athresh",
-           "warp_gather_u8"}
+           "warp_gather_u8", "take_table"}
 
 
 def _img(shape, seed):
@@ -83,7 +83,7 @@ def test_registry_names_and_errors():
     assert set(OP_REGISTRY) == {"equalize_hist", "gaussian_blur", "unsharp_mask",
                                 "median_blur", "clahe", "bilateral", "threshold",
                                 "adaptive_threshold", "warp_affine", "warp_perspective",
-                                "warp_polar", "remap", "undistort"}
+                                "warp_polar", "remap", "undistort", "fast_nl_means"}
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         OP_REGISTRY["gamma"]
     with pytest.raises(KeyError):
