@@ -81,7 +81,24 @@
    path on the card (the same ops with take_table_plain) and on the CPU at
    0 LSB, and times them; then times take_table alone at the rgb2lab shape
    beside its bound and torch.take.
-10. Prints a one-line JSON per-kernel summary (launches on the main paths,
+10. The LUT family and the fused median -> unsharp: holds apply_lut256
+   (every table dtype: u8, and u16/i16/i32/f32 through apply_lut256_wide),
+   apply_luts_multi (K in {1, 9, 64}, across the 32-table shared-memory
+   chunk) and median_unsharp (km 3 and 5, amounts 1, 1.5, -0.5, 2 and 64,
+   ksize 3, 5 and 31) against their plain versions bit for bit (i32 entries
+   at +-(2^31 - 1), f32 infinities, NaN and subnormals; the CPU tests'
+   cases, 1x1 and 2x3 planes, a storage offset of one element, 1079x1917,
+   [70000, 8, 8], [1, 2_200_000, 8]) and median_unsharp against the
+   median -> sep_conv_u8 chain; then drives config 2
+   (get_preset("gamma_stretch") on 32x1080x1920x3: exactly 2 apply_lut256
+   launches), equalize_hist(per_frame=False) on 8x1080x1920x3 (one hist256,
+   equalize_lut256 and apply_lut256), apply_lut_planes with [8, 256] f32
+   tables (one apply_lut256_wide), apply_luts_multi K = 9 (one launch) and
+   median_unsharp(5, 1.0, 5) at 2x2160x3840 (one launch, equal to the chain),
+   each against the plain path on the card and on the CPU; then times the
+   paths and each kernel beside its bound, torch.gather (K5, K13) and the
+   two-kernel chain (K14).
+11. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -111,7 +128,8 @@ SLICE3_KERNELS = ("bilateral", "athresh")
 KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
 WARP_KERNELS = ("warp_gather_u8",)
 TAKE_KERNELS = ("take_table",)
-ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS
+LUT_KERNELS = ("apply_lut256_wide", "apply_luts_multi", "median_unsharp")
+ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS + LUT_KERNELS
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -125,6 +143,9 @@ SOURCES = {
     "athresh": f"{PKG}/kernels/csrc/athresh.cu",
     "warp_gather_u8": f"{PKG}/kernels/csrc/warp.cu",
     "take_table": f"{PKG}/kernels/csrc/take.cu",
+    "apply_lut256_wide": f"{PKG}/kernels/csrc/hist.cu",
+    "apply_luts_multi": f"{PKG}/kernels/csrc/hist.cu",
+    "median_unsharp": f"{PKG}/kernels/csrc/fused.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -139,6 +160,9 @@ REPLACES = {
     "athresh": "imageenhancement_mp_tpu/kernels/dfconv.py:183",
     "warp_gather_u8": "imageenhancement_mp_tpu/kernels/warp.py:241",
     "take_table": "imageenhancement_mp_tpu/kernels/hist.py:415 and imageenhancement_mp_tpu/kernels/hist.py:87",
+    "apply_lut256_wide": "imageenhancement_mp_tpu/kernels/hist.py:281 and imageenhancement_mp_tpu/kernels/hist.py:228 (u16/i16/i32/f32 tables)",
+    "apply_luts_multi": "imageenhancement_mp_tpu/kernels/hist.py:350",
+    "median_unsharp": "imageenhancement_mp_tpu/kernels/fused.py:240",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -427,6 +451,274 @@ def colour_and_nlmeans(port, dev, smi, gen, on_card, misaligned, check, drive, c
           f"NLMeans LUT: {n_ms:.4f} ms (IQR {n_iqr:.4f}), bound "
           f"{bound_ms(8 * idx_nlm.numel())[0]:.4f} ms  [{smi}]")
     return rgb2lab_counts
+
+
+def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive, ms, bounds,
+                         library) -> dict:
+    """Phase 10: apply_lut256 with every table dtype (apply_lut256_wide),
+    apply_luts_multi and median_unsharp against their plain versions; then
+    config 2 through get_preset("gamma_stretch"), pooled equalize_hist,
+    apply_lut_planes with f32 tables, apply_luts_multi and median_unsharp on
+    the card, each with counters of its own, against the plain path on the
+    card and on the CPU, and timed.  Fills ``ms``, ``bounds`` and ``library``
+    for the three kernels and returns their launches on their paths."""
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.kernels import fused as kfused
+    from imageenhancement_mp_tpu_torch.kernels import hist as khist
+    from imageenhancement_mp_tpu_torch.kernels import launch_counts
+    from imageenhancement_mp_tpu_torch.kernels import median as kmedian
+    from imageenhancement_mp_tpu_torch.ops import histogram as thist
+    from imageenhancement_mp_tpu_torch.ops import pointwise as tpoint
+
+    U8, F32 = torch.uint8, torch.float32
+    table_dtypes = (U8, torch.uint16, torch.int16, torch.int32, F32)
+    before = dict(launch_counts)
+    counted = dict.fromkeys(("apply_lut256",) + LUT_KERNELS, 0)
+
+    def rand_u8(shape) -> torch.Tensor:
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=U8)
+
+    def tables(shape, dtype) -> torch.Tensor:
+        """Random tables over the type's full range: i32 entries at
+        +-(2^31 - 1), f32 infinities, NaN, zeros of both signs, subnormals."""
+        if dtype == F32:
+            t = torch.randn(shape, generator=gen, device=dev) * 1e3
+            specials = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e-45, -1e-45,
+                                     1e-40, 0.0, -0.0, 3.4028235e38], device=dev)
+            every7 = t.view(-1)[::7]
+            every7.copy_(specials.repeat(every7.numel() // specials.numel() + 1)[:every7.numel()])
+            return t
+        info = torch.iinfo(dtype)
+        t = torch.randint(info.min, info.max + 1, shape, generator=gen, device=dev,
+                          dtype=torch.int64).to(dtype)
+        t.view(-1)[:2] = torch.tensor([max(info.min, -info.max), info.max], device=dev)
+        return t
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int32) if t.dtype == F32 else t  # NaN payloads, -0.0
+
+    def check_lut(x: torch.Tensor, lut: torch.Tensor, what: str) -> None:
+        name = "apply_lut256" if lut.dtype == U8 else "apply_lut256_wide"
+        check(name, bits(khist.apply_lut256(x, lut)), bits(khist.apply_lut256_plain(x, lut)),
+              f"{what} {lut.dtype} table {tuple(lut.shape)}")
+        counted[name] += 1
+
+    def check_multi(x: torch.Tensor, luts: torch.Tensor, what: str) -> None:
+        got = khist.apply_luts_multi(x, luts)
+        want = khist.apply_luts_multi_plain(x, luts)
+        if len(got) != luts.shape[1]:
+            raise AssertionError(f"apply_luts_multi {what}: {len(got)} outputs")
+        for k, (g, w) in enumerate(zip(got, want)):
+            check("apply_luts_multi", bits(g), bits(w), f"{what} {luts.dtype} K={luts.shape[1]} "
+                  f"output {k}")
+        counted["apply_luts_multi"] += 1
+
+    def check_fused(x: torch.Tensor, km: int, amount: float, ksize: int, what: str) -> None:
+        check("median_unsharp", kfused.median_unsharp(x, km, amount, ksize),
+              kfused.median_unsharp_plain(x, km, amount, ksize),
+              f"{what} km={km} amount={amount} ksize={ksize}")
+        counted["median_unsharp"] += 1
+
+    # (a) each kernel against its plain version: the CPU tests' cases, tiny
+    # planes, a storage offset of one element, 1079x1917, more planes than a
+    # grid axis holds, a plane taller than 65535 row tiles
+    small = [(2, 64, 256), (1, 37, 131), (3, 1000), (1, 1, 1), (1, 2, 3)]
+    for shape in small + [(1, 1079, 1917)]:
+        x = rand_u8(shape)
+        for xx in (x, misaligned(x)):
+            what = f"{tuple(xx.shape)} offset {xx.storage_offset()}"
+            for dtype in table_dtypes:
+                for lut_shape in ((256,), (shape[0], 256)):
+                    check_lut(xx, tables(lut_shape, dtype), what)
+                for K in ((1, 9, 64) if shape in small else (9,)):
+                    check_multi(xx, tables((shape[0], K, 256), dtype), what)
+            check_lut(xx, misaligned(tables((shape[0], 256), F32)), what + ", table offset 1")
+    many, tall = rand_u8((70000, 8, 8)), rand_u8((1, 2_200_000, 8))
+    for dtype in table_dtypes:
+        check_lut(many, tables((70000, 256), dtype), "[70000, 8, 8]")
+        check_lut(tall, tables((256,), dtype), "[1, 2200000, 8]")
+    check_multi(many, tables((70000, 9, 256), U8), "[70000, 8, 8]")
+    check_multi(many, tables((70000, 3, 256), F32), "[70000, 8, 8]")
+    for dtype, K in ((U8, 9), (F32, 9), (torch.uint16, 64)):
+        check_multi(tall, tables((1, K, 256), dtype), "[1, 2200000, 8]")
+    del many, tall
+    fused_shapes = [(2, 64, 131), (1, 37, 131), (1, 1, 1), (1, 2, 3), (2, 4, 131), (3, 5, 9),
+                    (1, 70, 3), (1, 1079, 1917)]
+    for shape in fused_shapes:
+        x = rand_u8(shape)
+        for xx in (x, misaligned(x)):
+            for km in (3, 5):
+                for amount in (1.0, 1.5, -0.5, 2.0, 64.0):
+                    for ksize in (3, 5, 31):
+                        check_fused(xx, km, amount, ksize,
+                                    f"{tuple(xx.shape)} offset {xx.storage_offset()}")
+    for shape in ((70000, 8, 8), (1, 2_200_000, 8)):
+        x = rand_u8(shape)
+        check_fused(x, 5, 1.0, 5, str(shape))
+        check_fused(x, 3, 1.5, 31, str(shape))
+    # the fused kernel against the two-kernel chain median -> sep_conv_u8
+    for shape in ((1, 1, 1), (1, 2, 3), (1, 1079, 1917)):
+        x = rand_u8(shape)
+        for km, amount, ksize in ((5, 1.0, 5), (3, -0.5, 31), (5, 64.0, 3)):
+            taps = kfused.fused_taps(ksize)
+            check("median_unsharp", kfused.median_unsharp(x, km, amount, ksize),
+                  kconv.sep_conv_u8(kmedian.median_blur(x, km), taps, taps, amount),
+                  f"{shape} km={km} amount={amount} ksize={ksize} against the two-kernel chain")
+    torch.cuda.synchronize()
+    for name in counted:
+        if launch_counts[name] <= before[name]:
+            raise AssertionError(f"{name}: the comparison phase launched no kernel")
+    print(f"LUT family and fused kernels vs plain on the card, bit for bit: {counted} cases "
+          "(u8, u16, i16, i32 and f32 tables, shared and per plane, i32 at +-(2^31-1), f32 "
+          "inf/NaN/-0.0/subnormals, K in {1, 9, 64}, km 3/5, amounts 1, 1.5, -0.5, 2, 64, "
+          "ksize 3/5/31, 1x1, 2x3, offset 1, 1079x1917, [70000, 8, 8], [1, 2200000, 8]); "
+          "median_unsharp equals median -> sep_conv_u8 on 1x1, 2x3 and 1079x1917")
+
+    # (b) the paths, each with counters of its own; the plain path on the card
+    # is the same ops with the plain LUT-family versions in the kernels' place
+    @contextlib.contextmanager
+    def plain_luts():
+        counts = dict(launch_counts)
+        saved = (tpoint.apply_lut256, thist.hist256, thist.equalize_lut256, thist.apply_lut256)
+        tpoint.apply_lut256 = thist.apply_lut256 = khist.apply_lut256_plain
+        thist.hist256, thist.equalize_lut256 = khist.hist256_plain, khist.equalize_lut256_plain
+        try:
+            yield
+        finally:
+            (tpoint.apply_lut256, thist.hist256, thist.equalize_lut256,
+             thist.apply_lut256) = saved
+        if dict(launch_counts) != counts:
+            raise AssertionError("the plain path launched a kernel")
+
+    def plain(fn):
+        def run():
+            with plain_luts():
+                return fn()
+        return run
+
+    pipe2 = port.get_preset("gamma_stretch")
+    x2 = np.random.default_rng(30).integers(0, 256, (32, 1080, 1920, 3), dtype=np.uint8)
+    x_eq = np.random.default_rng(31).integers(0, 256, (8, 1080, 1920, 3), dtype=np.uint8)
+    x8 = np.random.default_rng(32).integers(0, 256, (8, 1080, 1920), dtype=np.uint8)
+    x4k = np.random.default_rng(33).integers(0, 256, (2, 2160, 3840), dtype=np.uint8)
+    lut_f32 = tables((8, 256), F32)
+    luts9 = tables((8, 9, 256), U8)
+    paths = [  # label, input, call on a tensor of the input's device, launches, plain, CPU input
+        ("config 2 get_preset('gamma_stretch') 32x1080x1920x3 u8", x2, pipe2,
+         {"apply_lut256": 2}, plain(lambda: pipe2(g)), "one frame"),
+        ("equalize_hist(per_frame=False) 8x1080x1920x3 u8", x_eq,
+         lambda x: port.equalize_hist(x, per_frame=False),
+         {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1},
+         plain(lambda: port.equalize_hist(g, per_frame=False)), "the whole batch"),
+        ("apply_lut_planes 8x1080x1920 u8, [8, 256] f32 tables", x8,
+         lambda x: tpoint.apply_lut_planes(x, lut_f32[:x.shape[0]].to(x.device)),
+         {"apply_lut256_wide": 1},
+         lambda: khist.apply_lut256_plain(g, lut_f32), "one plane"),
+        ("apply_luts_multi [8, 1080, 1920] u8, K = 9 u8 tables", x8,
+         lambda x: khist.apply_luts_multi(x, luts9[:x.shape[0]].to(x.device)),
+         {"apply_luts_multi": 1}, lambda: khist.apply_luts_multi_plain(g, luts9), "one plane"),
+        ("median_unsharp(5, 1.0, 5) 2x2160x3840 u8", x4k,
+         lambda x: kfused.median_unsharp(x, 5, 1.0, 5), {"median_unsharp": 1},
+         lambda: kfused.median_unsharp_plain(g, 5, 1.0, 5), "one plane"),
+    ]
+    path_launches, timing = {}, []
+    for label, x, fn, expect, plain_run, cpu_part in paths:
+        g = on_card(x)
+        out, got = drive(label, lambda: fn(g), expect)
+        path_launches.update({n: got[n] for n in LUT_KERNELS if n in expect})
+        want = plain_run()
+        cpu_in = x if cpu_part == "the whole batch" else x[:1]
+        cpu = fn(torch.from_numpy(cpu_in))
+        if isinstance(out, tuple):  # apply_luts_multi's K outputs
+            out, want, cpu = torch.stack(out), torch.stack(want), torch.stack(cpu)
+            e_cpu = max_err(out[:, :1].cpu(), cpu)
+        else:
+            e_cpu = max_err(out[:cpu_in.shape[0]].cpu(), cpu)
+        if out.device != dev or out.float().std() == 0:
+            raise AssertionError(f"{label}: output on {out.device}, or constant")
+        e = max_err(bits(out), bits(want))
+        print(f"{label}: kernel path vs plain path on the card, max abs err {e}; {cpu_part} vs "
+              f"the plain path on the CPU, max abs err {e_cpu}")
+        if e or e_cpu:
+            raise AssertionError(f"{label}: kernel path differs from the plain path")
+        if "median_unsharp" in label:
+            taps = kfused.fused_taps(5)
+            chain = kconv.sep_conv_u8(kmedian.median_blur(g, 5), taps, taps, 1.0)
+            e_chain = max_err(out, chain)
+            print(f"{label}: against the median -> sep_conv_u8 chain, max abs err {e_chain}")
+            if e_chain:
+                raise AssertionError("median_unsharp differs from the two-kernel chain")
+        del out, want, cpu
+        timing.append((label, x, g, fn, plain_run))
+
+    # (c) time each path, kernel path against plain path
+    for label, x, g, fn, plain_run in timing:
+        (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(lambda: fn(g)), time_ms(plain_run, 5, 2)
+        gpix = x.size / 1e9  # pixels of all planes
+        extra = ""
+        if label.startswith("config 2"):
+            extra = (f", bytes floor {bound_ms(5 * x.size)[0]:.4f} ms (5 B/px: the gamma read "
+                     "and write, the min/max read, the stretch read and write)")
+        print(f"{label}: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = {gpix / (k_ms / 1e3):.4f} "
+              f"GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}){extra}  [{smi}]")
+    g8, g4k = timing[2][2], timing[4][2]
+    del timing
+
+    # (d) each kernel at its path's shape beside its bound and a PyTorch call
+    B8, n8 = g8.shape[0], g8[0].numel()
+    idx8 = g8.view(B8, -1).long()
+    for dtype in (torch.int16, F32):  # 2- and 4-byte entries (torch.gather has no uint16)
+        lut = tables((B8, 256), dtype)
+        (k_ms, k_iqr), (p_ms, p_iqr) = (time_ms(lambda: khist.apply_lut256(g8, lut)),
+                                        time_ms(lambda: khist.apply_lut256_plain(g8, lut), 10, 3))
+        if not torch.equal(bits(torch.gather(lut, 1, idx8).view_as(g8)),
+                           bits(khist.apply_lut256(g8, lut))):
+            raise AssertionError("torch.gather with the tables differs from apply_lut256_wide")
+        lib = time_ms(lambda: torch.gather(lut, 1, idx8))[0]
+        b = bound_ms(B8 * n8 * (1 + lut.element_size()) + lut.numel() * lut.element_size())
+        print(f"  apply_lut256_wide at {tuple(g8.shape)}, {dtype} tables: kernel {k_ms:.4f} ms "
+              f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound {b[0]:.4f} ms "
+              f"({b[1]}), torch.gather on int64 indices made beforehand {lib:.4f} ms  [{smi}]")
+        if dtype == F32:  # the path's tables
+            ms["apply_lut256_wide"], bounds["apply_lut256_wide"] = (k_ms, p_ms), b
+            library["apply_lut256_wide"] = lib
+    idx9 = idx8[:, None, :].expand(B8, 9, n8)
+    for dtype in (U8, F32):
+        luts = tables((B8, 9, 256), dtype)
+        (k_ms, k_iqr), (p_ms, p_iqr) = (time_ms(lambda: khist.apply_luts_multi(g8, luts)),
+                                        time_ms(lambda: khist.apply_luts_multi_plain(g8, luts),
+                                                5, 2))
+        stacked = torch.gather(luts, 2, idx9)
+        for k, o in enumerate(khist.apply_luts_multi(g8, luts)):
+            if not torch.equal(bits(stacked[:, k].reshape(g8.shape)), bits(o)):
+                raise AssertionError("torch.gather of the K tables differs from apply_luts_multi")
+        del stacked
+        lib = time_ms(lambda: torch.gather(luts, 2, idx9))[0]
+        b = bound_ms(B8 * n8 * (1 + 9 * luts.element_size()) + luts.numel() * luts.element_size())
+        print(f"  apply_luts_multi at {tuple(g8.shape)}, K = 9 {dtype} tables: kernel {k_ms:.4f} "
+              f"ms (IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound {b[0]:.4f} ms "
+              f"({b[1]}), one torch.gather of the [B, K, 256] tables (index expanded to "
+              f"[B, K, n]) {lib:.4f} ms  [{smi}]")
+        if dtype == U8:  # the path's tables
+            ms["apply_luts_multi"], bounds["apply_luts_multi"] = (k_ms, p_ms), b
+            library["apply_luts_multi"] = lib
+    del idx8, idx9
+    taps5 = kfused.fused_taps(5)
+    (k_ms, k_iqr), (p_ms, p_iqr), (c_ms, c_iqr), (m_ms, _), (s_ms, _) = (
+        time_ms(lambda: kfused.median_unsharp(g4k, 5, 1.0, 5)),
+        time_ms(lambda: kfused.median_unsharp_plain(g4k, 5, 1.0, 5), 5, 2),
+        time_ms(lambda: kconv.sep_conv_u8(kmedian.median_blur(g4k, 5), taps5, taps5, 1.0)),
+        time_ms(lambda: kmedian.median_blur(g4k, 5)),
+        time_ms(lambda: kconv.sep_conv_u8(g4k, taps5, taps5, 1.0)))
+    ms["median_unsharp"] = (k_ms, p_ms)
+    bounds["median_unsharp"] = bound_ms(2 * g4k.numel())  # integer min/max: no rate
+    library["median_unsharp"] = None  # no PyTorch call does cv2's median and Q8 Gaussian
+    print(f"  median_unsharp at {tuple(g4k.shape)} km=5 amount=1 ksize=5: kernel {k_ms:.4f} ms "
+          f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), the two-kernel chain "
+          f"median -> sep_conv_u8 {c_ms:.4f} ms (IQR {c_iqr:.4f}; median alone {m_ms:.4f}, "
+          f"sep_conv_u8 alone {s_ms:.4f}), bound {bounds['median_unsharp'][0]:.4f} ms (bytes)"
+          f"  [{smi}]")
+    return path_launches
 
 
 def main() -> None:
@@ -1236,22 +1528,19 @@ def main() -> None:
     take_launches = colour_and_nlmeans(port, dev, smi, gen, on_card, misaligned, check, drive,
                                        clahe_plain, ms, bounds, library)
 
+    # -- 10. the LUT family, config 2 and the fused median -> unsharp ----------
+    lut_launches = lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
+                                        ms, bounds, library)
+
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its four kernels, get_preset's config 5 call for the
     # config 5 kernels, the bilateral -> adaptive_threshold pipeline for
     # bilateral and athresh, the warp_affine rot15 call for warp_gather_u8,
-    # cvt_color rgb2lab for take_table
+    # cvt_color rgb2lab for take_table, phase 10's paths for its three kernels
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
                      **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
                      **{n: warp_launches[n] for n in WARP_KERNELS},
-                     **{n: take_launches[n] for n in TAKE_KERNELS}}
-    # the bounds of the two TPU kernels still to port, from their shapes:
-    # K13 reads 8x1080x1920 u8 planes once and writes 9 u8 outputs (the 9
-    # tables of 256 entries per plane once); K14 reads and writes 2x2160x3840
-    n13, n14 = 8 * 1080 * 1920, 2 * 2160 * 3840
-    print(f"bounds still to port: K13 apply_luts_multi_pallas [8, 1080, 1920] u8, K = 9: "
-          f"{bound_ms(n13 + 9 * n13 + 8 * 9 * 256)[0]:.6f} ms (bytes); K14 "
-          f"median_unsharp_pallas [2, 2160, 3840] u8: {bound_ms(2 * n14)[0]:.6f} ms (bytes)")
+                     **{n: take_launches[n] for n in TAKE_KERNELS}, **lut_launches}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],

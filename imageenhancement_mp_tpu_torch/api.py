@@ -17,10 +17,12 @@ import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels.hist import hist256
+from imageenhancement_mp_tpu_torch.ops import pointwise
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
-from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
+from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
+                                                         equalize_hist_planes, histogram_256)
 from imageenhancement_mp_tpu_torch.ops import color
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops.nlmeans import (fast_nl_means_multi_vec,
@@ -34,7 +36,8 @@ from imageenhancement_mp_tpu_torch.utils import warp_coords
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
-__all__ = ["equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
+__all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch",
+           "convert_scale_abs", "equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
            "median_blur", "bilateral_filter", "threshold", "adaptive_threshold", "warp_affine",
            "warp_perspective", "remap", "warp_polar", "undistort", "get_rotation_matrix_2d",
            "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map",
@@ -48,18 +51,86 @@ def _check_u8(img: torch.Tensor) -> None:
         raise TypeError(f"expected uint8 image tensor, got {img.dtype}")
 
 
+def apply_lut(img: torch.Tensor, lut, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.LUT``: gather through a 256-entry table (exact).
+
+    ``lut`` (a tensor or array) may be ``[256]`` (shared) or ``[B, 256]``
+    with one table per plane (B = N·C in canonical plane order); it is cast
+    to uint8, as the JAX package's ``apply_lut`` casts it."""
+    _check_u8(img)
+    lut = lut if isinstance(lut, torch.Tensor) else torch.from_numpy(np.asarray(lut))
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(pointwise.apply_lut_planes(planes, lut.to(img.device, torch.uint8)))
+
+
+def histogram(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """Per-plane histogram (``cv2.calcHist`` ≡ bincount — exact).
+
+    256 bins for uint8, 65536 for uint16; int32 counts shaped like the
+    input's plane structure: [S], [C,S], [N,S], or [N,C,S]."""
+    if img.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"expected uint8 or uint16 image tensor, got {img.dtype}")
+    planes, _ = as_planes(img, channels_last=channels_last)
+    h = histogram_256(planes)
+    if img.dim() == 2:
+        return h[0]
+    if img.dim() == 3:
+        return h  # [C, S] or [N, S]: plane order matches as_planes
+    return h.reshape(img.shape[0], img.shape[-1], h.shape[-1])
+
+
+def gamma(img: torch.Tensor, gamma_value: float, channels_last: bool = True) -> torch.Tensor:
+    """Power-law transform ``s = 255·(r/255)^γ``: u8/u16 through static LUTs
+    (exact), f32 directly."""
+    _check_image_dtype(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(pointwise.gamma_planes(planes, float(gamma_value)))
+
+
+def log_transform(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """Log transform ``s = (255/log 256)·log(1+r)``: u8/u16 through static
+    LUTs (exact), f32 directly."""
+    _check_image_dtype(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(pointwise.log_planes(planes))
+
+
+def convert_scale_abs(img: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
+                      channels_last: bool = True) -> torch.Tensor:
+    """``cv2.convertScaleAbs(src, alpha, beta)`` per plane: uint8 saturated
+    at 255, like cv2, for u8, u16, i16 or f32 input."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(pointwise.convert_scale_abs_planes(planes, float(alpha), float(beta)))
+
+
+def contrast_stretch(img: torch.Tensor, out_range: tuple[float, float] = (0.0, 255.0),
+                     channels_last: bool = True) -> torch.Tensor:
+    """``cv2.normalize(NORM_MINMAX, α, β)`` per plane (exact on u8, u16 and
+    i16; f32 cv2's float path)."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(pointwise.contrast_stretch_planes(
+        planes, (float(out_range[0]), float(out_range[1]))))
+
+
 def equalize_hist(img: torch.Tensor, per_frame: bool = True, per_channel: bool = True,
                   channels_last: bool = True) -> torch.Tensor:
-    """``cv2.equalizeHist`` on each plane (exact, 8-bit).
+    """``cv2.equalizeHist`` (exact, 8-bit).
 
-    Only ``per_frame=True`` is ported; the pooled (video) mode is ROADMAP
-    Queue 1 item 4 and raises.  ``per_channel`` only matters when pooled."""
-    if not per_frame:
-        raise NotImplementedError(
-            "pooled equalize_hist (per_frame=False) is ROADMAP Queue 1 item 4")
+    ``per_frame=True`` (default) equalizes each plane independently like
+    per-image cv2 calls.  ``per_frame=False`` pools the histogram and LUT
+    across the batch, flicker-free for video: with ``per_channel=True``
+    (default) each channel pools its own histogram across the frames, with
+    ``per_channel=False`` every plane shares one."""
     _check_u8(img)
     planes, restore = as_planes(img, channels_last=channels_last)
-    return restore(equalize_hist_planes(planes))
+    if per_frame:
+        return restore(equalize_hist_planes(planes))
+    channels = 1
+    if per_channel and (img.dim() == 4 or treat_as_hwc(img, channels_last)):
+        channels = img.shape[-1]
+    return restore(equalize_hist_global_planes(planes, channels))
 
 
 def gaussian_blur(img: torch.Tensor, ksize=5, sigma: float = 0.0, sigma_y: float = 0.0,
@@ -261,9 +332,11 @@ _CVT_CODES = (
 )
 
 
-def _check_image_dtype(img: torch.Tensor) -> None:
-    if img.dtype not in (torch.uint8, torch.uint16, torch.float32):
-        raise TypeError(f"expected uint8/uint16/float32 image tensor, got {img.dtype}")
+def _check_image_dtype(img: torch.Tensor, allow_i16: bool = False) -> None:
+    ok = (torch.uint8, torch.uint16, torch.float32) + ((torch.int16,) if allow_i16 else ())
+    if img.dtype not in ok:
+        raise TypeError(f"expected uint8/uint16{'/int16' if allow_i16 else ''}/float32 image "
+                        f"tensor, got {img.dtype}")
 
 
 def cvt_color(img: torch.Tensor, code: str) -> torch.Tensor:

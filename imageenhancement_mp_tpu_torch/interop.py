@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 The system has no weights.  Its only state is the fixed-point tap tables
-(``utils/taps.py``, host NumPy in both packages), the per-plane LUTs,
+(``utils/taps.py``, host NumPy in both packages), the per-plane LUTs (the
+point ops' tables of any dtype through :func:`luts_from_jax`),
 CLAHE's per-tile LUTs, the bilateral disc and colour table, the f64 taps
 of the Gaussian adaptive threshold, the warps' f32 coordinate fields, the
 u8 Lab and Luv tables and the non-local-means weight LUT.  The JAX flagship keeps each plane's 256-entry LUT
@@ -20,9 +21,11 @@ import torch
 from imageenhancement_mp_tpu_torch.utils.nlm_tables import nlm_weight_lut
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
-__all__ = ["planes_from_numpy", "luts_from_lut2", "clahe_luts_from_jax",
+__all__ = ["planes_from_numpy", "luts_from_lut2", "luts_from_jax", "clahe_luts_from_jax",
            "bilateral_tables_from_jax", "athresh_taps_from_jax", "warp_maps_from_jax",
            "color_tables_from_jax", "nlm_lut_from_jax"]
+
+_LUT_DTYPES = tuple(map(np.dtype, (np.uint8, np.uint16, np.int16, np.int32, np.float32)))
 
 
 def planes_from_numpy(arr: np.ndarray, channels_last: bool = True) -> torch.Tensor:
@@ -41,6 +44,21 @@ def luts_from_lut2(lut2) -> torch.Tensor:
     if a.size and (a.min() < 0 or a.max() > 255):
         raise ValueError("lut2 entries must lie in 0..255 for a u8 LUT")
     return torch.from_numpy(a.reshape(a.shape[0], 256).astype(np.uint8))
+
+
+def luts_from_jax(luts) -> torch.Tensor:
+    """The JAX package's point-op tables (gamma, log and convertScaleAbs
+    tables, ``ops/pointwise.py::stretch_luts_from_minmax``'s output, K-table
+    stacks; u8, u16, i16, i32 or f32) → the port's CPU tensor of the same
+    dtype and layout: ``[256]`` or ``[B, 256]`` for ``kernels/hist.py::
+    apply_lut256``, ``[B, K, 256]`` for ``apply_luts_multi``, ``[65536]`` or
+    ``[B, 65536]`` for u16 planes."""
+    a = np.array(luts)  # a copy: JAX's arrays are read-only
+    ok = (a.ndim in (1, 2) and a.shape[-1] in (256, 65536)) or (a.ndim == 3 and a.shape[-1] == 256)
+    if a.dtype not in _LUT_DTYPES or not ok:
+        raise ValueError(f"expected a [256], [B, 256], [B, K, 256], [65536] or [B, 65536] table "
+                         f"of u8/u16/i16/i32/f32, got {a.dtype} {a.shape}")
+    return torch.from_numpy(a)
 
 
 def clahe_luts_from_jax(luts, B: int, gh: int, gw: int) -> torch.Tensor:

@@ -55,6 +55,9 @@ _SIGNATURES = {
     "ie_athresh": (_P, _P, _P, _I64, _I64, _I64, _P, _I32, _I32, _I32, _I32, _P),
     "ie_warp_gather_u8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _P),
     "ie_take_table": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P),
+    "ie_apply_lut256_wide": (_P, _P, _I64, _P, _I64, _I64, _I32, _P),
+    "ie_apply_luts_multi": (_P, _P, _I64, _P, _I64, _I64, _I32, _P),
+    "ie_median_unsharp": (_P, _P, _I64, _I64, _I64, _I32, _P, _I32, _F32, _F32, _P),
 }
 
 # One plain integer per kernel wrapper: the launches made in this process.

@@ -182,6 +182,125 @@ apply_lut256_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ l
   }
 }
 
+// ---------------------------------------------------------------------------
+// lut_multi_kernel<T>: K tables of 256 entries per plane applied to the same
+// u8 planes, out[k][b] = luts[b][k][x[b]], entries of 1, 2 or 4 bytes copied
+// bit for bit (u8; u16/i16; i32/f32 -- NaN payloads, infinities and
+// subnormals included).  It serves two C entry points:
+//  * apply_lut256_wide (K = 1): replaces the JAX package's kernels/hist.py::
+//    apply_lut256_pallas for u16/i16/i32/f32 tables.  Its TPU form is a
+//    one-hot bilinear product on the MXU at HIGHEST precision, exact only for
+//    integer entries below 2^24; here an entry is read from shared memory as
+//    it is.
+//  * apply_luts_multi: replaces kernels/hist.py::apply_luts_multi_pallas
+//    (K one-hot products per pixel stripe).  Each pixel is read once for up
+//    to kMaxTables tables; a larger K loops over chunks of tables.
+// Bound by device memory: 1 B/px read plus K * sizeof(T) B/px written.  The
+// block stages its plane's chunk of tables in dynamic shared memory (at most
+// kMaxTables * 1 KB).  Each thread reads the 16 / sizeof(T) pixels whose
+// outputs fill one 16-byte vector per table (a uint4 of u8 pixels for u8
+// tables, a uint2 for 16-bit ones, a uint32 for 32-bit ones), so the lanes
+// of a warp load and store neighbouring vectors: a first version that read
+// 16 pixels per thread for every table type wrote f32 tables in four
+// 16-byte stores 64 bytes apart per lane and ran K = 9 at 37 % of its bound.
+// Where an output row is not as aligned as its input, the plane goes pixel
+// by pixel.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxTables = 32;
+
+// The table entries at the pixels of one input vector, as one 16-byte vector.
+__device__ __forceinline__ uint4 map_vec(const uint8_t* tab, uint4 v) {
+  return make_uint4(map4(tab, v.x), map4(tab, v.y), map4(tab, v.z), map4(tab, v.w));
+}
+
+__device__ __forceinline__ uint32_t pair16(const uint16_t* tab, uint32_t w, int shift) {
+  return uint32_t(tab[(w >> shift) & 255u]) | (uint32_t(tab[(w >> (shift + 8)) & 255u]) << 16);
+}
+
+__device__ __forceinline__ uint4 map_vec(const uint16_t* tab, uint2 v) {
+  return make_uint4(pair16(tab, v.x, 0), pair16(tab, v.x, 16), pair16(tab, v.y, 0),
+                    pair16(tab, v.y, 16));
+}
+
+__device__ __forceinline__ uint4 map_vec(const uint32_t* tab, uint32_t w) {
+  return make_uint4(tab[w & 255u], tab[(w >> 8) & 255u], tab[(w >> 16) & 255u], tab[w >> 24]);
+}
+
+// The input vector whose pixels' entries fill one 16-byte output vector.
+template <typename T> struct InVec;
+template <> struct InVec<uint8_t> { using type = uint4; };
+template <> struct InVec<uint16_t> { using type = uint2; };
+template <> struct InVec<uint32_t> { using type = uint32_t; };
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lut_multi_kernel(const uint8_t* __restrict__ x, const T* __restrict__ luts, int64_t plane_stride,
+                 int K, T* __restrict__ out, int64_t B, int64_t n) {
+  using In = typename InVec<T>::type;
+  constexpr int64_t kPx = 16 / sizeof(T);  // pixels per vector
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x;
+  const int64_t g = int64_t(blockIdx.x) * kThreads + tid;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  const int64_t kstride = B * n;  // elements from table k's output to table k+1's
+
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    const uint8_t* p = x + b * n;
+    // a head up to the input's first 16-byte boundary, a body of whole
+    // vectors, a tail
+    const int64_t head0 = split_plane(p, n).head;
+    const In* pv = reinterpret_cast<const In*>(p + head0);
+    for (int c0 = 0; c0 < K; c0 += kMaxTables) {
+      const int kc = min(kMaxTables, K - c0);
+      __syncthreads();  // the previous chunk's reads of tab are done
+      const T* src = luts + b * plane_stride + int64_t(c0) * 256;
+      for (int i = tid; i < kc * 256; i += kThreads) tab[i] = src[i];
+      __syncthreads();
+
+      T* q = out + (int64_t(c0) * B + b) * n;
+      int64_t head = head0, nvec = (n - head0) / kPx;
+      if ((reinterpret_cast<uintptr_t>(q + head) | uintptr_t(kstride * int64_t(sizeof(T)))) & 15)
+        head = n, nvec = 0;  // outputs not aligned like the input: the whole plane is "head"
+      for (int64_t i = g; i < nvec; i += stride) {
+        const In v = pv[i];
+        for (int k = 0; k < kc; ++k)
+          reinterpret_cast<uint4*>(q + k * kstride + head)[i] = map_vec(tab + k * 256, v);
+      }
+      for (int64_t i = g; i < head; i += stride) {
+        const uint8_t v = p[i];
+        for (int k = 0; k < kc; ++k) q[k * kstride + i] = tab[k * 256 + v];
+      }
+      for (int64_t i = head + nvec * kPx + g; i < n; i += stride) {
+        const uint8_t v = p[i];
+        for (int k = 0; k < kc; ++k) q[k * kstride + i] = tab[k * 256 + v];
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_lut_multi(const uint8_t* x, const void* luts, int64_t plane_stride, int64_t K,
+                     void* out, int64_t B, int64_t n, cudaStream_t stream) {
+  const dim3 grid(blocks_per_plane(n), unsigned(B < kMaxGridY ? B : kMaxGridY));
+  const size_t smem = size_t(K < kMaxTables ? K : kMaxTables) * 256 * sizeof(T);
+  lut_multi_kernel<T><<<grid, kThreads, smem, stream>>>(
+      x, static_cast<const T*>(luts), plane_stride, int(K), static_cast<T*>(out), B, n);
+  return int(cudaGetLastError());
+}
+
+int launch_lut_bytes(const uint8_t* x, const void* luts, int64_t plane_stride, int64_t K,
+                     void* out, int64_t B, int64_t n, int32_t elem_bytes, cudaStream_t stream) {
+  if (B < 1 || n < 1 || K < 1 || K > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  switch (elem_bytes) {
+    case 1: return launch_lut_multi<uint8_t>(x, luts, plane_stride, K, out, B, n, stream);
+    case 2: return launch_lut_multi<uint16_t>(x, luts, plane_stride, K, out, B, n, stream);
+    case 4: return launch_lut_multi<uint32_t>(x, luts, plane_stride, K, out, B, n, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -213,6 +332,22 @@ int ie_apply_lut256(const uint8_t* x, const uint8_t* luts, int64_t lut_stride, u
   const dim3 grid(blocks_per_plane(n), unsigned(B < kMaxGridY ? B : kMaxGridY));
   apply_lut256_kernel<<<grid, kThreads, 0, stream>>>(x, luts, lut_stride, out, B, n);
   return int(cudaGetLastError());
+}
+
+// x: [B, n] u8 contiguous; luts: 256 entries of elem_bytes (2 or 4) bytes
+// for plane b at luts + b * lut_stride entries (0: one shared table, 256:
+// one per plane); out: [B, n] entries of the same size.
+int ie_apply_lut256_wide(const uint8_t* x, const void* luts, int64_t lut_stride, void* out,
+                         int64_t B, int64_t n, int32_t elem_bytes, cudaStream_t stream) {
+  if (elem_bytes != 2 && elem_bytes != 4) return int(cudaErrorInvalidValue);
+  return launch_lut_bytes(x, luts, lut_stride, 1, out, B, n, elem_bytes, stream);
+}
+
+// x: [B, n] u8 contiguous; luts: [B, K, 256] entries of elem_bytes (1, 2 or
+// 4) bytes; out: [K, B, n] entries of the same size.
+int ie_apply_luts_multi(const uint8_t* x, const void* luts, int64_t K, void* out, int64_t B,
+                        int64_t n, int32_t elem_bytes, cudaStream_t stream) {
+  return launch_lut_bytes(x, luts, K * 256, K, out, B, n, elem_bytes, stream);
 }
 
 }  // extern "C"

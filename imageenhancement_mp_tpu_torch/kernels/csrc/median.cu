@@ -15,16 +15,12 @@
 // unrolled with compile-time indices, so the taps stay in registers; ptxas's
 // report (nvcc.log) shows whether any spill.
 //
-// Networks, as kernels/networks.py builds them:
-//  * 9 taps: Paeth's 19-comparator median network.
-//  * 25 taps: forgetful selection.  Start with the first 14 taps; each round
-//    moves the window's minimum and maximum out and takes in the next tap;
-//    after 11 rounds the median is the middle of the last three.
-// Taps are held as int, the register width: u8, u16 and i16 values all fit,
-// and a signed int compare orders each type as the type itself does.
+// The networks are in median_networks.cuh, shared with fused.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "median_networks.cuh"
 
 namespace {
 
@@ -34,37 +30,6 @@ constexpr int kTileH = 16;
 constexpr int kRowStep = kThreads / kTileW;       // 4 rows apart
 constexpr int kRowsPerThread = kTileH / kRowStep;  // 4 outputs per thread
 constexpr int64_t kMaxGridY = 65535;  // (plane, row tile) pairs beyond it stride over gridDim.y
-
-__device__ __forceinline__ void cex(int& a, int& b) {
-  const int lo = min(a, b);
-  b = max(a, b);
-  a = lo;
-}
-
-__device__ __forceinline__ int median9(int (&w)[9]) {
-  cex(w[1], w[2]); cex(w[4], w[5]); cex(w[7], w[8]); cex(w[0], w[1]);
-  cex(w[3], w[4]); cex(w[6], w[7]); cex(w[1], w[2]); cex(w[4], w[5]);
-  cex(w[7], w[8]); cex(w[0], w[3]); cex(w[5], w[8]); cex(w[4], w[7]);
-  cex(w[3], w[6]); cex(w[1], w[4]); cex(w[2], w[5]); cex(w[4], w[7]);
-  cex(w[4], w[2]); cex(w[6], w[4]); cex(w[4], w[2]);
-  return w[4];
-}
-
-__device__ __forceinline__ int median25(int (&a)[25]) {
-  // round r: the window is a[2r .. 13+r]; its minimum goes to a[2r] and its
-  // maximum to a[2r+1], both dropped; a[14+r] joins for the next round
-#pragma unroll
-  for (int r = 0; r < 11; ++r) {
-#pragma unroll
-    for (int i = 2 * r + 1; i <= 13 + r; ++i) cex(a[2 * r], a[i]);
-#pragma unroll
-    for (int i = 2 * r + 2; i <= 13 + r; ++i) cex(a[i], a[2 * r + 1]);
-  }
-  cex(a[22], a[23]);
-  cex(a[23], a[24]);
-  cex(a[22], a[23]);
-  return a[23];
-}
 
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
@@ -98,18 +63,7 @@ median_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t B, int H, in
       const int r = r0 + k * kRowStep;
       const int y = y0 + r;
       if (y < H && xx < W) {
-        int w[K * K];
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx) w[dy * K + dx] = int(tile[r + dy][c + dx]);
-        }
-        int m;
-        if constexpr (K == 3) {
-          m = median9(w);
-        } else {
-          m = median25(w);
-        }
+        const int m = median_window<K>(&tile[r][c], kInW);
         out[plane + int64_t(y) * W + xx] = T(m);
       }
     }

@@ -1,0 +1,72 @@
+"""Fused median → Gaussian → unsharp on u8 planes in one pass.
+
+:func:`median_unsharp` replaces the JAX package's
+``kernels/fused.py::median_unsharp_pallas`` with the CUDA kernel
+``csrc/fused.cu``: one route for every shape, down to 1×1 (the JAX kernel's
+XLA fallback for images smaller than its halos has no counterpart).
+:func:`median_unsharp_plain` is the same function in plain PyTorch: the
+median's and the conv's plain versions one after the other.
+
+The law (the JAX kernel's, ``kernels/fused.py:1-20``): the median takes a
+replicate border; the Q8 Gaussian runs over the *median values* with a
+REFLECT_101 border; the epilogue is ``sep_conv_u8``'s two single-rounded
+f32 FMAs for every amount, which equal the JAX kernel's integer form for an
+integral amount.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels._build import launch
+from imageenhancement_mp_tpu_torch.kernels.conv import sep_conv_u8_plain, unsharp_weights
+from imageenhancement_mp_tpu_torch.kernels.median import median_blur_plain
+from imageenhancement_mp_tpu_torch.utils.taps import gaussian_kernel_fixed
+
+__all__ = ["median_unsharp", "median_unsharp_plain", "fused_taps"]
+
+
+def fused_taps(ksize: int) -> tuple[int, ...]:
+    """cv2's Q8 taps of an odd ``ksize`` ≤ 31 at σ = 0, on both axes."""
+    if ksize % 2 == 0 or not 1 <= ksize <= 31:
+        raise ValueError(f"median_unsharp: odd ksize 1..31 expected, got {ksize}")
+    return tuple(int(t) for t in gaussian_kernel_fixed(ksize))
+
+
+def _check(planes: torch.Tensor, median_ksize: int) -> None:
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"median_unsharp expects uint8 planes, got {planes.dtype}")
+    if planes.dim() != 3:
+        raise ValueError(f"median_unsharp expects [B, H, W] planes, got {tuple(planes.shape)}")
+    if median_ksize not in (3, 5):
+        raise ValueError(f"median_ksize must be 3 or 5, got {median_ksize}")
+
+
+def median_unsharp_plain(planes: torch.Tensor, median_ksize: int = 5, amount: float = 1.0,
+                         ksize: int = 5) -> torch.Tensor:
+    taps = fused_taps(int(ksize))
+    return sep_conv_u8_plain(median_blur_plain(planes, int(median_ksize)), taps, taps,
+                             float(amount))
+
+
+def median_unsharp(planes: torch.Tensor, median_ksize: int = 5, amount: float = 1.0,
+                   ksize: int = 5) -> torch.Tensor:
+    """``unsharp_mask(median_blur(planes, median_ksize), amount, ksize)`` on
+    ``[B, H, W]`` u8 planes at σ = 0, exact, in one pass over the planes."""
+    median_ksize, ksize = int(median_ksize), int(ksize)
+    _check(planes, median_ksize)
+    taps = fused_taps(ksize)
+    if not on_cuda(planes, "median_unsharp"):
+        return median_unsharp_plain(planes, median_ksize, amount, ksize)
+    check_kernel_input("median_unsharp", planes)
+    B, H, W = planes.shape
+    out = torch.empty_like(planes)
+    if out.numel() == 0:
+        return out
+    alpha, beta = unsharp_weights(float(amount))
+    c_taps = np.ascontiguousarray(taps, np.int32)
+    launch("median_unsharp", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
+           median_ksize, c_taps.ctypes.data, len(taps), alpha, beta)
+    return out

@@ -4,8 +4,11 @@
   the JAX package's ``kernels/hist.py::hist256_pallas``).
 * :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram (the LUT
   phase of ``equalize_hist_pallas`` and ``ops/histogram.py::equalize_lut``).
-* :func:`apply_lut256` — ``cv2.LUT`` with a u8 table, shared or per plane
-  (replaces ``apply_lut256_pallas`` for u8 tables).
+* :func:`apply_lut256` — ``cv2.LUT`` with a u8, u16, i16, i32 or f32 table,
+  shared or per plane (replaces ``apply_lut256_pallas``: u8 tables launch
+  ``apply_lut256``, the others ``apply_lut256_wide``).
+* :func:`apply_luts_multi` — K per-plane tables applied in one read of the
+  planes (replaces ``apply_luts_multi_pallas``).
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel in ``csrc/hist.cu``, any other device raises.  Nothing
@@ -23,6 +26,7 @@ __all__ = [
     "hist256", "hist256_plain",
     "equalize_lut256", "equalize_lut256_plain",
     "apply_lut256", "apply_lut256_plain",
+    "apply_luts_multi", "apply_luts_multi_plain", "take_rows",
 ]
 
 
@@ -100,12 +104,19 @@ def equalize_lut256(hists: torch.Tensor, total: int) -> torch.Tensor:
     return out
 
 
-# --- apply_lut256 ----------------------------------------------------------
+# --- apply_lut256 and apply_luts_multi --------------------------------------
+
+# table dtype -> bytes per entry; the kernels copy entries bit for bit
+LUT_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int16: 2, torch.int32: 4, torch.float32: 4}
+
+
+def _check_lut_dtype(luts: torch.Tensor, name: str) -> None:
+    if luts.dtype not in LUT_BYTES:
+        raise TypeError(f"{name}: tables of uint8/uint16/int16/int32/float32, got {luts.dtype}")
+
 
 def _check_luts(planes: torch.Tensor, luts: torch.Tensor, name: str) -> None:
-    if luts.dtype != torch.uint8:
-        raise NotImplementedError(
-            f"{name}: u8 tables only; u16/i32/f32 tables are ROADMAP Queue 1 item 4")
+    _check_lut_dtype(luts, name)
     shared = luts.shape == (256,)
     if not shared and luts.shape != (planes.shape[0], 256):
         raise ValueError(f"{name}: expected a [256] or [B, 256] table, got {tuple(luts.shape)}")
@@ -113,25 +124,65 @@ def _check_luts(planes: torch.Tensor, luts: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: planes on {planes.device}, table on {luts.device}")
 
 
+def take_rows(luts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``luts[idx]`` for one ``[S]`` table, ``luts[b, idx[b]]`` for ``[B, S]``
+    tables, with int64 ``idx`` ``[B, n]``.  16-bit tables go through their
+    int16 bits: torch's CPU gather has no uint16."""
+    t = luts.view(torch.int16) if luts.dtype == torch.uint16 else luts
+    out = t[idx] if t.dim() == 1 else t.gather(1, idx)
+    return out.view(luts.dtype)
+
+
 def apply_lut256_plain(planes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     B = planes.shape[0]
-    idx = planes.reshape(B, -1).to(torch.int64)
-    out = luts[idx] if luts.dim() == 1 else luts.gather(1, idx)
-    return out.reshape(planes.shape)
+    return take_rows(luts, planes.reshape(B, -1).to(torch.int64)).reshape(planes.shape)
 
 
 def apply_lut256(planes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
-    """``cv2.LUT`` on u8 planes ``[B, ...]`` with a u8 ``[256]`` (shared) or
-    ``[B, 256]`` (per plane) table; returns ``planes.shape`` u8."""
+    """``cv2.LUT`` on u8 planes ``[B, ...]`` with a ``[256]`` (shared) or
+    ``[B, 256]`` (per plane) table of u8, u16, i16, i32 or f32; returns
+    ``planes.shape`` in the table's dtype, each entry copied as it is.  A u8
+    table launches ``apply_lut256``, a wider one ``apply_lut256_wide``."""
     _check_u8_planes(planes, "apply_lut256")
     _check_luts(planes, luts, "apply_lut256")
-    if not on_cuda(planes, "apply_lut256"):
+    name = "apply_lut256" if luts.dtype == torch.uint8 else "apply_lut256_wide"
+    if not on_cuda(planes, name):
         return apply_lut256_plain(planes, luts)
-    check_kernel_input("apply_lut256", planes, luts)
-    out = torch.empty_like(planes)
+    check_kernel_input(name, planes, luts)
+    out = torch.empty(planes.shape, dtype=luts.dtype, device=planes.device)
     B = planes.shape[0]
     n = planes.numel() // B if B else 0
     if n:
-        launch("apply_lut256", planes.device, planes.data_ptr(), luts.data_ptr(),
-               0 if luts.dim() == 1 else 256, out.data_ptr(), B, n)
+        wide = () if luts.dtype == torch.uint8 else (LUT_BYTES[luts.dtype],)
+        launch(name, planes.device, planes.data_ptr(), luts.data_ptr(),
+               0 if luts.dim() == 1 else 256, out.data_ptr(), B, n, *wide)
     return out
+
+
+def apply_luts_multi_plain(planes: torch.Tensor, luts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return tuple(apply_lut256_plain(planes, luts[:, k]) for k in range(luts.shape[1]))
+
+
+def apply_luts_multi(planes: torch.Tensor, luts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """K tables applied to the same u8 planes in one read: ``[B, ...]`` u8 ×
+    ``[B, K, 256]`` tables (u8, u16, i16, i32 or f32), K ≥ 1 → a K-tuple of
+    ``planes.shape`` tensors in the table dtype (views of one ``[K, B, ...]``
+    tensor on CUDA)."""
+    _check_u8_planes(planes, "apply_luts_multi")
+    _check_lut_dtype(luts, "apply_luts_multi")
+    if luts.dim() != 3 or luts.shape[0] != planes.shape[0] or luts.shape[2] != 256 \
+            or luts.shape[1] < 1:
+        raise ValueError(f"apply_luts_multi: expected [B, K >= 1, 256] tables for "
+                         f"{planes.shape[0]} planes, got {tuple(luts.shape)}")
+    if luts.device != planes.device:
+        raise ValueError(f"apply_luts_multi: planes on {planes.device}, tables on {luts.device}")
+    if not on_cuda(planes, "apply_luts_multi"):
+        return apply_luts_multi_plain(planes, luts)
+    check_kernel_input("apply_luts_multi", planes, luts)
+    B, K = luts.shape[:2]
+    out = torch.empty((K,) + tuple(planes.shape), dtype=luts.dtype, device=planes.device)
+    n = planes.numel() // B if B else 0
+    if n:
+        launch("apply_luts_multi", planes.device, planes.data_ptr(), luts.data_ptr(), K,
+               out.data_ptr(), B, n, LUT_BYTES[luts.dtype])
+    return tuple(out.unbind(0))

@@ -3,9 +3,9 @@ names them.
 
 The system has no neural models: its "models" are enhancement recipes
 (BASELINE.json:6-12).  ``PRESETS`` is a verbatim copy of the JAX package's
-table; :func:`get_preset` builds one through ``pipeline.make_pipeline``.  A
-preset with a stage the port does not have yet raises
-``NotImplementedError`` when it is built, naming its ROADMAP Queue 1 item.
+table; :func:`get_preset` builds one through ``pipeline.make_pipeline``.
+Every preset's stages are ported; ``denoise_sharpen`` stays two ops, as in
+the JAX package (its fused kernel is ``kernels/fused.py::median_unsharp``).
 """
 
 from __future__ import annotations

@@ -12,9 +12,13 @@ from __future__ import annotations
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
-from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_planes
+from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
+                                                         equalize_hist_planes)
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops.nlmeans import fast_nl_means_planes
+from imageenhancement_mp_tpu_torch.ops.pointwise import (contrast_stretch_planes,
+                                                         convert_scale_abs_planes, gamma_planes,
+                                                         log_planes)
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
@@ -24,13 +28,12 @@ __all__ = ["OP_REGISTRY", "LATER"]
 
 # the JAX registry's names not ported yet -> their ROADMAP Queue 1 item
 LATER = {
-    **dict.fromkeys(("gamma", "log_transform", "contrast_stretch", "convert_scale_abs"), 6),
-    "equalize_hist_global": 4,
+    "calc_back_project": 6,
     **dict.fromkeys((
         "box_blur", "erode", "dilate", "morphology", "sobel", "pyr_down",
         "resize", "flip", "rotate", "transpose", "canny", "connected_components",
         "match_template", "box_filter", "corner_harris", "corner_min_eigen_val",
-        "calc_back_project", "filter2d", "pyr_up", "laplacian_sharpen", "stack_blur"), 10),
+        "filter2d", "pyr_up", "laplacian_sharpen", "stack_blur"), 10),
 }
 
 
@@ -43,7 +46,12 @@ class _Registry(dict):
 
 
 OP_REGISTRY = _Registry(
+    gamma=gamma_planes,
+    log_transform=log_planes,
+    contrast_stretch=contrast_stretch_planes,
+    convert_scale_abs=convert_scale_abs_planes,
     equalize_hist=equalize_hist_planes,
+    equalize_hist_global=equalize_hist_global_planes,
     gaussian_blur=gaussian_blur_planes,
     unsharp_mask=unsharp_mask_planes,
     median_blur=median_blur_planes,

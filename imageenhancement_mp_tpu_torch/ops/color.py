@@ -221,7 +221,8 @@ def hsv_to_rgb_nhwc(img: torch.Tensor, order: str = "rgb") -> torch.Tensor:
     sector = torch.remainder(fl.to(I32), 6)
     f = h - fl
     one = _f(1.0, img)
-    tab = [v, v * (one - s), v * (one - s * f), v * (one - s * (one - f))]
+    # cv2's inner terms are single-rounded: fma(−s, f, 1), fma(−s, 1−f, 1)
+    tab = [v, v * (one - s), v * fma32(-s, f, one), v * fma32(-s, one - f, one)]
     out = []
     for comp in range(3):
         val = tab[0]

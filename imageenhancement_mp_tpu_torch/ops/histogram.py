@@ -1,8 +1,11 @@
-"""256-bin histograms and per-plane histogram equalization (u8).
+"""Histograms (u8 and u16) and histogram equalization (u8), per plane and
+pooled.
 
-The counterpart of the JAX package's ``ops/histogram.py`` for u8
-planes.  Every plane size takes one route: the histogram kernel, the
-equalize-LUT kernel, then the LUT-apply kernel (``kernels/hist.py``).
+The counterpart of the JAX package's ``ops/histogram.py`` (:53-182).  u8
+planes take one route for every size: the histogram kernel, the
+equalize-LUT kernel, then the LUT-apply kernel (``kernels/hist.py``).  u16
+histograms are one ``torch.bincount`` over plane-offset indices on both
+devices, as the JAX package scatters them in XLA.
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ import torch
 
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256, equalize_lut256, hist256
 
-__all__ = ["histogram_256", "equalize_lut", "equalize_hist_planes"]
+__all__ = ["histogram_256", "equalize_lut", "equalize_hist_planes", "equalize_hist_global_planes"]
+
+_INT32_MAX = 2**31 - 1
 
 
 def _check_u8(planes: torch.Tensor) -> None:
@@ -20,9 +25,16 @@ def _check_u8(planes: torch.Tensor) -> None:
 
 
 def histogram_256(planes: torch.Tensor) -> torch.Tensor:
-    """Per-plane exact histogram: ``[B, H, W]`` u8 → ``[B, 256]`` int32."""
+    """Per-plane exact histogram: ``[B, H, W]`` u8 → ``[B, 256]``, u16 →
+    ``[B, 65536]``, int32."""
     if planes.dtype == torch.uint16:
-        raise NotImplementedError("u16 histograms are ROADMAP Queue 1 item 7")
+        B = planes.shape[0]
+        idx = planes.reshape(B, -1).to(torch.int64)
+        idx = idx + 65536 * torch.arange(B, device=planes.device)[:, None]
+        return torch.bincount(idx.reshape(-1), minlength=65536 * B).reshape(B, 65536).to(
+            torch.int32)
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"histograms take uint8 or uint16 planes, got {planes.dtype}")
     return hist256(planes.contiguous())
 
 
@@ -41,3 +53,42 @@ def equalize_hist_planes(planes: torch.Tensor) -> torch.Tensor:
     planes = planes.contiguous()
     luts = equalize_lut256(hist256(planes), planes.shape[-1] * planes.shape[-2])
     return apply_lut256(planes, luts)
+
+
+def _check_pool_total(total: int) -> None:
+    # the pooled cdf lives in int32: past 2^31 pixels the LUT would wrap
+    if total > _INT32_MAX:
+        raise ValueError(
+            f"pooled histogram covers {total} pixels, which overflows the int32 cdf "
+            "(max 2^31-1, about 1035 1080p frames); split the batch into smaller "
+            "pooling groups")
+
+
+def equalize_hist_global_planes(planes: torch.Tensor, channels: int = 1,
+                                axis_name: str | None = None) -> torch.Tensor:
+    """Video-consistent hist-eq: ONE LUT per channel from the histogram
+    pooled over all frames of ``[B, H, W]`` u8 planes.
+
+    ``channels`` says the stack is ``B = N·channels`` planes in (frame-major,
+    channel-minor) order, the ``as_planes`` layout of ``[N, H, W, C]``; each
+    channel pools its own histogram across the N frames.  ``channels=1``
+    pools one histogram over every plane.  Three launches on CUDA: hist256,
+    equalize_lut256, apply_lut256.  ``axis_name`` (pooling across GPUs) is
+    ROADMAP Queue 1 item 12 and raises."""
+    _check_u8(planes)
+    if axis_name is not None:
+        raise NotImplementedError(
+            "equalize_hist_global(axis_name=...) is ROADMAP Queue 1 item 12")
+    B, H, W = planes.shape
+    channels = max(int(channels), 1)
+    if B % channels:
+        raise ValueError(f"plane count {B} not divisible by channels={channels}")
+    n = B // channels
+    total = n * H * W
+    _check_pool_total(total)
+    planes = planes.contiguous()
+    hists = hist256(planes).reshape(n, channels, 256).sum(dim=0, dtype=torch.int32)
+    luts = equalize_lut256(hists, total)  # [C, 256]
+    if channels == 1:
+        return apply_lut256(planes, luts[0])
+    return apply_lut256(planes, luts.repeat(n, 1))  # plane i takes channel i % C's LUT

@@ -10,6 +10,7 @@ float formulas evaluated by two libraries: XYZ within 1e-6, the Lab and Luv
 forwards within 1e-3 (torch has no ``cbrt``), their inverses within 1e-5.
 The copied host tables equal the JAX package's bit for bit."""
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,13 +140,33 @@ REF_FNS = {"2gray": ref.cvt_gray, "2ycrcb": ref.rgb_to_ycrcb, "ycrcb2": ref.ycrc
 
 @pytest.mark.parametrize("code", [c for c in _CVT_CODES if not c.startswith("luv")])
 def test_cvt_color_u8_matches_ref(code):
-    """Every u8 integer path against ref/, one image, 0 LSB."""
-    x = _img((11, 17, 4 if code.startswith(("rgba", "bgra")) else 3), np.uint8, 40)
+    """Every u8 integer path against ref/, one image, 0 LSB.  HSV → RGB is
+    held to cv2 itself, on rows of whole 32-pixel SIMD blocks (cv2's scalar
+    row tail rounds otherwise): ref/'s plain f32 chain rounds cv2's
+    single-rounded inner terms twice (ROADMAP R6)."""
     key = next(k for k in REF_FNS if k in code)
+    width = 64 if key == "hsv2" else 17
+    x = _img((11, width, 4 if code.startswith(("rgba", "bgra")) else 3), np.uint8, 40)
     bgr = code.startswith("b") if key.startswith("2") else code.endswith("bgr")
     order = "bgr" if bgr else "rgb"
-    want = REF_FNS[key](x, order)
+    if key == "hsv2":
+        x[..., 0] %= 180
+        want = cv2.cvtColor(x, cv2.COLOR_HSV2BGR if bgr else cv2.COLOR_HSV2RGB)
+    else:
+        want = REF_FNS[key](x, order)
     np.testing.assert_array_equal(tie.cvt_color(torch.from_numpy(x), code).numpy(), want)
+
+
+@pytest.mark.parametrize("order", ["rgb", "bgr"])
+def test_hsv2rgb_equals_cv2_on_every_input(order):
+    """All 180·256·256 valid u8 HSV pixels as one 180×65536 image (rows of
+    whole SIMD blocks), 0 LSB against cv2; the plain f32 chain missed 1758
+    of them by 1."""
+    h, s, v = np.meshgrid(np.arange(180), np.arange(256), np.arange(256), indexing="ij")
+    x = np.stack([h, s, v], -1).astype(np.uint8).reshape(180, 65536, 3)
+    want = cv2.cvtColor(x, cv2.COLOR_HSV2BGR if order == "bgr" else cv2.COLOR_HSV2RGB)
+    got = tcolor.hsv_to_rgb_nhwc(torch.from_numpy(x), order).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("srgb", [True, False])

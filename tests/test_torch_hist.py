@@ -97,19 +97,19 @@ def test_hist_family_rejects_what_the_kernels_do_not_take():
     x = torch.zeros((1, 4, 4), dtype=torch.uint8)
     with pytest.raises(TypeError):
         khist.hist256(x.to(torch.int16))
-    with pytest.raises(NotImplementedError):
-        thist.histogram_256(x.to(torch.uint16))
+    with pytest.raises(TypeError):
+        thist.histogram_256(x.to(torch.int16))
     with pytest.raises(TypeError):
         thist.equalize_hist_planes(x.to(torch.float32))
     with pytest.raises(TypeError):
         khist.equalize_lut256(torch.zeros((1, 256), dtype=torch.int64), 16)
     with pytest.raises(ValueError):
         khist.equalize_lut256(torch.zeros((1, 256), dtype=torch.int32), 2**31)
-    with pytest.raises(NotImplementedError):
-        khist.apply_lut256(x, torch.zeros(256, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        khist.apply_lut256(x, torch.zeros(256, dtype=torch.int64))
     with pytest.raises(ValueError):
         khist.apply_lut256(x, torch.zeros((2, 256), dtype=torch.uint8))
-    with pytest.raises(NotImplementedError):
-        apply_lut_planes(x.to(torch.uint16), torch.zeros(65536, dtype=torch.uint16))
+    with pytest.raises(ValueError):
+        apply_lut_planes(x.to(torch.uint16), torch.zeros(256, dtype=torch.uint16))
     with pytest.raises(ValueError):
         khist.hist256(x.to("meta"))

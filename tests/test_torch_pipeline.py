@@ -99,16 +99,19 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     tie.equalize_hist(x)
     tie.gaussian_blur(x, (3, 5))
     tie.unsharp_mask(x, -0.5)
+    tie.equalize_hist(x, per_frame=False)
+    tie.apply_lut(x, np.arange(256, dtype=np.float32))
     assert launch_counts == dict.fromkeys(launch_counts, 0)
     assert set(launch_counts) == {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
                                   "median", "hist256_tiles", "clahe_lut", "clahe_blend",
-                                  "bilateral", "athresh", "warp_gather_u8", "take_table"}
+                                  "bilateral", "athresh", "warp_gather_u8", "take_table",
+                                  "apply_lut256_wide", "apply_luts_multi", "median_unsharp"}
 
 
 def test_public_functions_reject_what_the_port_does_not_take():
     x = torch.zeros((2, 8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tie.equalize_hist(x, per_frame=False)
+    with pytest.raises(TypeError):
+        tie.equalize_hist(x.to(torch.uint16), per_frame=False)
     with pytest.raises(TypeError):
         tie.equalize_hist(x.to(torch.float32))
     with pytest.raises(TypeError):

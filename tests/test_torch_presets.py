@@ -17,7 +17,8 @@ from imageenhancement_mp_tpu_torch.ops import LATER, OP_REGISTRY
 
 KERNELS = {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
            "median", "hist256_tiles", "clahe_lut", "clahe_blend", "bilateral", "athresh",
-           "warp_gather_u8", "take_table"}
+           "warp_gather_u8", "take_table", "apply_lut256_wide", "apply_luts_multi",
+           "median_unsharp"}
 
 
 def _img(shape, seed):
@@ -44,10 +45,11 @@ def test_config5_preset_matches_ref_and_jax(shape):
     assert _maxdiff(got, jax_get_preset("denoise_clahe_sharpen")(x)) <= 2
 
 
-@pytest.mark.parametrize("name", ["histeq", "sharpen", "clahe", "denoise_sharpen", "histeq_unsharp"])
+@pytest.mark.parametrize("name", ["histeq", "sharpen", "clahe", "denoise_sharpen", "histeq_unsharp",
+                                  "gamma_stretch"])
 def test_other_ported_presets_match_jax(name):
-    """The presets whose stages are all ported: within ±1 (R4) of JAX where
-    CLAHE is a stage, 0 LSB elsewhere."""
+    """The other presets: within ±1 (R4) of JAX where CLAHE is a stage, 0 LSB
+    elsewhere."""
     x = _img((2, 32, 96), 62)
     got = tie.get_preset(name)(torch.from_numpy(x)).numpy()
     budget = 1 if name == "clahe" else 0
@@ -83,9 +85,13 @@ def test_registry_names_and_errors():
     assert set(OP_REGISTRY) == {"equalize_hist", "gaussian_blur", "unsharp_mask",
                                 "median_blur", "clahe", "bilateral", "threshold",
                                 "adaptive_threshold", "warp_affine", "warp_perspective",
-                                "warp_polar", "remap", "undistort", "fast_nl_means"}
+                                "warp_polar", "remap", "undistort", "fast_nl_means",
+                                "gamma", "log_transform", "contrast_stretch",
+                                "convert_scale_abs", "equalize_hist_global"}
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        OP_REGISTRY["gamma"]
+        OP_REGISTRY["calc_back_project"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        OP_REGISTRY["box_blur"]
     with pytest.raises(KeyError):
         OP_REGISTRY["no_such_op"]
     from imageenhancement_mp_tpu.ops import OP_REGISTRY as JAX_REGISTRY
@@ -96,8 +102,8 @@ def test_registry_names_and_errors():
 def test_what_the_port_does_not_take_raises():
     with pytest.raises(TypeError, match="backend"):
         tie.make_pipeline([("median_blur", {"ksize": 5, "backend": "xla"})])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tie.get_preset("gamma_stretch")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tie.make_pipeline(["gamma", "box_blur"])
     with pytest.raises(KeyError):
         tie.get_preset("no_such_preset")
     with pytest.raises(KeyError):
@@ -120,8 +126,8 @@ def test_what_the_port_does_not_take_raises():
 
 
 def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
-    """Every config 5 entry point on CPU tensors: all launch counters stay
-    at 0 and the build is never called."""
+    """Every config 5 and config 2 entry point on CPU tensors: all launch
+    counters stay at 0 and the build is never called."""
     def no_build():
         raise AssertionError("a CPU tensor reached the kernel build")
 
@@ -132,5 +138,7 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     list(tie.stream_frames(tie.get_preset("denoise_clahe_sharpen"), [x, x], device="cpu"))
     tie.clahe(torch.from_numpy(x.astype(np.uint16) * 257))
     tie.median_blur(torch.from_numpy(x.astype(np.int16)), 5)
+    tie.get_preset("gamma_stretch")(torch.from_numpy(x))
+    tie.equalize_hist(torch.from_numpy(x), per_frame=False)
     assert set(launch_counts) == KERNELS
     assert launch_counts == dict.fromkeys(KERNELS, 0)

@@ -5,7 +5,8 @@ kernels must too.  A CUDA kernel cannot run here, so each wrapper is driven
 down its CUDA branch on a CPU tensor: its module's ``on_cuda`` answers True
 and its ``launch`` only records the call.  A ``[1, 1_100_000, 8]`` u8 plane
 (8.8 MB) is taller than 65535 tiles of 16 rows (median) or bands of 8 rows
-(clahe_blend), the grid-axis limit the kernels once put rows on; the wrapper
+(clahe_blend), the grid-axis limit the kernels once put rows on (the LUT
+kernels take flat planes: tests/test_torch_lut.py drives them); the wrapper
 must neither raise nor launch more than once.
 """
 
@@ -16,6 +17,7 @@ from imageenhancement_mp_tpu_torch.kernels import athresh as kathresh
 from imageenhancement_mp_tpu_torch.kernels import bilateral as kbilateral
 from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
 from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+from imageenhancement_mp_tpu_torch.kernels import fused as kfused
 from imageenhancement_mp_tpu_torch.kernels import median as kmedian
 from imageenhancement_mp_tpu_torch.kernels import warp as kwarp
 from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
@@ -58,6 +60,10 @@ def _warp_gather(x):
     return kwarp.warp_gather_u8(x, sx.contiguous(), sy.contiguous())
 
 
+def _median_unsharp(x):
+    return kfused.median_unsharp(x, 5, 1.0, 5)
+
+
 @pytest.mark.parametrize("module,name,run", [
     (kmedian, "median", _median),
     (kclahe, "clahe_blend", _clahe_blend),
@@ -65,7 +71,9 @@ def _warp_gather(x):
     (kbilateral, "bilateral", _bilateral),
     (kathresh, "athresh", _athresh),
     (kwarp, "warp_gather_u8", _warp_gather),
-], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh", "warp_gather_u8"])
+    (kfused, "median_unsharp", _median_unsharp),
+], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh", "warp_gather_u8",
+        "median_unsharp"])
 def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
     launches = []
     monkeypatch.setattr(module, "on_cuda", lambda t, what: True)
