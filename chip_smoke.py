@@ -7,7 +7,8 @@
    limit from nvidia-smi; exits non-zero when torch sees no CUDA device.
 2. Builds the kernels from imageenhancement_mp_tpu_torch/kernels/csrc with
    nvcc (sm_90a) into build/ie_torch_kernels/ and prints the build time and
-   ptxas's register and shared-memory report.
+   ptxas's register and shared-memory report; fails if ptxas spilled in a
+   median kernel (median.cu, fused.cu).
 3. Holds each kernel against its plain PyTorch version on the card, at 0 LSB,
    over the CPU tests' cases plus tiny planes, a storage offset of one element,
    1080x1920 and 4K planes, non-divisible CLAHE geometries, the geometry
@@ -32,9 +33,19 @@
    hist256_tiles, clahe_lut, clahe_blend, sep_conv_u8 once per batch through
    the preset; the CLAHE stages for clahe, stage A only on u8; median for
    median_blur) and no other.
+   Before the paths, holds the median kernel (the schedules of
+   median_networks.cuh) against its plain networks at 0 LSB, k 3 and 5, u8,
+   u16 and i16: each residue of the thread and block tiles (1x1, 2x3, 5x7,
+   37x131, 1079x1917), random, {0, 1}, constant, ramp and two-extreme planes
+   ({0, 65535} u16, {-32768, 32767} i16: lanes that leaked into each other
+   would show), a storage offset of one element, [70000, 8, 8] and
+   [1, 2_200_000, 8].
    Holds every result against the plain path on the card, the streamed
    outputs against the direct calls, and one 4K frame against the plain path
-   on the CPU, at 0 LSB; then times each path, kernels against plain.
+   on the CPU, at 0 LSB; then times each path, kernels against plain, and
+   median_blur at k 3 and 5 on each type beside its bytes bound and its issue
+   floor (the schedule's min/max instructions per pixel over 132 SMs x 64
+   lanes at the SM clock nvidia-smi reports as clocks.max.sm).
 6. Holds the bilateral and athresh kernels against their plain versions at
    0 LSB (d 3, 5, 9, 51 and a sigma-derived radius; sigma pairs 75/75, 30/30,
    10/200; block sizes 3 to 101, both types, C in {-3.5, 0, 2, 7.2}; tiny
@@ -88,7 +99,8 @@
    ksize 3, 5 and 31) against their plain versions bit for bit (i32 entries
    at +-(2^31 - 1), f32 infinities, NaN and subnormals; the CPU tests'
    cases, 1x1 and 2x3 planes, a storage offset of one element, 1079x1917,
-   [70000, 8, 8], [1, 2_200_000, 8]) and median_unsharp against the
+   [70000, 8, 8], [1, 2_200_000, 8]; for median_unsharp also the median
+   network cases of phase 5 on u8) and median_unsharp against the
    median -> sep_conv_u8 chain; then drives config 2
    (get_preset("gamma_stretch") on 32x1080x1920x3: exactly 2 apply_lut256
    launches), equalize_hist(per_frame=False) on 8x1080x1920x3 (one hist256,
@@ -97,7 +109,7 @@
    median_unsharp(5, 1.0, 5) at 2x2160x3840 (one launch, equal to the chain),
    each against the plain path on the card and on the CPU; then times the
    paths and each kernel beside its bound, torch.gather (K5, K13) and the
-   two-kernel chain (K14).
+   two-kernel chain (K14, with its median's issue floor).
 11. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
@@ -180,6 +192,44 @@ def bound_ms(nbytes: float, ops: float = 0.0, kind: str = "f32") -> tuple[float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def issue_floor_ms(k: int, pixels: int, clock_mhz: float) -> float:
+    """The median's integer issue floor: the tile schedule's min/max
+    instructions per pixel (two 16-bit lanes per instruction) over 132 SMs
+    issuing 64 of them per clock."""
+    from imageenhancement_mp_tpu_torch.kernels import median_networks as mnet
+    per_px = next(s.ops_per_output for s in mnet.SCHEDULES if s.name == f"median_tile{k}") / 2
+    return per_px * pixels / (132 * 64 * clock_mhz * 1e6) * 1e3
+
+
+# planes for the median schedules: random, {0, 1}, constant, a ramp, and the
+# type's two extremes at random (packed lanes that leaked into each other
+# would show)
+NETWORK_PLANES = ("random", "0/1", "constant", "ramp", "extremes")
+NETWORK_SHAPES = [(1, 1, 1), (1, 2, 3), (2, 5, 7), (1, 37, 131), (1, 1079, 1917)]
+
+
+def network_planes(dtype, shape: tuple, kind: str, rng) -> np.ndarray:
+    info = np.iinfo(dtype)
+    if kind == "random":
+        return rng.integers(info.min, info.max + 1, shape).astype(dtype)
+    if kind == "0/1":
+        return rng.integers(0, 2, shape).astype(dtype)
+    if kind == "constant":
+        return np.full(shape, info.max // 3, dtype)
+    if kind == "ramp":
+        _, H, W = shape
+        ramp = (np.arange(H)[:, None] * 257 + np.arange(W)[None, :] * 13) % (info.max - info.min + 1)
+        return np.broadcast_to(ramp + info.min, shape).astype(dtype)
+    return np.where(rng.integers(0, 2, shape) == 1, info.max, info.min).astype(dtype)
 
 
 def nvidia_smi_line() -> str:
@@ -556,6 +606,16 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
         x = rand_u8(shape)
         check_fused(x, 5, 1.0, 5, str(shape))
         check_fused(x, 3, 1.5, 31, str(shape))
+    # the median schedules inside the fused kernel: phase 5's network planes
+    nrng = np.random.default_rng(40)
+    for shape in NETWORK_SHAPES:
+        for planes in NETWORK_PLANES:
+            x = on_card(network_planes(np.uint8, shape, planes, nrng))
+            for xx in (x, misaligned(x)):
+                for km in (3, 5):
+                    for amount, ksize in ((1.0, 5), (-0.5, 31)):
+                        check_fused(xx, km, amount, ksize,
+                                    f"{tuple(xx.shape)} {planes} offset {xx.storage_offset()}")
     # the fused kernel against the two-kernel chain median -> sep_conv_u8
     for shape in ((1, 1, 1), (1, 2, 3), (1, 1079, 1917)):
         x = rand_u8(shape)
@@ -716,8 +776,9 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
     print(f"  median_unsharp at {tuple(g4k.shape)} km=5 amount=1 ksize=5: kernel {k_ms:.4f} ms "
           f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), the two-kernel chain "
           f"median -> sep_conv_u8 {c_ms:.4f} ms (IQR {c_iqr:.4f}; median alone {m_ms:.4f}, "
-          f"sep_conv_u8 alone {s_ms:.4f}), bound {bounds['median_unsharp'][0]:.4f} ms (bytes)"
-          f"  [{smi}]")
+          f"sep_conv_u8 alone {s_ms:.4f}), bound {bounds['median_unsharp'][0]:.4f} ms (bytes), "
+          f"its median's issue floor {issue_floor_ms(5, g4k.numel(), sm_clock_max_mhz()):.4f} ms "
+          f"(the fused kernel computes its Gaussian halo's medians too)  [{smi}]")
     return path_launches
 
 
@@ -748,8 +809,8 @@ def main() -> None:
     smi = nvidia_smi_line()
     print(smi)
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    print(f"device: {kind}  count {torch.cuda.device_count()}  "
+    device_name = torch.cuda.get_device_name(0)
+    print(f"device: {device_name}  count {torch.cuda.device_count()}  "
           f"capability {torch.cuda.get_device_capability(0)}")
 
     # -- 2. build ---------------------------------------------------------------
@@ -758,9 +819,15 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib._name}")
     log = (Path(lib._name).parent / "nvcc.log")
     if log.is_file():
+        entry = ""
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("  ptxas:", line.split(":", 1)[-1].strip())
+            if "Compiling entry" in line:
+                entry = line
+            if ("median" in entry and "spill" in line
+                    and ("0 bytes spill stores, 0 bytes spill loads" not in line)):
+                raise AssertionError(f"ptxas spilled in {entry}: {line.strip()}")
 
     # -- 3. each kernel against its plain version, on the card -----------------
     rng = np.random.default_rng(0)
@@ -1150,6 +1217,30 @@ def main() -> None:
     x_u16 = np.random.default_rng(2).integers(0, 65536, (2, 2160, 3840)).astype(np.uint16)
     x_i16 = np.random.default_rng(3).integers(-32768, 32768, (2, 2160, 3840)).astype(np.int16)
     g_rgb, g_u16, g_i16 = on_card(x_rgb), on_card(x_u16), on_card(x_i16)
+    # the median schedules against the plain networks, before the paths
+    nrng = np.random.default_rng(20)
+    n_net = 0
+    for dtype in (np.uint8, np.uint16, np.int16):
+        for shape in NETWORK_SHAPES:
+            for planes in NETWORK_PLANES:
+                x = on_card(network_planes(dtype, shape, planes, nrng))
+                for xx in (x, misaligned(x)):
+                    for k in (3, 5):
+                        check("median", kmedian.median_blur(xx, k), kmedian.median_blur_plain(xx, k),
+                              f"{dtype.__name__} {shape} {planes} k={k} offset {xx.storage_offset()}")
+                        n_net += 1
+        for shape in ((70000, 8, 8), (1, 2_200_000, 8)):
+            for planes in ("random", "extremes"):
+                x = on_card(network_planes(dtype, shape, planes, nrng))
+                for k in (3, 5):
+                    check("median", kmedian.median_blur(x, k), kmedian.median_blur_plain(x, k),
+                          f"{dtype.__name__} {shape} {planes} k={k}")
+                    n_net += 1
+    del x, xx
+    torch.cuda.synchronize()
+    print(f"median schedules vs plain networks on the card: 0 LSB over {n_net} cases (k 3 and 5; "
+          "u8, u16, i16; 1x1, 2x3, 5x7, 37x131, 1079x1917; random, {0, 1}, constant, ramp and "
+          "two-extreme planes; offset 1; [70000, 8, 8]; [1, 2200000, 8])")
     # each path with counters of its own: one launch of each of its kernels
     # per call (u16 CLAHE histograms its tiles in torch), 8 over 8 batches
     out5, launches5 = drive("config 5 get_preset 2x2160x3840 u8", lambda: pipe(g4k),
@@ -1241,6 +1332,14 @@ def main() -> None:
         print(f"{label}: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = "
               f"{gpix / (k_ms / 1e3):.3f} GPix/s, plain path {p_ms:.4f} ms (IQR {p_iqr:.4f}) = "
               f"{gpix / (p_ms / 1e3):.3f} GPix/s, max abs err 0  [{smi}]")
+    clock = sm_clock_max_mhz()
+    for name, g in (("u8", g4k), ("u16", g_u16), ("i16", g_i16)):
+        for k in (3, 5):
+            k_ms, k_iqr = time_ms(lambda: kmedian.median_blur(g, k))
+            print(f"  median_blur({k}) {tuple(g.shape)} {name}: kernel {k_ms:.4f} ms (IQR "
+                  f"{k_iqr:.4f}), bytes bound {bound_ms(2 * g.numel() * g.element_size())[0]:.4f} "
+                  f"ms, issue floor {issue_floor_ms(k, g.numel(), clock):.4f} ms (SM clock "
+                  f"{clock:.0f} MHz)  [{smi}]")
 
     # -- 6. bilateral and thresholds through the public functions ---------------
     del frames, g_rgb, g_u16, g_i16, out5, clahe_rgb, clahe_u16, med_u16, med_i16
@@ -1550,7 +1649,7 @@ def main() -> None:
         for n in ALL_KERNELS]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
 
 if __name__ == "__main__":
     main()

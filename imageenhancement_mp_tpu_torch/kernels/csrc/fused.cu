@@ -9,9 +9,9 @@
 // the halos).  Here one route serves every shape, down to 1x1.
 //
 // What bounds it on this card: device memory at 2 B/px is the floor; the
-// median's integer min/max (about 336 per pixel at KM = 5) has no rate in
-// the table and bounds this first version, as it bounds median.cu.  Design:
-// one block per 32x128 output tile of one plane.
+// median's integer min/max issue bounds it, as it bounds median.cu, and the
+// Gaussian stage comes next.  Design: one block per 32x128 output tile of
+// one plane.
 //  1. The input tile with a halo of pm + pg (median radius + Gaussian radius)
 //     is staged in shared memory with clamped indices: the median's replicate
 //     border, no host pad.
@@ -22,6 +22,10 @@
 //     the tile's in-plane outputs read are computed; each of their reflected
 //     coordinates lies within pg of the tile (the tile is taller and wider
 //     than any pg <= 15), so its window lies inside the staged input.
+//     Entries whose mapped coordinate is their plain one (all of them but
+//     those within pg of the plane's edges) run median.cu's tiled schedule
+//     (median_networks.cuh), 2 x 4 entries per thread in two 16-bit lanes;
+//     the others run the single-output schedule at their mapped coordinate.
 //  3. sep_conv_u8's vertical int32 pass, horizontal pass and two-FMA
 //     epilogue (conv.cu) run on the median tile.
 //
@@ -63,7 +67,7 @@ median_unsharp_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, 
                       int H, int W, FusedParams prm) {
   constexpr int pm = KM / 2;
   __shared__ int32_t taps[kMaxTaps];
-  __shared__ uint8_t tin[kInH][kInW];
+  __shared__ __align__(16) uint8_t tin[kInH][kInW];
   __shared__ uint8_t med[kMedH][kMedW];
   __shared__ int32_t vacc[kTileH][kMedW];
 
@@ -93,11 +97,49 @@ median_unsharp_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, 
     __syncthreads();
 
     // 2. the median at each reflected coordinate; tin[r][c] holds row
-    // y0 - pad + r, so the window of row R starts at tin row R - y0 + pg
-    for (int i = tid; i < mh * mw; i += kThreads) {
-      const int r = i / mw, c = i - r * mw;
-      const int R = reflect101(y0 - pg + r, H), C = reflect101(x0 - pg + c, W);
-      med[r][c] = uint8_t(median_window<KM>(&tin[R - y0 + pg][C - x0 + pg], kInW));
+    // y0 - pad + r, so the window of row R starts at tin row R - y0 + pg.
+    // 2a: entries at their plain coordinate, whose window starts at tin
+    // (r, c): the tiled schedule, footprint (i, j) = tin (r0 + i, c0 + j)
+    const int gw = (mw + 3) / 4;
+    for (int i = tid; i < ((mh + 1) / 2) * gw; i += kThreads) {
+      const int r0 = 2 * (i / gw), c0 = 4 * (i - (i / gw) * gw);
+      uint32_t t[KM + 1][KM + 1];
+#pragma unroll
+      for (int r = 0; r < KM + 1; ++r) {
+        uint32_t q[6];
+        lane_pairs(&tin[r0 + r][c0], q);
+#pragma unroll
+        for (int j = 0; j < KM + 1; ++j) t[r][j] = q[j];
+      }
+      uint32_t o[2][2];
+      median_tile<KM, LanesU16>(t, o);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int Y = y0 - pg + r0 + r;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int X = x0 - pg + c0 + e;
+          if (r0 + r < mh && c0 + e < mw && Y >= 0 && Y < H && X >= 0 && X < W)
+            med[r0 + r][c0 + e] = uint8_t(lane_output(o[r], e));
+        }
+      }
+    }
+    // 2b: entries within pg of the plane's edges, at their mapped coordinate
+    if (y0 - pg < 0 || y0 + vh + pg > H || x0 - pg < 0 || x0 + vw + pg > W) {
+      for (int i = tid; i < mh * mw; i += kThreads) {
+        const int r = i / mw, c = i - r * mw;
+        const int Y = y0 - pg + r, X = x0 - pg + c;
+        const int R = reflect101(Y, H), C = reflect101(X, W);
+        if (R == Y && C == X) continue;
+        const uint8_t* w0 = &tin[R - y0 + pg][C - x0 + pg];
+        int w[KM][KM];
+#pragma unroll
+        for (int dy = 0; dy < KM; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < KM; ++dx) w[dy][dx] = w0[dy * kInW + dx];
+        }
+        med[r][c] = uint8_t(median_single<KM, ScalarInt>(w));
+      }
     }
     __syncthreads();
 

@@ -3,7 +3,10 @@
 :func:`median_unsharp` replaces the JAX package's
 ``kernels/fused.py::median_unsharp_pallas`` with the CUDA kernel
 ``csrc/fused.cu``: one route for every shape, down to 1×1 (the JAX kernel's
-XLA fallback for images smaller than its halos has no counterpart).
+XLA fallback for images smaller than its halos has no counterpart).  Its
+median stage runs the schedules of
+:mod:`~imageenhancement_mp_tpu_torch.kernels.median_networks`, as
+``median_blur``'s kernel does.
 :func:`median_unsharp_plain` is the same function in plain PyTorch: the
 median's and the conv's plain versions one after the other.
 

@@ -2,10 +2,13 @@
 
 :func:`median_blur` replaces
 the JAX package's ``kernels/median.py::median_blur_pallas`` with the
-CUDA kernel ``csrc/median.cu::median_kernel<T, K>``.  :func:`median_blur_plain`
-is the same function in plain PyTorch: ``kernels/networks.py`` ``median9``
-(Paeth's 19-comparator network) and ``median25`` (forgetful selection) as
-``torch.minimum``/``torch.maximum`` networks over the K² window taps.  torch
+CUDA kernel ``csrc/median.cu::median_kernel<T, K>``, which runs the tiled
+schedules that :mod:`~imageenhancement_mp_tpu_torch.kernels.median_networks`
+builds, proves and renders.  :func:`median_blur_plain` is the same function
+in plain PyTorch and an independent yardstick of it: ``kernels/networks.py``
+``median9`` (Paeth's 19-comparator network) and ``median25`` (forgetful
+selection) as ``torch.minimum``/``torch.maximum`` networks over the K² window
+taps.  torch
 has no min/max for u16 on the CPU, so the plain version widens every type to
 int32 at entry and narrows at exit; the order of the values is unchanged.
 
