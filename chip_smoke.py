@@ -11,6 +11,11 @@
    median kernel (median.cu, fused.cu).
 3. Holds each kernel against its plain PyTorch version on the card, at 0 LSB,
    over the CPU tests' cases plus tiny planes, a storage offset of one element,
+   sep_conv_u8's every instance and route (k 3/5/7, runtime; packed, int32;
+   blur, lane and FMA epilogues) on its residues (widths = 0, 1, 15 mod 16,
+   across its warps' 240 (runtime instance 224) columns, 1917, 1, 2, 3;
+   heights across its 8-row warps and 64-row blocks; edge-only planes), each
+   also misaligned,
    1080x1920 and 4K planes, non-divisible CLAHE geometries, the geometry
    where the TPU quadrant blend is wrong (164x164, grid 2x2), clip limits 0,
    2 and 40, u16 tables, a [70000, 8, 8] batch (more planes than a grid axis
@@ -895,21 +900,41 @@ def main() -> None:
     check("apply_lut256", khist.apply_lut256(xm, lm), khist.apply_lut256_plain(xm, lm),
           "misaligned input")
 
-    conv_cases = []
-    for shape in [(2, 64, 256), (1, 37, 131), (1, 5, 9), (1, 1, 1)]:
-        for ks, sg in [(1, 0.0), (3, 0.0), (5, 0.0), (7, 0.0), ((3, 5), 0.0), (5, 1.5),
-                       (5, 2.3), (31, 0.0), ((1, 31), 0.0)]:
-            for amount in (None, 1.0, 0.5, -1.0, 100.0):
-                conv_cases.append((shape, ks, sg, amount))
-    conv_cases += [((8, 1080, 1920), 5, 0.0, amount) for amount in (None, 1.0)]
-    conv_cases += [((8, 1080, 1920), 7, 2.3, 0.5)]
-    for shape, ks, sg, amount in conv_cases:
+    # sep_conv_u8: every instance and route (k 3/5/7 compile-time, packed at
+    # sigma 0 and int32 at sigma 1.1/1.5/2.3; the runtime instance at k 1, 9,
+    # 31, (3, 5), (1, 31)) on the kernel's residues: widths = 0, 1, 15 mod 16,
+    # across a warp's 240 columns (224 in the runtime instance), 1917, 1, 2, 3;
+    # heights across a warp's 8 rows and a block's 64; planes of edge lanes or
+    # reflected rows only;
+    # each also at a storage offset of one element (the byte path); every
+    # amount route: None, lanes (1, 100), the two FMAs (0.5, -1)
+    conv_ks = [(1, 0.0), (3, 0.0), (5, 0.0), (7, 0.0), ((3, 5), 0.0), (3, 1.1), (5, 1.5),
+               (5, 2.3), (7, 2.3), (9, 0.0), (31, 0.0), ((1, 31), 0.0)]
+    conv_shapes = [(2, 64, 256), (1, 37, 131), (1, 5, 9), (1, 1, 1), (1, 16, 256), (1, 17, 257),
+                   (2, 15, 271), (1, 129, 1917), (1, 127, 240), (1, 128, 241), (2, 33, 239),
+                   (1, 3, 1), (1, 2, 2), (2, 40, 3), (1, 1, 640), (3, 4, 6), (1, 8, 224),
+                   (1, 9, 225), (2, 7, 223), (1, 63, 257), (1, 65, 240)]
+    # tap sets no Gaussian gives: k 7 packed, k 3 packed at shift 1, k 3 int32 at the sum limit
+    conv_taps = [q8_taps(ks, sg) for ks, sg in conv_ks] + [
+        ((0, 0, 64, 128, 64, 0, 0),) * 2, ((0, 256, 0), (128, 0, 128)), ((1, 254, 1), (2, 252, 2))]
+    conv_cases = [(shape, taps, amount) for shape in conv_shapes for taps in conv_taps
+                  for amount in (None, 1.0, 0.5, -1.0, 100.0)]
+    conv_cases += [((8, 1080, 1920), q8_taps(5, 0.0), amount) for amount in (None, 1.0)]
+    conv_cases += [((8, 1080, 1920), q8_taps(7, 2.3), 0.5), ((8, 1080, 1920), q8_taps(3, 0.0), 1.0)]
+    conv_routes = set()
+    n_conv = 0
+    for shape, (tv, th), amount in conv_cases:
         x = rand_u8(shape)
-        tv, th = q8_taps(ks, sg)
+        conv_routes.add(kconv.conv_route(tv, th).describe())
         for luts in (None, rand_u8((shape[0], 256))):
-            what = f"{shape} k={ks} sigma={sg} amount={amount} lut={luts is not None}"
-            check("sep_conv_u8", kconv.sep_conv_u8(x, tv, th, amount, luts),
-                  kconv.sep_conv_u8_plain(x, tv, th, amount, luts), what)
+            for xx in (x, misaligned(x)) if shape[1] < 1000 else (x,):
+                what = (f"{shape} taps {tv} x {th} amount={amount} lut={luts is not None} "
+                        f"offset {xx.storage_offset()}")
+                check("sep_conv_u8", kconv.sep_conv_u8(xx, tv, th, amount, luts),
+                      kconv.sep_conv_u8_plain(xx, tv, th, amount, luts), what)
+                n_conv += 1
+    print(f"sep_conv_u8 vs plain on the card: 0 LSB over {n_conv} cases, routes "
+          f"{sorted(conv_routes)}")
     # a batch past 2^31 bytes: the kernels' flat offsets must be 64-bit;
     # the plain versions run on the last two planes only
     tv5, th5 = q8_taps(5, 0.0)
@@ -1089,7 +1114,7 @@ def main() -> None:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
-          f"{len(planes_cases)} plane cases, {2 * len(conv_cases)} conv cases, "
+          f"{len(planes_cases)} plane cases, {n_conv} conv cases, "
           f"{n_med} median cases, {n_clahe} CLAHE cases (each stage and the whole op), "
           f"{n_bil} bilateral and {n_ath} athresh cases, the 70000x8x8 batch through every "
           "kernel, the 1x2200000x8 plane through sep_conv_u8, median, CLAHE, bilateral and "
@@ -1146,6 +1171,8 @@ def main() -> None:
         ms[name] = (k_ms, p_ms)
         print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
               f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    print(f"  sep_conv_u8 at {tuple(x8.shape)} k=5 sigma 0, LUT, amount 1: instance and route "
+          f"{kconv.conv_route(tv5, th5).describe()}, epilogue mode {kconv.epilogue_mode(1.0)}")
     del g5, h5, l5
 
     # -- 4. the main path through the public functions -------------------------

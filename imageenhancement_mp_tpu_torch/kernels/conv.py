@@ -7,6 +7,14 @@ LUT prologue) and the JAX package's ``kernels/conv.py::_sep_conv_planes``
 every odd ksize ≤ 31 per axis.  :func:`sep_conv_u8_plain` is the same
 function in plain PyTorch.
 
+The host picks the kernel's instance and route (:func:`conv_route`): a
+compile-time instance for k 3, 5 or 7 on both axes, the runtime one for any
+other pair; the horizontal pass on packed 16-bit lanes where the taps reduced
+by their common power of two have scales ``qv·qh ≤ 256`` (the JAX package's
+``kernels/conv2.py::_reduce_taps`` rule), else in int32 on the Q8 taps; and
+the epilogue (:func:`epilogue_mode`): on lanes for an integral amount in
+[0, 127], where cv2's two FMAs are exact, else the FMAs themselves.
+
 The law, pinned to ``ref/ops.py``: cv2's Q8 taps, REFLECT_101 borders
 (``numpy.pad(mode="reflect")``, reflecting again when the halo is deeper than
 the plane), int32 accumulation, ``blur = (acc + 2^15) >> 16``; the unsharp
@@ -17,7 +25,8 @@ epilogue is cv2's two single-rounded f32 FMAs for every ``amount``::
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +36,13 @@ from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256_plain
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 
-__all__ = ["MAX_TAPS", "reflect101", "sep_conv_u8", "sep_conv_u8_plain", "unsharp_weights"]
+__all__ = ["COMPILED_K", "ConvRoute", "MAX_TAPS", "MAX_LANE_AMOUNT", "conv_route",
+           "epilogue_mode", "reduce_taps", "reflect101", "sep_conv_u8", "sep_conv_u8_plain",
+           "unsharp_weights"]
 
 MAX_TAPS = 31
+COMPILED_K = (3, 5, 7)   # kv = kh = k; every other pair runs the runtime instance
+MAX_LANE_AMOUNT = 127    # (1 + a)·255 + 256a ≤ 65535 keeps the epilogue's lanes apart
 
 
 def unsharp_weights(amount: float) -> tuple[float, float]:
@@ -46,6 +59,63 @@ def _check_taps(taps: Sequence[int], axis: str) -> tuple[int, ...]:
     if min(t) < 0 or sum(t) > 256:
         raise ValueError(f"{axis} taps must be >= 0 with a sum <= 256, got {t}")
     return t
+
+
+def reduce_taps(taps: Sequence[int]) -> tuple[tuple[int, ...], int]:
+    """Divide Q8 taps by their common power of two; return (taps, log2 q),
+    q the reduced scale (the JAX package's ``kernels/conv2.py::_reduce_taps``)."""
+    z = 8
+    for t in taps:
+        if t:
+            z = min(z, (t & -t).bit_length() - 1)
+    return tuple(t >> z for t in taps), 8 - z
+
+
+class ConvRoute(NamedTuple):
+    """What the kernel runs for one tap pair."""
+    instance: int              # 3, 5 or 7: the compile-time instance; 0: the runtime one
+    packed: bool               # horizontal pass on 16-bit lanes (else int32)
+    taps_v: tuple[int, ...]    # the taps the kernel multiplies by: reduced when packed
+    taps_h: tuple[int, ...]
+    shift: int                 # blur = (acc + 2^(shift-1)) >> shift; 16 on the int32 route
+
+    def describe(self) -> str:
+        inst = f"k{self.instance}" if self.instance else "runtime"
+        return f"{inst}/{'packed' if self.packed else 'int32'}"
+
+
+def conv_route(taps_v: Sequence[int], taps_h: Sequence[int]) -> ConvRoute:
+    """The instance and route for checked Q8 taps.  Packed where the reduced
+    scales give ``qv·qh ≤ 256``: every vertical sum is then ≤ 255·qv and
+    every horizontal one ≤ 255·qv·qh ≤ 65535, so neither pass carries across
+    a lane, and ``(acc + q/2) >> log2 q`` is cv2's ``(acc8 + 2^15) >> 16``
+    (``acc8 = acc·65536/q``)."""
+    tv, th = tuple(taps_v), tuple(taps_h)
+    k = len(tv) if len(tv) == len(th) and len(tv) in COMPILED_K else 0
+    (rv, lv), (rh, lh) = reduce_taps(tv), reduce_taps(th)
+    if lv + lh <= 8:
+        return ConvRoute(k, True, rv, rh, lv + lh)
+    return ConvRoute(k, False, tv, th, 16)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_taps(tv: tuple[int, ...], th: tuple[int, ...]) -> tuple[ConvRoute, np.ndarray, np.ndarray]:
+    """The route and its taps as int32 host arrays, kept per tap pair: the
+    wrapper's host time is the paths' pace once the kernels are fast."""
+    route = conv_route(tv, th)
+    return route, *(np.ascontiguousarray(t, np.int32) for t in (route.taps_v, route.taps_h))
+
+
+def epilogue_mode(amount: float | None) -> tuple[int, int]:
+    """``(mode, a)``: 0 writes the blur; 1 an integral ``amount`` a in
+    [0, MAX_LANE_AMOUNT], where ``alpha = 1 + a`` and ``beta = −a`` are exact
+    and every product is an integer below 2^24, so cv2's two FMAs are exact
+    and equal ``clamp((1 + a)·src − a·blur, 0, 255)``; 2 the two FMAs."""
+    if amount is None:
+        return 0, 0
+    if float(amount).is_integer() and 0 <= amount <= MAX_LANE_AMOUNT:
+        return 1, int(amount)
+    return 2, 0
 
 
 def reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -111,9 +181,10 @@ def sep_conv_u8(planes: torch.Tensor, taps_v: Sequence[int], taps_h: Sequence[in
     if out.numel() == 0:
         return out
     alpha, beta = (1.0, 0.0) if amount is None else unsharp_weights(amount)
-    c_tv, c_th = (np.ascontiguousarray(t, np.int32) for t in (tv, th))
+    route, c_tv, c_th = _launch_taps(tv, th)
+    mode, amount_i = epilogue_mode(amount)
     launch("sep_conv_u8", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
            c_tv.ctypes.data, len(tv), c_th.ctypes.data, len(th),
            None if luts is None else luts.data_ptr(),
-           0 if amount is None else 1, alpha, beta)
+           route.instance, int(route.packed), route.shift, mode, amount_i, alpha, beta)
     return out
