@@ -52,10 +52,19 @@
    floor (the schedule's min/max instructions per pixel over 132 SMs x 64
    lanes at the SM clock nvidia-smi reports as clocks.max.sm).
 6. Holds the bilateral and athresh kernels against their plain versions at
-   0 LSB (d 3, 5, 9, 51 and a sigma-derived radius; sigma pairs 75/75, 30/30,
-   10/200; block sizes 3 to 101, both types, C in {-3.5, 0, 2, 7.2}; tiny
-   planes, planes smaller than the radius, a storage offset of one element,
-   1079x1917, [70000, 8, 8]); runs a [1, 2_200_000, 8] plane (more row tiles
+   0 LSB: bilateral at d 3, 5, 7, 9 and 11 (each compile-time instance, and
+   the runtime instance at the same radius), 13, 51 and sigma-derived radii;
+   sigma pairs 75/75, 30/30, 10/200; widths 0, 1 and 7 mod 8 and across the
+   64-column tile, heights across its 32 rows, tiny planes, planes smaller
+   than the radius, a plane whose colour-table indices differ across each
+   warp's lanes; athresh at every block size 3 to 51 through the screen (3
+   to 11 also through the runtime instance; 3, 11, 31 and 51 also with the
+   f64 recompute forced on every pixel), 61 and 101 through the two-pass
+   route, both types, C in {-3.5, 0, 2, 7.2}, across the 64x64 tile; a
+   storage offset of one element, 1079x1917, [70000, 8, 8]; prints ptxas's
+   registers and spills for each instance, the issue floors at the timed
+   shape and the share of pixels the screen recomputes there (from its plain
+   mirror); runs a [1, 2_200_000, 8] plane (more row tiles
    than a grid axis of 65535 holds) through sep_conv_u8, median, CLAHE,
    bilateral and athresh against their plain versions; then drives
    bilateral_filter(9, 75, 75), adaptive_threshold(gaussian, 11, 2),
@@ -128,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -213,6 +223,15 @@ def issue_floor_ms(k: int, pixels: int, clock_mhz: float) -> float:
     from imageenhancement_mp_tpu_torch.kernels import median_networks as mnet
     per_px = next(s.ops_per_output for s in mnet.SCHEDULES if s.name == f"median_tile{k}") / 2
     return per_px * pixels / (132 * 64 * clock_mhz * 1e6) * 1e3
+
+
+def doc_issue_floors_ms(visits: int, k: int, pixels: int, clock_mhz: float) -> tuple[float, float]:
+    """Issue floors of the document kernels over 132 SMs issuing 128 lanes of
+    instructions per clock: bilateral, 6 instructions per disc visit (its
+    four rounded f32 operations, the table gather and the add that forms its
+    address); athresh, the screen's 2k FFMAs per pixel (k per pass)."""
+    lanes_per_ms = 132 * 128 * clock_mhz * 1e6 / 1e3
+    return 6 * visits / lanes_per_ms, 2 * k * pixels / lanes_per_ms
 
 
 # planes for the median schedules: random, {0, 1}, constant, a ramp, and the
@@ -833,6 +852,18 @@ def main() -> None:
             if ("median" in entry and "spill" in line
                     and ("0 bytes spill stores, 0 bytes spill loads" not in line)):
                 raise AssertionError(f"ptxas spilled in {entry}: {line.strip()}")
+        # the document kernels' instances: <R> radius (0 runtime), <K> block size (0 runtime)
+        entry, doc = "", {}
+        for line in log.read_text().splitlines():
+            if "Compiling entry" in line:
+                m = re.search(r"(bilateral_gray_kernel|athresh_screen_kernel)ILi(\d+)E", line)
+                entry = f"{m.group(1)}<{m.group(2)}>" if m else ""
+            elif entry and "Used" in line:
+                doc[entry] = re.search(r"Used (\d+) registers", line).group(1) + " registers"
+            elif entry and "spill stores" in line:
+                doc.setdefault(entry + " spills", line.split(",", 1)[1].strip())
+        print("  ptxas, document kernels: " + "; ".join(
+            f"{k}: {v}, {doc.get(k + ' spills', '?')}" for k, v in doc.items() if "spills" not in k))
 
     # -- 3. each kernel against its plain version, on the card -----------------
     rng = np.random.default_rng(0)
@@ -1046,20 +1077,28 @@ def main() -> None:
           kathr.adaptive_threshold_gaussian_plain(many, taps11, 255, 2, False), "70000x8x8 k=11")
     del many, hm, lm, hk, lk, bk
 
-    # the bilateral kernel: radii 1, 2, 4, 25 and sigma-derived (d = 0);
-    # tiny planes and planes smaller than the disc (reflected again)
-    bil_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 3, 4), (3, 5, 9)]
-    bil_params = [(d, sc, ss) for d in (3, 5, 9) for sc, ss in
+    # the bilateral kernel family: every compile-time radius (1..5, d 3..11),
+    # each also through the runtime instance, and the runtime instance alone
+    # above (d 13, 51, sigma-derived radii); widths = 0, 1 and 7 mod 8 (a
+    # thread's 8 outputs) and across a block's 64 columns, heights across its
+    # 32 rows; tiny planes and planes smaller than the disc (reflected again);
+    # random planes and one whose colour-table indices differ across the 32
+    # lanes (rows) of each warp
+    bil_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 3, 4), (3, 5, 9),
+                  (1, 33, 64), (1, 31, 65), (2, 40, 71), (1, 65, 127), (1, 7, 8), (1, 9, 9)]
+    bil_params = [(d, sc, ss) for d in (3, 5, 7, 9, 11) for sc, ss in
                   ((75.0, 75.0), (30.0, 30.0), (10.0, 200.0))]
-    bil_params += [(51, 30.0, 30.0), (0, 10.0, 16.0), (0, 75.0, 3.0)]
+    bil_params += [(13, 30.0, 30.0), (51, 30.0, 30.0), (0, 10.0, 16.0), (0, 75.0, 3.0)]
     n_bil = 0
 
     def check_bilateral(x: torch.Tensor, params, what: str) -> None:
         nonlocal n_bil
         tables = tbil.bilateral_tables(*params[:3], 1, dev)
-        check("bilateral", kbil.bilateral_gray(x, *tables), kbil.bilateral_gray_plain(x, *tables),
-              f"{what} d={params[0]} sigma={params[1:]}")
-        n_bil += 1
+        want = kbil.bilateral_gray_plain(x, *tables)
+        for runtime in (False, True) if tables[2] <= kbil.MAX_COMPILED_RADIUS else (False,):
+            check("bilateral", kbil.bilateral_gray(x, *tables, _runtime=runtime), want,
+                  f"{what} d={params[0]} sigma={params[1:]} runtime instance={runtime}")
+            n_bil += 1
 
     for shape in bil_shapes:
         x = rand_u8(shape)
@@ -1069,32 +1108,53 @@ def main() -> None:
     x = rand_u8((1, 1079, 1917))
     for params in ((9, 75.0, 75.0), (5, 10.0, 200.0)):
         check_bilateral(x, params, "1079x1917")
+    yy, xc = np.ogrid[0:67, 0:1917]
+    spread = on_card(((7 * yy * yy + 3 * xc + 11 * xc * yy) % 256).astype(np.uint8)[None])
+    for d in (3, 5, 7, 9, 11, 13):
+        check_bilateral(spread, (d, 30.0, 30.0), "lane-distinct table indices 67x1917")
 
-    # the athresh kernel: block sizes through the shared-memory route (<= 51)
-    # and the two-pass route (61, 101), both types, C around 0
-    ath_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 5, 7)]
-    n_ath = 0
+    # the athresh kernel: every block size of the shared-memory route (3..51;
+    # 3..11 also through the runtime instance) and the two-pass route (61,
+    # 101), both types, C around 0; widths and heights across the 64 x 64
+    # tile; the f64 recompute forced on every pixel (margin +inf) at 3, 11,
+    # 31 and 51 and on 1079x1917
+    ath_shapes = [(2, 64, 256), (1, 37, 131), (1, 1, 1), (1, 2, 3), (1, 5, 7), (1, 65, 129),
+                  (1, 63, 64), (2, 64, 71)]
+    ath_sizes = list(range(3, 52, 2)) + [61, 101]
+    n_ath, n_forced = 0, 0
 
-    def check_athresh(x: torch.Tensor, bs: int, C: float, inv: bool, mv: int, what: str) -> None:
-        nonlocal n_ath
+    def check_athresh(x: torch.Tensor, bs: int, C: float, inv: bool, mv: int, what: str,
+                      forced: bool = False) -> None:
+        nonlocal n_ath, n_forced
         taps = tthr.gaussian_taps(bs, dev)
         idelta = int(np.floor(C)) if inv else int(np.ceil(C))
-        check("athresh", kathr.adaptive_threshold_gaussian(x, taps, mv, idelta, inv),
-              kathr.adaptive_threshold_gaussian_plain(x, taps, mv, idelta, inv),
-              f"{what} block {bs} C={C} inv={inv} maxval {mv}")
+        want = kathr.adaptive_threshold_gaussian_plain(x, taps, mv, idelta, inv)
+        what = f"{what} block {bs} C={C} inv={inv} maxval {mv}"
+        check("athresh", kathr.adaptive_threshold_gaussian(x, taps, mv, idelta, inv), want, what)
         n_ath += 1
+        if bs <= 11:
+            check("athresh", kathr.adaptive_threshold_gaussian(x, taps, mv, idelta, inv,
+                                                               _runtime=True), want,
+                  what + " runtime instance")
+            n_ath += 1
+        if forced:
+            check("athresh", kathr.adaptive_threshold_gaussian(x, taps, mv, idelta, inv,
+                                                               _margin=float("inf")), want,
+                  what + " every pixel recomputed")
+            n_forced += 1
 
     for shape in ath_shapes:
         x = rand_u8(shape)
         for xx in (x, misaligned(x)):
-            for bs in (3, 5, 7, 11, 17, 51, 61, 101):
+            for bs in ath_sizes:
                 for C in (-3.5, 0.0, 2.0, 7.2):
                     for inv in (False, True):
                         check_athresh(xx, bs, C, inv, 255 if C else 200,
-                                      f"{tuple(xx.shape)} offset {xx.storage_offset()}")
+                                      f"{tuple(xx.shape)} offset {xx.storage_offset()}",
+                                      forced=bs in (3, 11, 31, 51))
     x = rand_u8((1, 1079, 1917))
     for bs in (11, 51, 61):
-        check_athresh(x, bs, 2.0, False, 255, "1079x1917")
+        check_athresh(x, bs, 2.0, False, 255, "1079x1917", forced=bs <= 51)
 
     # P3: more row tiles than a grid axis of 65535 holds (16-row tiles for
     # median, bilateral and athresh; 32 for sep_conv_u8; 8-row bands for
@@ -1116,7 +1176,8 @@ def main() -> None:
     print("kernels vs plain on the card: 0 LSB over "
           f"{len(planes_cases)} plane cases, {n_conv} conv cases, "
           f"{n_med} median cases, {n_clahe} CLAHE cases (each stage and the whole op), "
-          f"{n_bil} bilateral and {n_ath} athresh cases, the 70000x8x8 batch through every "
+          f"{n_bil} bilateral and {n_ath} athresh cases ({n_forced} more with every athresh "
+          f"pixel recomputed in f64), the 70000x8x8 batch through every "
           "kernel, the 1x2200000x8 plane through sep_conv_u8, median, CLAHE, bilateral and "
           "athresh, and the 1100x1080x1920 batch")
 
@@ -1171,6 +1232,19 @@ def main() -> None:
         ms[name] = (k_ms, p_ms)
         print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
               f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    # the document kernels beside their issue floors; the share of pixels the
+    # athresh screen hands to the f64 recompute, from the plain mirror of the
+    # screen on the timed input
+    _, recomputed = kathr.adaptive_threshold_screened_plain(g5, taps11, 255, 2, False)
+    ath_recomputed = int(recomputed.sum())
+    bil_floor, ath_floor = doc_issue_floors_ms(bil9[0].shape[0] * g5.numel(), 11, g5.numel(),
+                                               sm_clock_max_mhz())
+    print(f"  bilateral at {tuple(g5.shape)} d=9: kernel {ms['bilateral'][0]:.4f} ms, issue floor "
+          f"{bil_floor:.4f} ms ({bil9[0].shape[0]} visits per pixel); athresh block 11: kernel "
+          f"{ms['athresh'][0]:.4f} ms, issue floor {ath_floor:.4f} ms; the screen recomputes "
+          f"{ath_recomputed} of {g5.numel()} pixels ({ath_recomputed / g5.numel():.3e}, plain "
+          f"mirror, margin {kathr.screen_margin(taps11.cpu().numpy()):.6g})  [{smi}]")
+    del recomputed
     print(f"  sep_conv_u8 at {tuple(x8.shape)} k=5 sigma 0, LUT, amount 1: instance and route "
           f"{kconv.conv_route(tv5, th5).describe()}, epilogue mode {kconv.epilogue_mode(1.0)}")
     del g5, h5, l5
@@ -1631,11 +1705,17 @@ def main() -> None:
         "clahe_blend": bound_ms(2 * n5 + T5 * 256 + tab5, 9.0 * n5),
         # per disc offset a weight product, num += w*v (2) and den += w; one divide
         "bilateral": bound_ms(2 * n5 + n_off * 12 + 256 * 4, (4.0 * n_off + 1) * n5),
-        # block 11: 11 multiplies and 11 adds in each of the two passes, f64
-        "athresh": bound_ms(2 * n5 + 11 * 8, 44.0 * n5, "f64"),
+        # block 11: the f32 screen's 11 FFMAs in each of the two passes, and the
+        # f64 recompute (2k^2 + 2k operations) of the pixels this run's data needs
+        "athresh": max(bound_ms(2 * n5 + 11 * 8),
+                       ((44.0 * n5 / PEAK_OPS_PER_S["f32"]
+                         + 264.0 * ath_recomputed / PEAK_OPS_PER_S["f64"]) * 1e3, "operations")),
         # source once, output once, both f32 maps once; 9 f32 ops per output px
         "warp_gather_u8": bound_ms(6 * n5, 9.0 * n5),
     }
+    for name, floor in (("bilateral", bil_floor), ("athresh", ath_floor)):
+        print(f"  {name} at 2x2160x3840: kernel {ms[name][0]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), issue floor {floor:.4f} ms  [{smi}]")
     library = dict.fromkeys(ALL_KERNELS)
     idx_h = (x8.view(B8, -1).long() + 256 * torch.arange(B8, device=dev)[:, None]).view(-1)
     if not torch.equal(torch.bincount(idx_h, minlength=256 * B8).view(B8, 256).int(), h8):

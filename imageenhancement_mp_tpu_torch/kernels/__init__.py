@@ -9,11 +9,14 @@ a run can show that it went through the kernels.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_launch_counts
 
-__all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input"]
+__all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input",
+           "host_derived"]
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -34,3 +37,23 @@ def check_kernel_input(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+# tensor id -> (weak reference, (version, key), value): see host_derived
+_HOST_CACHE: dict[int, tuple] = {}
+
+
+def host_derived(t: torch.Tensor, key: str, fn):
+    """``fn`` of ``t``'s values as a NumPy array, computed once per tensor
+    (and its version counter) and ``key``: a wrapper that needs a table's
+    values on the host copies it once, not once per call, which would wait
+    for the stream."""
+    hit = _HOST_CACHE.get(id(t))
+    if hit is not None and hit[0]() is t and hit[1] == (t._version, key):
+        return hit[2]
+    value = fn(t.detach().cpu().numpy())
+    if len(_HOST_CACHE) > 64:
+        for k in [k for k, v in _HOST_CACHE.items() if v[0]() is None]:
+            del _HOST_CACHE[k]
+    _HOST_CACHE[id(t)] = (weakref.ref(t), (t._version, key), value)
+    return value
