@@ -16,7 +16,8 @@
    across its warps' 240 (runtime instance 224) columns, 1917, 1, 2, 3;
    heights across its 8-row warps and 64-row blocks; edge-only planes), each
    also misaligned,
-   1080x1920 and 4K planes, non-divisible CLAHE geometries, the geometry
+   1080x1920 and 4K planes, non-divisible CLAHE geometries, tiles of a few
+   pixels (the u8 blend's narrow chunks and one-row bands), the geometry
    where the TPU quadrant blend is wrong (164x164, grid 2x2), clip limits 0,
    2 and 40, u16 tables, a [70000, 8, 8] batch (more planes than a grid axis
    of 65535 holds) and a 1100x1080x1920 batch (flat offsets past 2^31), and
@@ -79,15 +80,22 @@
    forward and inverse, linear and semilog, random remap maps reaching
    +-3e9; 1x1 and 2x3 planes, a storage offset of one element, [70000, 8,
    8], a [1, 2_200_000, 8] plane under the identity map and a
-   1100x1080x1920 batch), checks that the affine and perspective fields
-   built on the card equal the host NumPy fields bit for bit, then drives
-   warp_affine (rot15), warp_polar and remap at 2x2160x3840 u8 through the
-   public functions, each with counters of its own (exactly one
+   1100x1080x1920 batch); holds its matrix route (warp_matrix_u8: the
+   coordinates computed in the kernel) against the plain gather at the
+   torch-built field over the same affines and homographies, corners past
+   +-2e9, a zero denominator, outputs with ow % 16 in {0, 1, 7, 15}, the
+   tiny and misaligned planes, [70000, 8, 8], the [1, 2_200_000, 8] plane
+   under the identity matrix and the 1100x1080x1920 batch (rot15 and a
+   homography); checks that the affine and perspective fields built on the
+   card equal the host NumPy fields bit for bit, then drives warp_affine
+   (rot15), warp_perspective, warp_polar and remap at 2x2160x3840 u8
+   through the public functions, each with counters of its own (exactly one
    warp_gather_u8 launch and no other kernel), against the plain path on the
-   card and one 4K frame against the plain path on the CPU, and times them:
-   the map build and the kernel apart, polar's first (map-building) call
-   apart from its cached calls, and torch's grid_sample (bilinear, f32) as a
-   yardstick that is not the same function.
+   card and one 4K frame against the plain path on the CPU, and times them
+   with the device's busy share under torch.profiler: the kernel on both
+   routes, the map build, polar's first (map-building) call apart from its
+   cached calls, and torch's grid_sample (bilinear, f32) as a yardstick
+   that is not the same function.
 8. Computes each kernel's bound at its timed shape and times the PyTorch
    calls that compute the same function (bincount, gather).
 9. Colour conversion and non-local means: holds take_table against its
@@ -288,6 +296,27 @@ def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[flo
         times.append(start.elapsed_time(end) / calls)
     q1, q2, q3 = statistics.quantiles(times, n=4)
     return q2, q3 - q1
+
+
+def busy_share(fn, calls: int = CALLS_PER_RUN) -> str:
+    """The device's busy share over ``calls`` back-to-back calls of ``fn``
+    under torch.profiler: kernel time on the device over the wall time."""
+    from torch.autograd import DeviceType
+    for _ in range(WARMUPS):
+        fn()
+    torch.cuda.synchronize()
+    acts = [a for a in (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+            if a in torch.profiler.supported_activities()]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA)
+    return (f"under torch.profiler {busy_us / calls:.2f} us of device time per call in "
+            f"{wall_us / calls:.2f} us of wall, busy {100 * busy_us / wall_us:.1f} %")
 
 
 def noisy(lead: tuple, H: int, W: int, trail: tuple, seed: int, sigma: float) -> np.ndarray:
@@ -1029,7 +1058,10 @@ def main() -> None:
     clahe_geoms = [((2, 64, 256), (8, 2)), ((1, 30, 256), (2, 2)), ((1, 64, 384), (4, 3)),
                    ((1, 37, 131), (8, 8)), ((1, 20, 250), (2, 2)), ((1, 164, 164), (2, 2)),
                    ((1, 1, 1), (8, 8)), ((1, 2, 3), (2, 2)), ((2, 1080, 1920), (8, 8)),
-                   ((1, 1079, 1917), (8, 8))]
+                   ((1, 1079, 1917), (8, 8)),
+                   # tiles of a few pixels: narrow chunks, one-row bands (the u8 blend's plan)
+                   ((1, 8, 8), (8, 8)), ((2, 17, 33), (17, 33)), ((1, 40, 5000), (2, 4000)),
+                   ((1, 64, 3840), (1, 64)), ((1, 100, 4000), (3, 64))]
     for dtype in (np.uint8, np.uint16):
         for shape, grid in clahe_geoms:
             x = rand(shape, dtype)
@@ -1232,6 +1264,16 @@ def main() -> None:
         ms[name] = (k_ms, p_ms)
         print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
               f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    # clahe_blend's u16 kernel at the same geometry, and the u8 kernel's plan
+    g16 = rand((2, 2160, 3840), np.uint16)
+    l16 = kclahe.clahe_lut(kclahe.tile_hists_plain(g16, *geo5), area5, 2.0)
+    u16_ms, u16_iqr = time_ms(lambda: kclahe.clahe_blend(g16, l16, 8, 8, *tables5))
+    T16 = l16.shape[0]
+    print(f"  clahe_blend u16 at (2, 2160, 3840) grid 8x8: kernel {u16_ms:.4f} ms (IQR "
+          f"{u16_iqr:.4f}), bound {bound_ms(4 * g16.numel() + T16 * 65536 * 2)[0]:.4f} ms (bytes); "
+          f"u8 plan: {kclahe.blend_chunk(tables5[2].cpu().numpy(), 8)} columns and "
+          f"{kclahe.blend_band(tables5[0].cpu().numpy())} rows per block  [{smi}]")
+    del g16, l16
     # the document kernels beside their issue floors; the share of pixels the
     # athresh screen hands to the f64 recompute, from the plain mirror of the
     # screen on the timed input
@@ -1527,6 +1569,20 @@ def main() -> None:
                       f"{what} nearest={nearest} {border} {bv}")
                 n_warp += 1
 
+    def check_matrix(x: torch.Tensor, Mi, oh: int, ow: int, perspective: bool, what: str) -> None:
+        """The matrix route (coordinates computed in the kernel) against the
+        plain gather at the field built by torch: both modes, both borders."""
+        nonlocal n_warp
+        field = (twarp.perspective_field if perspective else twarp.affine_field)(Mi, oh, ow, dev)
+        for nearest in (False, True):
+            for border, bv in warp_borders:
+                b8 = int(twarp._border_value(torch.uint8, bv))
+                check("warp_gather_u8",
+                      kwarp.warp_matrix_u8(x, Mi, oh, ow, perspective, nearest, border, b8),
+                      kwarp.warp_gather_u8_plain(x, *field, nearest, border, b8),
+                      f"matrix route {what} nearest={nearest} {border} {bv}")
+                n_warp += 1
+
     def check_field(got, want_np, what: str) -> None:
         """A field built on the card against the host NumPy field, bit for bit."""
         nonlocal n_fields
@@ -1557,10 +1613,27 @@ def main() -> None:
         sx, sy = twarp.affine_field(Mi, oh, ow, dev)
         check_field((sx, sy), wc.warp_affine_coords_f32(Mi, oh, ow), f"affine field {name}")
         check_warp(xw, sx, sy, f"{name} 2x240x320 -> {oh}x{ow}")
+        check_matrix(xw, Mi, oh, ow, False, f"{name} 2x240x320 -> {oh}x{ow}")
     for name, Mi in homographies.items():
         sx, sy = twarp.perspective_field(Mi, oh, ow, dev)
         check_field((sx, sy), wc.warp_perspective_coords_f32(Mi, oh, ow), f"field {name}")
         check_warp(xw, sx, sy, f"{name} 2x240x320 -> {oh}x{ow}")
+        check_matrix(xw, Mi, oh, ow, True, f"{name} 2x240x320 -> {oh}x{ow}")
+    # the matrix route's adversarial cases: corners past +-2e9, zero
+    # denominators on a row and on a column, ow % 16 in {0, 1, 7, 15} (the
+    # field's tail law), rows and columns across its 64 x 16 tiles
+    far = {"far corners": (np.array([[3e6, 1e5, -1e9], [-2e5, 4e6, 7e8]]), False),
+           "past the clip": (np.array([[2.5e8, -3e8, 1.9e9], [1e9, 2e9, -2.1e9]]), False),
+           "far homography": (np.array([[3e6, 1e5, -1e9], [-2e5, 4e6, 7e8],
+                                        [1e-3, -2e-3, 0.5]]), True),
+           "zero denominator row": (np.array([[1.0, 0.0, 2.0], [0.0, 1.0, 1.0],
+                                              [0.0, 1.0, -30.0]]), True)}
+    for name, (Mi, persp) in far.items():
+        check_matrix(xw, Mi, oh, ow, persp, f"{name} 2x240x320 -> {oh}x{ow}")
+    for moh, mow in ((17, 16), (33, 17), (15, 23), (16, 31), (65, 47), (1, 1), (2, 95)):
+        check_matrix(xw, affines["rot-23.0 x1.1"], moh, mow, False, f"rot-23 -> {moh}x{mow}")
+        check_matrix(xw, homographies["homography strong"], moh, mow, True,
+                     f"homography strong -> {moh}x{mow}")
     # the 4K rot15 field of the main path, and a 4K perspective field
     M15 = wc.get_rotation_matrix_2d((1920.0, 1080.0), 15.0, 1.0)
     Mi15 = wc.invert_affine(M15)
@@ -1586,32 +1659,56 @@ def main() -> None:
         xs = rand_u8(shape)
         Mi = rot(((shape[2] - 1) / 2, (shape[1] - 1) / 2), 20.0, 0.7)
         check_warp(xs, *twarp.affine_field(Mi, *out_hw, dev), f"{shape} plane")
+        check_matrix(xs, Mi, *out_hw, False, f"{shape} plane")
+        check_matrix(xs, homographies["homography mild"], *out_hw, True, f"{shape} plane")
     xm = misaligned(xw)
     check_warp(xm, *twarp.affine_field(affines["rot31.0 x1.1"], oh, ow, dev), "offset 1")
+    check_matrix(xm, affines["rot31.0 x1.1"], oh, ow, False, "offset 1")
     many = rand_u8((70000, 8, 8))
     check_warp(many, *twarp.affine_field(rot((3.5, 3.5), 31.0, 1.1), 8, 8, dev), "70000x8x8")
+    check_matrix(many, rot((3.5, 3.5), 31.0, 1.1), 8, 8, False, "70000x8x8")
+    check_matrix(many, homographies["homography strong"], 8, 8, True, "70000x8x8")
     tall = rand_u8((1, 2_200_000, 8))
     ty, tx = torch.meshgrid(torch.arange(2_200_000, dtype=torch.float32, device=dev),
                             torch.arange(8, dtype=torch.float32, device=dev), indexing="ij")
     tx, ty = tx.contiguous(), ty.contiguous()
+    eye = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
     for nearest in (False, True):
         got = kwarp.warp_gather_u8(tall, tx, ty, nearest, "constant", 0)
         check("warp_gather_u8", got, kwarp.warp_gather_u8_plain(tall, tx, ty, nearest), "1x2200000x8")
         check("warp_gather_u8", got, tall, "1x2200000x8 identity map against the input")
-        n_warp += 1
+        got = kwarp.warp_matrix_u8(tall, eye, 2_200_000, 8, False, nearest, "constant", 0)
+        check("warp_gather_u8", got, tall, "1x2200000x8 identity matrix against the input")
+        n_warp += 2
+    check_matrix(tall[:, :300_000], rot((3.5, 150_000.0), 0.5, 1.0), 300_000, 8, False,
+                 "1x300000x8 rot0.5")
     del many, tall, tx, ty, xm
     big = torch.randint(0, 256, (1100, 1080, 1920), generator=gen, device=dev, dtype=torch.uint8)
     fb = twarp.affine_field(rot((960.0, 540.0), 15.0, 1.0), 1080, 1920, dev)
+    Mb = rot((960.0, 540.0), 15.0, 1.0)
+    Hb = homographies["homography mild"]
+    fh = twarp.perspective_field(Hb, 1080, 1920, dev)
     for nearest in (False, True):
         check("warp_gather_u8", kwarp.warp_gather_u8(big, *fb, nearest)[-2:],
               kwarp.warp_gather_u8_plain(big[-2:], *fb, nearest), "1100x1080x1920, last planes")
+        for border, bv in warp_borders:
+            b8 = int(twarp._border_value(torch.uint8, bv))
+            check("warp_gather_u8",
+                  kwarp.warp_matrix_u8(big, Mb, 1080, 1920, False, nearest, border, b8)[-2:],
+                  kwarp.warp_gather_u8_plain(big[-2:], *fb, nearest, border, b8),
+                  f"matrix route 1100x1080x1920 rot15, last planes, {border} {bv}")
+            check("warp_gather_u8",
+                  kwarp.warp_matrix_u8(big, Hb, 1080, 1920, True, nearest, border, b8)[-2:],
+                  kwarp.warp_gather_u8_plain(big[-2:], *fh, nearest, border, b8),
+                  f"matrix route 1100x1080x1920 homography, last planes, {border} {bv}")
+            n_warp += 2
         n_warp += 1
-    del big, fb
+    del big, fb, fh
     torch.cuda.synchronize()
     if launch_counts["warp_gather_u8"] <= before["warp_gather_u8"]:
         raise AssertionError("warp_gather_u8: the comparison phase launched no kernel")
-    print(f"warp_gather_u8 vs plain on the card: 0 LSB over {n_warp} cases; {n_fields} fields "
-          "built on the card equal the host NumPy fields bit for bit")
+    print(f"warp_gather_u8 vs plain on the card: 0 LSB over {n_warp} cases (maps and matrix "
+          f"routes); {n_fields} fields built on the card equal the host NumPy fields bit for bit")
 
     # the main paths through the public functions, each with counters of its own
     H4, W4 = 2160, 3840
@@ -1622,6 +1719,8 @@ def main() -> None:
     warp_paths = [  # label, public call, plain path on the card
         ("warp_affine rot15", lambda x: port.warp_affine(x, M15, (H4, W4)),
          lambda x: kwarp.warp_gather_u8_plain(x, *twarp.affine_field(Mi15, H4, W4, x.device))),
+        ("warp_perspective", lambda x: port.warp_perspective(x, Mp4k, (H4, W4), inverse_map=True),
+         lambda x: kwarp.warp_gather_u8_plain(x, *twarp.perspective_field(Mp4k, H4, W4, x.device))),
         ("warp_polar((1920, 2160), (1920, 1080), 1900)", lambda x: port.warp_polar(x, *polar_args),
          lambda x: kwarp.warp_gather_u8_plain(x, *twarp.polar_maps(
              H4, W4, *polar_args, False, False, x.device))),
@@ -1645,13 +1744,23 @@ def main() -> None:
         if e or e_cpu:
             raise AssertionError(f"{label}: kernel path differs from the plain path")
 
-    # time: the kernel alone at the rot15 field, the map build alone, each path
+    # time: the kernel alone on the main path's matrix route (rot15) and on
+    # the maps route at the same field, the map build alone, each path
     f15 = twarp.affine_field(Mi15, H4, W4, dev)
-    (k_ms, k_iqr) = time_ms(lambda: kwarp.warp_gather_u8(g4k, *f15))
-    (p_ms, p_iqr) = time_ms(lambda: kwarp.warp_gather_u8_plain(g4k, *f15), 5, 2)
+    (k_ms, k_iqr) = time_ms(lambda: kwarp.warp_matrix_u8(g4k, Mi15, H4, W4))
+    (p_ms, p_iqr) = time_ms(lambda: kwarp.warp_matrix_u8_plain(g4k, Mi15, H4, W4), 5, 2)
     ms["warp_gather_u8"] = (k_ms, p_ms)
-    print(f"  warp_gather_u8 at (2, 2160, 3840) rot15 linear: kernel {k_ms:.4f} ms (IQR "
-          f"{k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    print(f"  warp_gather_u8 at (2, 2160, 3840) rot15 linear, matrix route: kernel {k_ms:.4f} ms "
+          f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound "
+          f"{bound_ms(2 * 2 * H4 * W4)[0]:.4f} ms (bytes)  [{smi}]")
+    for label, fn in (("matrix route, nearest", lambda: kwarp.warp_matrix_u8(
+                          g4k, Mi15, H4, W4, False, True)),
+                      ("matrix route, mild homography", lambda: kwarp.warp_matrix_u8(
+                          g4k, Mp4k, H4, W4, True)),
+                      ("maps route at the rot15 field", lambda: kwarp.warp_gather_u8(g4k, *f15))):
+        t_ms, t_iqr = time_ms(fn)
+        print(f"  warp_gather_u8 at (2, 2160, 3840) {label}: kernel {t_ms:.4f} ms (IQR "
+              f"{t_iqr:.4f})  [{smi}]")
     b_ms, b_iqr = time_ms(lambda: twarp.affine_field(Mi15, H4, W4, dev))
     print(f"  affine field build rot15 2160x3840 on the card: {b_ms:.4f} ms (IQR {b_iqr:.4f})"
           f"  [{smi}]")
@@ -1675,9 +1784,10 @@ def main() -> None:
           f"[2, 1, 2160, 3840] at the rot15 grid (no cv2 rounding, f32 in and out) "
           f"{gs_ms:.4f} ms (IQR {gs_iqr:.4f})  [{smi}]")
     del xf, grid
-    out_px = {"warp_affine rot15": 2 * H4 * W4, "warp_polar": 2 * 2160 * 1920,
-              "remap": 2 * H4 * W4}
-    path_bounds = {"warp_affine rot15": bound_ms(6 * 2 * H4 * W4)[0],
+    out_px = {"warp_affine rot15": 2 * H4 * W4, "warp_perspective": 2 * H4 * W4,
+              "warp_polar": 2 * 2160 * 1920, "remap": 2 * H4 * W4}
+    path_bounds = {"warp_affine rot15": bound_ms(2 * 2 * H4 * W4)[0],
+                   "warp_perspective": bound_ms(2 * 2 * H4 * W4)[0],
                    "warp_polar": bound_ms(2160 * 1920 * (8 + 2) + 2 * H4 * W4)[0],
                    "remap": bound_ms(6 * 2 * H4 * W4)[0]}
     for (label, fn, plain), key in zip(warp_paths, out_px):
@@ -1686,7 +1796,8 @@ def main() -> None:
         print(f"{label} 2x2160x3840 u8: kernel path {k_ms:.4f} ms (IQR {k_iqr:.4f}) = "
               f"{gpix / (k_ms / 1e3):.3f} GPix/s (output pixels), plain path {p_ms:.4f} ms "
               f"(IQR {p_iqr:.4f}) = {gpix / (p_ms / 1e3):.3f} GPix/s, bound "
-              f"{path_bounds[key]:.4f} ms (bytes), max abs err 0  [{smi}]")
+              f"{path_bounds[key]:.4f} ms (bytes), max abs err 0; " + busy_share(lambda: fn(g4k))
+              + f"  [{smi}]")
 
     # -- 8. bounds and library calls at the timed shapes ------------------------
     B8, n8, n5 = x8.shape[0], x8.numel(), 2 * H4 * W4
@@ -1710,8 +1821,10 @@ def main() -> None:
         "athresh": max(bound_ms(2 * n5 + 11 * 8),
                        ((44.0 * n5 / PEAK_OPS_PER_S["f32"]
                          + 264.0 * ath_recomputed / PEAK_OPS_PER_S["f64"]) * 1e3, "operations")),
-        # source once, output once, both f32 maps once; 9 f32 ops per output px
-        "warp_gather_u8": bound_ms(6 * n5, 9.0 * n5),
+        # the main path's matrix route: source once, output once (the maps
+        # route adds 8 B of map per output pixel: 0.0297 ms); 9 f32 ops per
+        # output pixel
+        "warp_gather_u8": bound_ms(2 * n5, 9.0 * n5),
     }
     for name, floor in (("bilateral", bil_floor), ("athresh", ath_floor)):
         print(f"  {name} at 2x2160x3840: kernel {ms[name][0]:.4f} ms, bound {bounds[name][0]:.4f} ms "

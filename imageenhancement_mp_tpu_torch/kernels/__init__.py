@@ -39,8 +39,8 @@ def check_kernel_input(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-# tensor id -> (weak reference, (version, key), value): see host_derived
-_HOST_CACHE: dict[int, tuple] = {}
+# (tensor id, key) -> (weak reference, version, value): see host_derived
+_HOST_CACHE: dict[tuple, tuple] = {}
 
 
 def host_derived(t: torch.Tensor, key: str, fn):
@@ -48,12 +48,12 @@ def host_derived(t: torch.Tensor, key: str, fn):
     (and its version counter) and ``key``: a wrapper that needs a table's
     values on the host copies it once, not once per call, which would wait
     for the stream."""
-    hit = _HOST_CACHE.get(id(t))
-    if hit is not None and hit[0]() is t and hit[1] == (t._version, key):
+    hit = _HOST_CACHE.get((id(t), key))
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
         return hit[2]
     value = fn(t.detach().cpu().numpy())
     if len(_HOST_CACHE) > 64:
         for k in [k for k, v in _HOST_CACHE.items() if v[0]() is None]:
             del _HOST_CACHE[k]
-    _HOST_CACHE[id(t)] = (weakref.ref(t), (t._version, key), value)
+    _HOST_CACHE[(id(t), key)] = (weakref.ref(t), t._version, value)
     return value

@@ -11,9 +11,12 @@ plain PyTorch version.
 * :func:`clahe_lut` — stage B, the clipped tile LUTs
   (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas).
 * :func:`clahe_blend` — stage C, the bilinear blend of the four neighbour
-  LUTs; one kernel for every geometry, in place of
+  LUTs; one kernel per pixel type for every geometry, in place of
   ``kernels/clahe_u16.py::clahe_blend_quad_pallas`` and
-  ``kernels/clahe_blend.py::clahe_blend_pallas``.
+  ``kernels/clahe_blend.py::clahe_blend_pallas``.  The u8 kernel stages, per
+  interpolation cell, a shared-memory table of words packing the four
+  neighbour entries of each value; :func:`blend_chunk` and
+  :func:`blend_band` size its blocks.
 
 Tiles are numbered ``b·gh·gw + ty·gw + tx``; the histogram and LUT tables
 are ``[B·gh·gw, S]`` with S = 256 (u8) or 65536 (u16).  The tile geometry
@@ -27,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, host_derived, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.conv import reflect101
 
@@ -35,12 +38,16 @@ __all__ = [
     "HIST_SIZE",
     "hist256_tiles", "tile_hists_plain",
     "clahe_lut", "clahe_lut_plain", "clip_and_scale",
-    "clahe_blend", "clahe_blend_plain",
+    "clahe_blend", "clahe_blend_plain", "column_cells", "blend_chunk", "blend_band",
 ]
 
 HIST_SIZE = {torch.uint8: 256, torch.uint16: 65536}
 _LUT_DTYPE = {256: torch.uint8, 65536: torch.uint16}
 _INT32_MAX = 2**31 - 1
+# the u8 blend's blocks (csrc/clahe.cu): 128 threads of 8 adjacent columns,
+# at most 16 column cells (16 KiB of quad tables) and 16 rows per block;
+# chunks are whole multiples of 16 columns
+BLEND_PX, BLEND_MAX_CHUNK, BLEND_MAX_CELLS, BLEND_MAX_BAND = 16, 1024, 16, 16
 
 
 def _check_planes(planes: torch.Tensor, name: str) -> None:
@@ -171,6 +178,41 @@ def _check_blend(planes, luts, gh, gw, yidx, fy, xidx, fx) -> None:
             raise ValueError(f"clahe_blend: planes on {planes.device}, a table on {t.device}")
 
 
+def column_cells(i0: np.ndarray, i1: np.ndarray, n: int) -> np.ndarray:
+    """The interpolation cell of each column (or row) whose neighbour tiles
+    are ``(i0, i1)`` on a grid of ``n`` tiles, as the u8 kernel derives it:
+    0 before the first tile centre, ``n`` after the last, else ``i1``.  The
+    four neighbour LUTs are the same across a cell."""
+    return np.where(i1 > i0, i1, np.where(i0 == 0, 0, n))
+
+
+def blend_chunk(xidx: np.ndarray, gw: int) -> int:
+    """The u8 blend's columns per block from the host column table
+    ``[2, W]``: the widest multiple of 16, at most 1024, such that every
+    chunk ``[k·chunk, (k+1)·chunk)`` touches at most 16 column cells (16
+    columns touch at most 16, so one is always found)."""
+    W = xidx.shape[1]
+    cells = column_cells(xidx[0], xidx[1], gw)
+    chunk = min(BLEND_MAX_CHUNK, -(-W // BLEND_PX) * BLEND_PX)
+    while chunk > BLEND_PX:
+        starts = np.arange(0, W, chunk)
+        ends = np.minimum(starts + chunk, W) - 1
+        if (cells[ends] - cells[starts]).max() < BLEND_MAX_CELLS:
+            break
+        chunk -= BLEND_PX
+    return chunk
+
+
+def blend_band(yidx: np.ndarray) -> int:
+    """The u8 blend's rows per block from the host row table ``[2, H]``: 16,
+    or the shortest row cell's height where that is less (tiles of a few
+    rows).  A band that crosses into the next row cell stages its tables
+    anew, so any band is right; this one keeps most bands inside one cell."""
+    change = np.flatnonzero((yidx[0, 1:] != yidx[0, :-1]) | (yidx[1, 1:] != yidx[1, :-1])) + 1
+    runs = np.diff(np.concatenate([[0], change, [yidx.shape[1]]]))
+    return int(min(BLEND_MAX_BAND, runs.min()))
+
+
 def clahe_blend_plain(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
                       yidx: torch.Tensor, fy: torch.Tensor, xidx: torch.Tensor,
                       fx: torch.Tensor) -> torch.Tensor:
@@ -209,8 +251,17 @@ def clahe_blend(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
     check_kernel_input("clahe_blend", planes, luts, yidx, fy, xidx, fx)
     B, H, W = planes.shape
     out = torch.empty_like(planes)
-    if out.numel():
-        launch("clahe_blend", planes.device, planes.data_ptr(), luts.data_ptr(), out.data_ptr(),
-               B, H, W, planes.element_size(), gh, gw, yidx.data_ptr(), fy.data_ptr(),
-               xidx.data_ptr(), fx.data_ptr())
+    if not out.numel():
+        return out
+    chunk = band = 0  # the u16 kernel's blocks are fixed
+    if planes.dtype == torch.uint8:
+        if luts.data_ptr() % 4:
+            raise ValueError("clahe_blend: the u8 kernel reads LUT rows as 4-byte words; "
+                             "pass 4-byte aligned LUTs")
+        # once per coordinate table (ops/clahe.py keeps them per geometry)
+        chunk = host_derived(xidx, f"clahe blend chunk, gw {gw}", lambda a: blend_chunk(a, gw))
+        band = host_derived(yidx, "clahe blend band", blend_band)
+    launch("clahe_blend", planes.device, planes.data_ptr(), luts.data_ptr(), out.data_ptr(),
+           B, H, W, planes.element_size(), gh, gw, yidx.data_ptr(), fy.data_ptr(),
+           xidx.data_ptr(), fx.data_ptr(), chunk, band)
     return out

@@ -158,20 +158,182 @@ clahe_lut_kernel(const int32_t* __restrict__ hist, L* __restrict__ lut, int32_t 
 // the JAX package's kernels/clahe_u16.py::clahe_blend_quad_pallas
 // (quadrant blocking and a 256-step packed gather chain, because the TPU has
 // no general gather) and kernels/clahe_blend.py::clahe_blend_pallas (nine
-// stacked neighbour LUTs for the tile splits the quadrant guard rejects).
-// Here every pixel loads its four neighbour entries straight from the
-// [B*T, S] table (L1/L2: 16 KiB of u8 tables or 8 MiB of u16 tables per
-// plane), with its row's y0, y1, fy and its column's x0, x1, fx from the
-// host's _interp_coords tables, so every geometry takes this one kernel.
-// Bound by device memory at 2 B/px (u8) plus four dependent table loads.
-// The blend is blend_tile_luts' association (ops/clahe.py:145-148), each
-// operation rounded once, then one half-even round:
+// stacked neighbour LUTs for the tile splits the quadrant guard rejects),
+// with one kernel per pixel type for every geometry.  Each pixel takes its
+// row's y0, y1, fy and its column's x0, x1, fx from the host's
+// _interp_coords tables.  The blend is blend_tile_luts' association
+// (ops/clahe.py:145-148), each operation rounded once, then one half-even
+// round:
 //   top = (1-fx)*l00 + fx*l01;  bot = (1-fx)*l10 + fx*l11
 //   out = clamp(rint((1-fy)*top + fy*bot), 0, S-1)
-// One block covers 256 columns by kBlendRows rows of one plane.
+// Bound by device memory at 2 B/px.
+//
+// u8 (clahe_blend_u8_kernel).  Inside one interpolation cell (the region
+// between neighbouring tile centres, where yidx[:, y] and xidx[:, x] are
+// constant) the four neighbour LUTs are fixed.  A block covers one plane, a
+// band of rows and a chunk of columns; for the row cell it is in, it stages
+// one table of 256 words per column cell its chunk touches, word v packing
+// the four entries l00 | l01 << 8 | l10 << 16 | l11 << 24, so one LDS.32
+// returns a pixel's four taps (in place of four dependent global gathers;
+// the words are built from 4-byte loads of the four LUT rows and
+// __byte_perm).  The host (kernels/clahe.py::blend_chunk) picks the chunk
+// width so that no chunk touches more than kMaxCells column cells; when a
+// band's rows cross into the next row cell, the block stages the tables
+// anew.  A thread takes kBlendPx = 8 adjacent pixels of a row (one 8-byte
+// load and store where rows are 8-byte aligned, else masked bytes), reads
+// its columns' fx once, and loads kRowsAhead rows before it blends the
+// first.  Bytes become floats as 0x4B000000 | v minus 2^23 and results bytes
+// as the low bits of r + 2^23 (exact; no I2F or F2I).  What bounds it:
+// about 30 instructions per pixel (one table read, four entry conversions,
+// the nine-operation blend, the rounding) against 2 B/px of device memory;
+// 8 pixels a thread at up to 128 registers beat 16 pixels, 64 or 80
+// registers, 256-thread blocks, bands of 8 or 32 rows and 2 or 8 rows ahead
+// on the H100 (PERF.md).  The random table reads of a warp meet
+// about 3.5 bank conflicts on average; replicating the table is untried.
+// u16 (clahe_blend_kernel, S = 65536, 128 KiB per LUT): every pixel loads
+// its four entries straight from the [B*T, S] table (L1/L2).  One block
+// covers 256 columns by kBlendRows rows of one plane.
 // ---------------------------------------------------------------------------
 
 constexpr int kBlendRows = 8;
+
+constexpr int kBlendThreads = 128;
+constexpr int kBlendPx = 8;      // adjacent pixels of a row per thread: one uint2
+constexpr int kBlendWords = kBlendPx / 4;
+constexpr int kMaxChunk = kBlendThreads * kBlendPx;  // columns per block
+constexpr int kMaxCells = 16;    // quad tables per block: 16 KiB
+constexpr int kRowsAhead = 4;
+constexpr int kBlendMinBlocks = 4;  // resident blocks per SM: at most 128 registers
+constexpr uint32_t kMagic = 0x4B000000u;  // the bits of f32 2^23
+constexpr float kTwo23 = 8388608.0f;
+
+// the column cell of a column whose neighbour tiles are (i0, i1): 0 left
+// of the first tile centre, gw right of the last, else i1 (for gw = 1 every
+// column is cell 0: both cells read the one tile twice)
+__device__ __forceinline__ int column_cell(int i0, int i1, int gw) {
+  return i1 > i0 ? i1 : (i0 == 0 ? 0 : gw);
+}
+
+// the four entries of a quad word as exact floats
+__device__ __forceinline__ float quad_entry(uint32_t w, uint32_t sel) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, kMagic, sel)), kTwo23);
+}
+
+// stage the quad tables of cells cell0 .. cell0 + ncells - 1 for tile rows
+// (y0, y1) of one plane's LUTs: four entries of each of the four LUTs per
+// step, interleaved into four quad words
+__device__ __forceinline__ void stage_quads(uint4* quad, const uint8_t* __restrict__ lb, int gw,
+                                            int y0, int y1, int cell0, int ncells) {
+  for (int i = threadIdx.x; i < ncells * 64; i += kBlendThreads) {
+    const int c = cell0 + (i >> 6), v0 = (i & 63) * 4;
+    const int x0 = min(max(c - 1, 0), gw - 1), x1 = min(c, gw - 1);
+    const uint32_t a = __ldg(reinterpret_cast<const unsigned int*>(lb + (y0 * gw + x0) * 256 + v0));
+    const uint32_t b = __ldg(reinterpret_cast<const unsigned int*>(lb + (y0 * gw + x1) * 256 + v0));
+    const uint32_t c2 = __ldg(reinterpret_cast<const unsigned int*>(lb + (y1 * gw + x0) * 256 + v0));
+    const uint32_t d = __ldg(reinterpret_cast<const unsigned int*>(lb + (y1 * gw + x1) * 256 + v0));
+    const uint32_t ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
+    const uint32_t cd_lo = __byte_perm(c2, d, 0x5140), cd_hi = __byte_perm(c2, d, 0x7362);
+    quad[i] = make_uint4(__byte_perm(ab_lo, cd_lo, 0x5410), __byte_perm(ab_lo, cd_lo, 0x7632),
+                         __byte_perm(ab_hi, cd_hi, 0x5410), __byte_perm(ab_hi, cd_hi, 0x7632));
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBlendThreads, kBlendMinBlocks)
+clahe_blend_u8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ luts,
+                      uint8_t* __restrict__ out, int64_t B, int H, int W, int gh, int gw,
+                      const int32_t* __restrict__ yidx, const float* __restrict__ fyv,
+                      const int32_t* __restrict__ xidx, const float* __restrict__ fxv, int chunk,
+                      int band) {
+  __shared__ uint4 quad4[kMaxCells * 64];
+  const uint32_t* quad = reinterpret_cast<const uint32_t*>(quad4);
+  const int c0 = blockIdx.x * chunk;
+  const int cend = min(c0 + chunk, W);
+  const int xs = c0 + threadIdx.x * kBlendPx;  // the thread's first column
+  const int cell0 = column_cell(xidx[c0], xidx[W + c0], gw);
+  const int ncells = column_cell(xidx[cend - 1], xidx[W + cend - 1], gw) - cell0 + 1;
+
+  // the thread's columns: fx, and the local cell (4 bits each) packed
+  float fx[kBlendPx];
+  uint64_t cells = 0;
+#pragma unroll
+  for (int k = 0; k < kBlendPx; ++k) {
+    const int col = min(xs + k, cend - 1);
+    fx[k] = fxv[col];
+    cells |= uint64_t(column_cell(xidx[col], xidx[W + col], gw) - cell0) << (4 * k);
+  }
+  const bool active = xs < cend;
+  const int64_t ntiles = int64_t(gh) * gw;
+  const int64_t nbands = (H + band - 1) / band;
+
+  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {
+    const int64_t b = item / nbands;
+    const int ya = int(item - b * nbands) * band;
+    const int yb = min(ya + band, H);
+    const uint8_t* lb = luts + b * ntiles * 256;
+    const int64_t plane = b * int64_t(H) * W;
+    int cur0 = -1, cur1 = -1;  // the staged row cell's tile rows
+    for (int y = ya; y < yb; y += kRowsAhead) {
+      uint32_t d[kRowsAhead][kBlendWords];
+#pragma unroll
+      for (int r = 0; r < kRowsAhead; ++r) {
+#pragma unroll
+        for (int q = 0; q < kBlendWords; ++q) d[r][q] = 0;
+        if (!active || y + r >= yb) continue;
+        const uint8_t* src = x + plane + int64_t(y + r) * W + xs;
+        if (kVec) {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+          d[r][0] = v.x;
+          d[r][1] = v.y;
+        } else {
+#pragma unroll
+          for (int k = 0; k < kBlendPx; ++k)
+            if (xs + k < cend) d[r][k >> 2] |= uint32_t(src[k]) << (8 * (k & 3));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsAhead; ++r) {
+        const int yy = y + r;
+        if (yy >= yb) break;
+        const int y0 = yidx[yy], y1 = yidx[H + yy];
+        if (y0 != cur0 || y1 != cur1) {  // the same for the whole block
+          __syncthreads();               // the previous tables are read
+          stage_quads(quad4, lb, gw, y0, y1, cell0, ncells);
+          __syncthreads();
+          cur0 = y0;
+          cur1 = y1;
+        }
+        if (!active) continue;
+        const float fy = fyv[yy];
+        const float gy = __fsub_rn(1.0f, fy);
+        uint32_t o[kBlendWords];
+#pragma unroll
+        for (int q = 0; q < kBlendWords; ++q) o[q] = 0;
+#pragma unroll
+        for (int k = 0; k < kBlendPx; ++k) {
+          const uint32_t v = (d[r][k >> 2] >> (8 * (k & 3))) & 0xffu;
+          const uint32_t w = quad[(uint32_t((cells >> (4 * k)) & 15u) << 8) | v];
+          const float gx = __fsub_rn(1.0f, fx[k]);
+          const float top = __fadd_rn(__fmul_rn(gx, quad_entry(w, 0x7540)),
+                                      __fmul_rn(fx[k], quad_entry(w, 0x7541)));
+          const float bot = __fadd_rn(__fmul_rn(gx, quad_entry(w, 0x7542)),
+                                      __fmul_rn(fx[k], quad_entry(w, 0x7543)));
+          const float r2 = fminf(fmaxf(__fadd_rn(__fmul_rn(gy, top), __fmul_rn(fy, bot)), 0.0f),
+                                 255.0f);
+          o[k >> 2] |= (__float_as_uint(__fadd_rn(r2, kTwo23)) & 0xffu) << (8 * (k & 3));
+        }
+        uint8_t* dst = out + plane + int64_t(yy) * W + xs;
+        if (kVec) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(o[0], o[1]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kBlendPx; ++k)
+            if (xs + k < cend) dst[k] = uint8_t(o[k >> 2] >> (8 * (k & 3)));
+        }
+      }
+    }
+  }
+}
 
 template <typename P, int S>
 __global__ void __launch_bounds__(kThreads)
@@ -256,23 +418,39 @@ int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t 
 }
 
 // x, out: [B, H, W] contiguous, u8 (elem_bytes 1, S = 256) or u16
-// (elem_bytes 2, S = 65536); luts: [B*gh*gw, S] of the same type.
-// yidx: [2, H] int32 (y0 then y1), fy: [H] f32; xidx: [2, W], fx: [W].
+// (elem_bytes 2, S = 65536); luts: [B*gh*gw, S] of the same type (u8: 4-byte
+// aligned).  yidx: [2, H] int32 (y0 then y1), fy: [H] f32; xidx: [2, W], fx:
+// [W].  u8 only: chunk (a multiple of 16, at most 2048) columns and band rows
+// per block, from kernels/clahe.py::blend_chunk and blend_band (every chunk
+// within kMaxCells column cells).
 int ie_clahe_blend(const void* x, const void* luts, void* out, int64_t B, int64_t H, int64_t W,
                    int32_t elem_bytes, int32_t gh, int32_t gw, const int32_t* yidx,
-                   const float* fy, const int32_t* xidx, const float* fx,
-                   cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || W > 0x7fffffffLL - kThreads ||
+                   const float* fy, const int32_t* xidx, const float* fx, int32_t chunk,
+                   int32_t band, cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || W > 0x7fffffffLL - kMaxChunk ||
       H > 0x7fffffffLL - kBlendRows)
     return int(cudaErrorInvalidValue);
-  const int64_t items = B * ((H + kBlendRows - 1) / kBlendRows);
-  const dim3 grid(unsigned((W + kThreads - 1) / kThreads),
-                  unsigned(items < kMaxGridY ? items : kMaxGridY));
   if (elem_bytes == 1) {
-    clahe_blend_kernel<uint8_t, 256><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
-        static_cast<uint8_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx);
+    if (chunk < kBlendPx || chunk > kMaxChunk || chunk % kBlendPx || band < 1 ||
+        int64_t(gh) * gw * 256 > 0x7fffffffLL || (reinterpret_cast<uintptr_t>(luts) & 3))
+      return int(cudaErrorInvalidValue);
+    const int64_t items = B * ((H + band - 1) / band);
+    const dim3 grid(unsigned((W + chunk - 1) / chunk),
+                    unsigned(items < kMaxGridY ? items : kMaxGridY));
+    const bool vec = W % kBlendPx == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                            reinterpret_cast<uintptr_t>(out)) % kBlendPx) == 0;
+    if (vec)
+      clahe_blend_u8_kernel<true><<<grid, kBlendThreads, 0, stream>>>(
+          static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
+          static_cast<uint8_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx, chunk, band);
+    else
+      clahe_blend_u8_kernel<false><<<grid, kBlendThreads, 0, stream>>>(
+          static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
+          static_cast<uint8_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx, chunk, band);
   } else if (elem_bytes == 2) {
+    const int64_t items = B * ((H + kBlendRows - 1) / kBlendRows);
+    const dim3 grid(unsigned((W + kThreads - 1) / kThreads),
+                    unsigned(items < kMaxGridY ? items : kMaxGridY));
     clahe_blend_kernel<uint16_t, 65536><<<grid, kThreads, 0, stream>>>(
         static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
         static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx);

@@ -1,8 +1,10 @@
-"""Per-pixel gather for the warp family on u8 planes: :func:`warp_gather_u8`.
+"""Per-pixel gather for the warp family on u8 planes: :func:`warp_gather_u8`
+at f32 coordinate maps, and :func:`warp_matrix_u8` at the coordinates of an
+affine or perspective matrix, computed inside the kernel.
 
-It replaces the JAX package's ``kernels/warp.py::_run``
-(``gather_bilinear_pallas``, ``gather_nearest_pallas``) with the CUDA kernel
-``csrc/warp.cu`` for every shape, scale and map.  The TPU kernel windows the
+Both replace the JAX package's ``kernels/warp.py::_run``
+(``gather_bilinear_pallas``, ``gather_nearest_pallas``) with one CUDA kernel
+family, ``csrc/warp.cu``, for every shape, scale and map.  The TPU kernel windows the
 source per output block and rejects footprints over its budget
 (``WindowTooLarge``, then XLA takes over); it also leaves the constant border
 to an overlay and an XLA fix-up of the partial band.  Here each tap is a load
@@ -21,6 +23,9 @@ so the two agree (tests/test_torch_warp.py shows it).
 
 :func:`gather` and :func:`bilinear_fma` are the plain building blocks, shared
 with the plain branches of ``ops/warp.py`` for the other dtypes.
+:func:`affine_field` and :func:`perspective_field` build cv2 5.0's f32
+coordinate fields with torch ops; they are ``warp_matrix_u8``'s plain
+coordinate source, and the field of every other dtype in ``ops/warp.py``.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel, any other device raises.
@@ -30,18 +35,22 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 
-__all__ = ["COORD_LIMIT", "gather", "bilinear_fma", "warp_gather_u8", "warp_gather_u8_plain"]
+__all__ = ["COORD_LIMIT", "gather", "bilinear_fma", "affine_field", "perspective_field",
+           "warp_gather_u8", "warp_gather_u8_plain", "warp_matrix_u8", "warp_matrix_u8_plain"]
 
 # coordinates are clipped to ±COORD_LIMIT before floor and the int casts
 # (exact in f32; a pixel that far out samples only the border)
 COORD_LIMIT = 2e9
 BORDERS = ("constant", "replicate")
+# the C entry point's coordinate sources (csrc/warp.cu)
+_MAPS, _AFFINE, _PERSPECTIVE = 0, 1, 2
 
 
 def gather(planes: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor, border: str,
@@ -73,12 +82,69 @@ def bilinear_fma(sample: Callable[[int, int], torch.Tensor], tx: torch.Tensor,
     return fma32(ty, bot - top, top)
 
 
-def _check(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, border: str,
-           border_value: int) -> None:
+# -- coordinate fields ----------------------------------------------------------
+
+def _hybrid_form(a, b, c, oh: int, ow: int, device) -> torch.Tensor:
+    """One linear form ``a·x + b·y + c`` (f32 coefficients) of cv2 5.0's
+    hybrid coordinate field → f32 ``(oh, ow)`` on ``device``
+    (``ref/ops.py::warp_affine_coords_f32``'s law for one row of M).  The
+    kernel's matrix routes compute the same law per pixel."""
+    a, b, c = (float(np.float32(v)) for v in (a, b, c))
+    nb = ow - ow % 16
+    # the per-row f32 table f32(b·y), made on the device (a host table would
+    # cost a synchronising copy per call)
+    by = torch.arange(oh, dtype=torch.float32, device=device) * b
+    # f64 product of two f32 values is exact; the f64 add and the f32 cast
+    # round as ref/ops.py::_fma32 does
+    ax = torch.arange(ow, dtype=torch.float64, device=device) * a
+    body = (ax[None, :nb] + (by + c).double()[:, None]).float()
+    if nb == ow:
+        return body
+    tail = (ax[None, nb:] + by.double()[:, None]).float() + c
+    return torch.cat([body, tail], dim=1)
+
+
+def affine_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """cv2 5.0's f32 destination→source field of the inverse affine ``Mi``
+    on ``device``, clipped to ±2e9: ``(sx, sy)``, each f32 ``(oh, ow)``,
+    equal to ``ref/ops.py::warp_affine_coords_f32`` bit for bit."""
+    Mf = np.asarray(Mi, np.float64).reshape(2, 3).astype(np.float32)
+    out = []
+    for a, b, c in Mf:
+        s = _hybrid_form(a, b, c, oh, ow, device)
+        # |a·x + b·y + c| is largest at a corner: below this bound (a few f32
+        # roundings included) no coordinate reaches the clip
+        if abs(a) * (ow - 1) + abs(b) * (oh - 1) + abs(c) > 0.9 * COORD_LIMIT:
+            s = s.clamp_(-COORD_LIMIT, COORD_LIMIT)
+        out.append(s)
+    return out[0], out[1]
+
+
+def perspective_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 field of the inverse homography ``Mi`` on ``device``, clipped
+    to ±2e9 (``ref/ops.py::warp_perspective_coords_f32``): three hybrid
+    forms, then one f32 division per axis; a zero denominator gives 0."""
+    Mf = np.asarray(Mi, np.float64).reshape(3, 3).astype(np.float32)
+    nx, ny, den = (_hybrid_form(*Mf[r], oh, ow, device) for r in (0, 1, 2))
+    nz = den != 0
+    return tuple(torch.where(nz, n / den, 0.0).clamp_(-COORD_LIMIT, COORD_LIMIT)
+                 for n in (nx, ny))
+
+
+def _check_planes(planes: torch.Tensor, border: str, border_value: int) -> None:
     if planes.dtype != torch.uint8:
         raise TypeError(f"warp_gather_u8 expects uint8 planes, got {planes.dtype}")
     if planes.dim() != 3:
         raise ValueError(f"warp_gather_u8 expects [B, H, W] planes, got {tuple(planes.shape)}")
+    if border not in BORDERS:
+        raise ValueError(f"unknown border {border!r} (constant|replicate)")
+    if not 0 <= border_value <= 255:
+        raise ValueError(f"warp_gather_u8: border value {border_value} is not saturated to 0..255")
+
+
+def _check(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, border: str,
+           border_value: int) -> None:
+    _check_planes(planes, border, border_value)
     if sx.dtype != torch.float32 or sy.dtype != torch.float32 or sx.dim() != 2 \
             or sx.shape != sy.shape:
         raise ValueError(f"warp_gather_u8: expected two f32 (oh, ow) maps, got {sx.dtype} "
@@ -86,10 +152,6 @@ def _check(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, border: str
     if sx.device != planes.device or sy.device != planes.device:
         raise ValueError(f"warp_gather_u8: planes on {planes.device}, maps on {sx.device}, "
                          f"{sy.device}")
-    if border not in BORDERS:
-        raise ValueError(f"unknown border {border!r} (constant|replicate)")
-    if not 0 <= border_value <= 255:
-        raise ValueError(f"warp_gather_u8: border value {border_value} is not saturated to 0..255")
 
 
 def warp_gather_u8_plain(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
@@ -132,5 +194,41 @@ def warp_gather_u8(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         return out
     launch("warp_gather_u8", planes.device, planes.data_ptr(), sx.data_ptr(), sy.data_ptr(),
            out.data_ptr(), B, H, W, oh, ow, int(nearest), int(border == "replicate"),
-           border_value)
+           border_value, _MAPS, *([0.0] * 9))
+    return out
+
+
+def warp_matrix_u8_plain(planes: torch.Tensor, Mi, oh: int, ow: int, perspective: bool = False,
+                         nearest: bool = False, border: str = "constant",
+                         border_value: int = 0) -> torch.Tensor:
+    field = perspective_field if perspective else affine_field
+    return warp_gather_u8_plain(planes, *field(Mi, oh, ow, planes.device), nearest, border,
+                                border_value)
+
+
+def warp_matrix_u8(planes: torch.Tensor, Mi, oh: int, ow: int, perspective: bool = False,
+                   nearest: bool = False, border: str = "constant",
+                   border_value: int = 0) -> torch.Tensor:
+    """Sample u8 ``planes [B, H, W]`` at the coordinates of the inverse
+    matrix ``Mi`` (2×3 affine, or 3×3 with ``perspective``) → u8
+    ``[B, oh, ow]``: :func:`warp_gather_u8` at ``affine_field(Mi, oh, ow)``
+    (or ``perspective_field``), with the field computed per pixel inside the
+    kernel instead of read from device memory."""
+    nearest, border_value, oh, ow = bool(nearest), int(border_value), int(oh), int(ow)
+    _check_planes(planes, border, border_value)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"warp_matrix_u8: invalid output size {(oh, ow)}")
+    # the inverse matrix as the kernel takes it: f32, 2×3 or 3×3
+    Mf = np.asarray(Mi, np.float64).reshape((3, 3) if perspective else (2, 3)).astype(np.float32)
+    if not on_cuda(planes, "warp_gather_u8"):
+        return warp_matrix_u8_plain(planes, Mf, oh, ow, perspective, nearest, border, border_value)
+    check_kernel_input("warp_gather_u8", planes)
+    B, H, W = planes.shape
+    out = torch.empty((B, oh, ow), dtype=torch.uint8, device=planes.device)
+    if out.numel() == 0:
+        return out
+    coeffs = [float(v) for v in Mf.reshape(-1)] + [0.0] * (9 - Mf.size)
+    launch("warp_gather_u8", planes.device, planes.data_ptr(), None, None, out.data_ptr(), B, H,
+           W, oh, ow, int(nearest), int(border == "replicate"), border_value,
+           _PERSPECTIVE if perspective else _AFFINE, *coeffs)
     return out

@@ -3,9 +3,12 @@
 counterpart of the JAX package's ``ops/warp.py`` with its signatures, and
 bit-exact to it and to ``ref/`` for every dtype (u8/u16/i16/f32).
 
-* u8 with ``linear`` or ``nearest``, under either border, goes through
-  ``kernels/warp.py::warp_gather_u8`` (a CUDA kernel on the card, its plain
-  version on the CPU) at an f32 coordinate field on the planes' device.
+* u8 with ``linear`` or ``nearest``, under either border, goes through the
+  CUDA kernel of ``kernels/warp.py`` on the card (its plain version on the
+  CPU): ``warp_affine`` and ``warp_perspective`` as ``warp_matrix_u8``, which
+  computes each pixel's coordinates from the matrix inside the kernel and
+  builds no field; ``remap`` and ``warp_polar`` as ``warp_gather_u8`` at
+  their f32 maps.
 * Every other branch is plain PyTorch on the planes' device, the twin of the
   JAX package's XLA code: u16/f32 linear and nearest (the same gather and
   FMA lerp), the i16 legacy fixed point (float tab weights, sequential f32
@@ -13,8 +16,10 @@ bit-exact to it and to ``ref/`` for every dtype (u8/u16/i16/f32).
   static warps, the classic weights for ``remap``), lanczos4 (cv2's
   quantized 1/32-cell tabs) and undistort (cv2's quantized maps).
 
-Coordinate fields.  The affine and perspective fields are built on the
-planes' device from per-row f32 tables: each linear form ``a·x + b·y + c``
+Coordinate fields.  The affine and perspective fields
+(``kernels/warp.py::affine_field``, ``perspective_field``; the other dtypes'
+route, and the u8 route's plain version) are built on the planes' device
+from per-row f32 tables: each linear form ``a·x + b·y + c``
 follows cv2 5.0's hybrid law (SIMD body ``fma(a, x, f32(b·y + c))``, scalar
 tail ``f32(fma(a, x, f32(b·y)) + c)`` on the last ``ow % 16`` columns), the
 FMA written as an exact f64 product and one f64 add cast once to f32, which
@@ -34,8 +39,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels.warp import (BORDERS, COORD_LIMIT, bilinear_fma,
-                                                        gather, warp_gather_u8)
+from imageenhancement_mp_tpu_torch.kernels.warp import (BORDERS, COORD_LIMIT, affine_field,
+                                                        bilinear_fma, gather, perspective_field,
+                                                        warp_gather_u8, warp_matrix_u8)
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
 from imageenhancement_mp_tpu_torch.utils.warp_coords import (
@@ -57,52 +63,6 @@ Sample = Callable[[int, int], torch.Tensor]
 
 
 # -- coordinate fields ----------------------------------------------------------
-
-def _hybrid_form(a, b, c, oh: int, ow: int, device) -> torch.Tensor:
-    """One linear form ``a·x + b·y + c`` (f32 coefficients) of cv2 5.0's
-    hybrid coordinate field → f32 ``(oh, ow)`` on ``device``
-    (``ref/ops.py::warp_affine_coords_f32``'s law for one row of M)."""
-    a, b, c = (float(np.float32(v)) for v in (a, b, c))
-    nb = ow - ow % 16
-    # the per-row f32 table f32(b·y), made on the device (a host table would
-    # cost a synchronising copy per call)
-    by = torch.arange(oh, dtype=torch.float32, device=device) * b
-    # f64 product of two f32 values is exact; the f64 add and the f32 cast
-    # round as ref/ops.py::_fma32 does
-    ax = torch.arange(ow, dtype=torch.float64, device=device) * a
-    body = (ax[None, :nb] + (by + c).double()[:, None]).float()
-    if nb == ow:
-        return body
-    tail = (ax[None, nb:] + by.double()[:, None]).float() + c
-    return torch.cat([body, tail], dim=1)
-
-
-def affine_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """cv2 5.0's f32 destination→source field of the inverse affine ``Mi``
-    on ``device``, clipped to ±2e9: ``(sx, sy)``, each f32 ``(oh, ow)``,
-    equal to ``ref/ops.py::warp_affine_coords_f32`` bit for bit."""
-    Mf = np.asarray(Mi, np.float64).reshape(2, 3).astype(np.float32)
-    out = []
-    for a, b, c in Mf:
-        s = _hybrid_form(a, b, c, oh, ow, device)
-        # |a·x + b·y + c| is largest at a corner: below this bound (a few f32
-        # roundings included) no coordinate reaches the clip
-        if abs(a) * (ow - 1) + abs(b) * (oh - 1) + abs(c) > 0.9 * COORD_LIMIT:
-            s = s.clamp_(-COORD_LIMIT, COORD_LIMIT)
-        out.append(s)
-    return out[0], out[1]
-
-
-def perspective_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The f32 field of the inverse homography ``Mi`` on ``device``, clipped
-    to ±2e9 (``ref/ops.py::warp_perspective_coords_f32``): three hybrid
-    forms, then one f32 division per axis; a zero denominator gives 0."""
-    Mf = np.asarray(Mi, np.float64).reshape(3, 3).astype(np.float32)
-    nx, ny, den = (_hybrid_form(*Mf[r], oh, ow, device) for r in (0, 1, 2))
-    nz = den != 0
-    return tuple(torch.where(nz, n / den, 0.0).clamp_(-COORD_LIMIT, COORD_LIMIT)
-                 for n in (nx, ny))
-
 
 @functools.lru_cache(maxsize=_POLAR_CACHE)
 def _polar_maps_cached(H: int, W: int, dsize: tuple, center: tuple, max_radius: float,
@@ -337,6 +297,9 @@ def warp_affine_planes(planes: torch.Tensor, M, dsize, interpolation: str = "lin
             iy, ix = _host_ints(planes, *warp_affine_nn_coords_int(Mi, oh, ow))
             return gather(planes, iy, ix, border, bv)
         return _tab_bilinear_static(planes, *warp_affine_coords_int(Mi, oh, ow), border, bv)
+    if planes.dtype == torch.uint8:
+        return warp_matrix_u8(planes.contiguous(), Mi, oh, ow, False,
+                              interpolation == "nearest", border, int(bv))
     sx, sy = affine_field(Mi, oh, ow, dev)
     return _sample_field(planes, sx, sy, interpolation == "nearest", border, bv)
 
@@ -363,6 +326,9 @@ def warp_perspective_planes(planes: torch.Tensor, M, dsize, interpolation: str =
             iy, ix = _host_ints(planes, *warp_perspective_nn_coords_int(Mi, oh, ow))
             return gather(planes, iy, ix, border, bv)
         return _tab_bilinear_static(planes, *warp_perspective_coords_int(Mi, oh, ow), border, bv)
+    if planes.dtype == torch.uint8:
+        return warp_matrix_u8(planes.contiguous(), Mi, oh, ow, True,
+                              interpolation == "nearest", border, int(bv))
     sx, sy = perspective_field(Mi, oh, ow, dev)
     return _sample_field(planes, sx, sy, interpolation == "nearest", border, bv)
 

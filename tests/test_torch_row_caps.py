@@ -60,6 +60,11 @@ def _warp_gather(x):
     return kwarp.warp_gather_u8(x, sx.contiguous(), sy.contiguous())
 
 
+def _warp_matrix(x):
+    B, H, W = x.shape
+    return kwarp.warp_matrix_u8(x, [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], H, W)
+
+
 def _median_unsharp(x):
     return kfused.median_unsharp(x, 5, 1.0, 5)
 
@@ -71,9 +76,10 @@ def _median_unsharp(x):
     (kbilateral, "bilateral", _bilateral),
     (kathresh, "athresh", _athresh),
     (kwarp, "warp_gather_u8", _warp_gather),
+    (kwarp, "warp_gather_u8", _warp_matrix),
     (kfused, "median_unsharp", _median_unsharp),
 ], ids=["median", "clahe_blend", "sep_conv_u8", "bilateral", "athresh", "warp_gather_u8",
-        "median_unsharp"])
+        "warp_gather_u8_matrix", "median_unsharp"])
 def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
     launches = []
     monkeypatch.setattr(module, "on_cuda", lambda t, what: True)
