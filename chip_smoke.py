@@ -21,7 +21,11 @@
    where the TPU quadrant blend is wrong (164x164, grid 2x2), clip limits 0,
    2 and 40, u16 tables, a [70000, 8, 8] batch (more planes than a grid axis
    of 65535 holds) and a 1100x1080x1920 batch (flat offsets past 2^31), and
-   times both at the main paths' shapes.
+   times both at the main paths' shapes.  K1's two counting kernels
+   (hist256, hist256_tiles) are also held on random, smooth (a 9x16 grid of
+   u8 values upsampled bilinearly, plus +-2 noise) and constant (all 255)
+   planes, each at odd widths and misaligned by one byte, and on
+   [1, 2_200_000, 8], and timed on each kind of plane.
 4. Drives the first main path through the public functions — equalize_unsharp
    at 8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
    numpy seed 0 — each call with the launch counters set to 0 just before
@@ -97,7 +101,8 @@
    cached calls, and torch's grid_sample (bilinear, f32) as a yardstick
    that is not the same function.
 8. Computes each kernel's bound at its timed shape and times the PyTorch
-   calls that compute the same function (bincount, gather).
+   calls that compute the same function (bincount over plane or tile
+   offsets, gather).
 9. Colour conversion and non-local means: holds take_table against its
    plain version at 0 LSB (the K15 probe's [8, 128] inputs against their
    expected output; shared [L] and per-plane [B, L] tables, int32 and
@@ -262,6 +267,30 @@ def network_planes(dtype, shape: tuple, kind: str, rng) -> np.ndarray:
         ramp = (np.arange(H)[:, None] * 257 + np.arange(W)[None, :] * 13) % (info.max - info.min + 1)
         return np.broadcast_to(ramp + info.min, shape).astype(dtype)
     return np.where(rng.integers(0, 2, shape) == 1, info.max, info.min).astype(dtype)
+
+
+# K1's planes: random; smooth (a 9x16 grid of u8 values upsampled
+# bilinearly, plus +-2 noise: most lanes of a warp count one bin or two); and
+# constant 255, a blank page (every lane on one bin)
+K1_PLANES = ("random", "smooth", "constant")
+
+
+def k1_planes(shape: tuple, kind: str, rng) -> np.ndarray:
+    B, H, W = shape
+    if kind == "random":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if kind == "constant":
+        return np.full(shape, 255, np.uint8)
+    ys, xs = np.linspace(0, 8, H), np.linspace(0, 15, W)
+    y0, x0 = np.minimum(ys.astype(np.int64), 7), np.minimum(xs.astype(np.int64), 14)
+    fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+    out = np.empty(shape, np.uint8)
+    for b in range(B):
+        g = rng.integers(0, 256, (9, 16)).astype(np.float64)
+        v = ((g[y0][:, x0] * (1 - fx) + g[y0][:, x0 + 1] * fx) * (1 - fy)
+             + (g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx) * fy)
+        out[b] = np.clip(np.rint(v) + rng.integers(-2, 3, (H, W)), 0, 255)
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -959,6 +988,26 @@ def main() -> None:
     lm = rand_u8((2, 256))
     check("apply_lut256", khist.apply_lut256(xm, lm), khist.apply_lut256_plain(xm, lm),
           "misaligned input")
+    # K1's counting on random, smooth and constant planes: odd widths, tiles
+    # off 16-byte boundaries, pads, 1-byte misaligned views
+    n_k1 = 0
+    k1_geoms = [((8, 1080, 1920), (8, 8)), ((2, 2160, 3840), (8, 8)), ((2, 1079, 1917), (8, 8)),
+                ((1, 37, 131), (8, 8)), ((1, 20, 27), (4, 3)), ((1, 5, 1), (3, 8)),
+                ((1, 300, 301), (3, 7)), ((3, 5, 9), (2, 2)), ((1, 6, 1100), (2, 1)),
+                ((2, 37, 128), (8, 8))]
+    for kind in K1_PLANES:
+        for shape, grid in k1_geoms:
+            x = on_card(k1_planes(shape, kind, rng))
+            geo = tclahe.tile_geometry(shape[1], shape[2], grid)
+            for xx in (x, misaligned(x)):
+                what = f"{kind} {shape} grid {grid} offset {xx.storage_offset()}"
+                check("hist256", khist.hist256(xx), khist.hist256_plain(xx), what)
+                check("hist256_tiles", kclahe.hist256_tiles(xx, *geo),
+                      kclahe.tile_hists_plain(xx, *geo), what)
+                n_k1 += 1
+    del x, xx
+    print(f"hist256 and hist256_tiles vs plain on the card: 0 LSB over {n_k1} cases "
+          f"({', '.join(K1_PLANES)} planes; odd widths; offset 0 and 1)")
 
     # sep_conv_u8: every instance and route (k 3/5/7 compile-time, packed at
     # sigma 0 and int32 at sigma 1.1/1.5/2.3; the runtime instance at k 1, 9,
@@ -1193,6 +1242,7 @@ def main() -> None:
     # clahe_blend)
     tall = rand_u8((1, 2_200_000, 8))
     what = "1x2200000x8"
+    check("hist256", khist.hist256(tall), khist.hist256_plain(tall), what)
     check("sep_conv_u8", kconv.sep_conv_u8(tall, tv5, th5, 1.0),
           kconv.sep_conv_u8_plain(tall, tv5, th5, 1.0), what)
     check("median", kmedian.median_blur(tall, 5), kmedian.median_blur_plain(tall, 5), what)
@@ -1206,11 +1256,11 @@ def main() -> None:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
-          f"{len(planes_cases)} plane cases, {n_conv} conv cases, "
+          f"{len(planes_cases)} plane cases, {n_k1} K1 plane-kind cases, {n_conv} conv cases, "
           f"{n_med} median cases, {n_clahe} CLAHE cases (each stage and the whole op), "
           f"{n_bil} bilateral and {n_ath} athresh cases ({n_forced} more with every athresh "
           f"pixel recomputed in f64), the 70000x8x8 batch through every "
-          "kernel, the 1x2200000x8 plane through sep_conv_u8, median, CLAHE, bilateral and "
+          "kernel, the 1x2200000x8 plane through hist256, sep_conv_u8, median, CLAHE, bilateral and "
           "athresh, and the 1100x1080x1920 batch")
 
     # per-kernel time at the main paths' shapes, kernel vs plain: the first
@@ -1264,6 +1314,30 @@ def main() -> None:
         ms[name] = (k_ms, p_ms)
         print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
               f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
+    # K1's counting on each kind of plane at the timed shapes (random: above)
+    for kind in K1_PLANES[1:]:
+        xk = on_card(k1_planes(tuple(x8.shape), kind, rng))
+        gk = on_card(k1_planes(tuple(g5.shape), kind, rng))
+        for name, fn, want, label in (
+                ("hist256", lambda: khist.hist256(xk), khist.hist256_plain(xk), tuple(x8.shape)),
+                ("hist256_tiles", lambda: kclahe.hist256_tiles(gk, *geo5),
+                 kclahe.tile_hists_plain(gk, *geo5), tuple(g5.shape) + ("grid 8x8",))):
+            check(name, fn(), want, f"{kind} {label}")
+            k_ms, k_iqr = time_ms(fn)
+            print(f"  {name} at {label}, {kind} plane: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}); "
+                  f"random {ms[name][0]:.4f} ms  [{smi}]")
+    del xk, gk
+    # one torch.bincount over tile offsets made beforehand computes stage A
+    T5 = h5.shape[0]
+    rows5 = torch.arange(2160, device=dev) // geo5[2]
+    cols5 = torch.arange(3840, device=dev) // geo5[3]
+    tile5 = (torch.arange(2, device=dev)[:, None, None] * 64 + rows5[None, :, None] * 8
+             + cols5[None, None, :])
+    idx_t = (tile5 * 256 + g5.long()).view(-1)
+    if not torch.equal(torch.bincount(idx_t, minlength=T5 * 256).view(T5, 256).int(), h5):
+        raise AssertionError("torch.bincount over tile offsets differs from hist256_tiles")
+    tiles_library_ms = time_ms(lambda: torch.bincount(idx_t, minlength=T5 * 256))[0]
+    del tile5, idx_t
     # clahe_blend's u16 kernel at the same geometry, and the u8 kernel's plan
     g16 = rand((2, 2160, 3840), np.uint16)
     l16 = kclahe.clahe_lut(kclahe.tile_hists_plain(g16, *geo5), area5, 2.0)
@@ -1838,8 +1912,9 @@ def main() -> None:
     if not torch.equal(torch.gather(l8, 1, idx_l).view_as(x8), khist.apply_lut256(x8, l8)):
         raise AssertionError("torch.gather with the LUTs differs from apply_lut256")
     library["apply_lut256"] = time_ms(lambda: torch.gather(l8, 1, idx_l))[0]
+    library["hist256_tiles"] = tiles_library_ms
     del idx_h, idx_l
-    for name in ("hist256", "apply_lut256"):
+    for name in ("hist256", "hist256_tiles", "apply_lut256"):
         print(f"  library call for {name}: {library[name]:.4f} ms (one torch call on int64 "
               f"indices made beforehand)  [{smi}]")
 

@@ -33,10 +33,11 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, host_derived, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.conv import reflect101
+from imageenhancement_mp_tpu_torch.kernels.hist import HIST_GRID_BLOCKS, MAX_GRID_Y
 
 __all__ = [
     "HIST_SIZE",
-    "hist256_tiles", "tile_hists_plain",
+    "hist256_tiles", "tile_hists_plain", "tile_band_plan",
     "clahe_lut", "clahe_lut_plain", "clip_and_scale",
     "clahe_blend", "clahe_blend_plain", "column_cells", "blend_chunk", "blend_band",
 ]
@@ -86,6 +87,24 @@ def tile_hists_plain(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -
     return counts.reshape(B * gh * gw, S).to(torch.int32)
 
 
+# pixels a band of hist256_tiles holds at most, unless tiles are few: 256
+# threads x 15 vectors of 16 pixels
+TILE_BLOCK_PX = 256 * 15 * 16
+
+
+def tile_band_plan(B: int, gh: int, gw: int, th: int, tw: int) -> tuple[int, int, int]:
+    """``(band_rows, bands, grid_y)`` of ``hist256_tiles``: each of the
+    ``B·gh·gw`` tiles (on ``gridDim.x``) cut into ``bands`` bands of
+    ``band_rows`` rows, of at most about ``TILE_BLOCK_PX`` pixels each and,
+    when tiles are few, enough for one wave of resident blocks; bands stride
+    over ``grid_y``."""
+    tiles = B * gh * gw
+    bands = min(th, max(-(-(th * tw) // TILE_BLOCK_PX), HIST_GRID_BLOCKS // tiles))
+    band_rows = -(-th // bands)
+    bands = -(-th // band_rows)
+    return band_rows, bands, min(bands, MAX_GRID_Y)
+
+
 def hist256_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
     """Stage A for u8: ``[B, H, W]`` → ``[B·gh·gw, 256]`` int32, tile
     ``(ty, tx)`` covering padded rows ``ty·th ..`` and columns ``tx·tw ..``."""
@@ -103,7 +122,7 @@ def hist256_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> t
     out = torch.zeros((B * gh * gw, 256), dtype=torch.int32, device=planes.device)
     if out.numel() and H and W:
         launch("hist256_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
-               gh, gw, th, tw)
+               gh, gw, th, tw, *tile_band_plan(B, gh, gw, th, tw))
     return out
 
 

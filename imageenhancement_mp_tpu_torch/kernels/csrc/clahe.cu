@@ -15,12 +15,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_count.cuh"
 #include "reflect.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it stride over gridDim.y
 
 // ---------------------------------------------------------------------------
@@ -28,19 +28,54 @@ constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it strid
 // hist.py::hist256_pallas at its CLAHE call site (ops/clahe.py:207-212),
 // where the TPU first copies the image into a [B*gh*gw, th*tw] tile stack.
 // Here each block reads its tile in place.  Bound by device memory at 1 B/px
-// (plus the pad rows and columns); the per-pixel shared-memory atomics are
-// the same scheme as hist.cu's hist256: each warp counts into its own 256
-// bins, and the block merges them with one global atomic per nonzero bin.
-// Tiles lie on gridDim.x (up to 2^31 - 1 of them); gridDim.y splits a large
-// tile into bands of rows.
+// (plus the pad rows and columns).  Tiles lie on gridDim.x (up to 2^31 - 1
+// of them); a tile's rows are cut into bands of band_rows rows (kernels/
+// clahe.py::tile_band_plan), which stride over gridDim.y.
+//
+// A warp takes rows q = warp, warp + 8, ... of the band.  Each row's source
+// row is resolved once (reflect101 on the row index), and its interior
+// columns [tx*tw, min((tx+1)*tw, W)) split into an unaligned head, a body of
+// 16-byte vectors and a tail, as rows start at b*H*W + sy*W + tx*tw.  The
+// lanes walk the body vectors of the warp's rows as one stream (lane l
+// starts at vector l of the first row and steps 32 vectors, carrying over
+// into the next row), so no pixel index is divided and short rows keep
+// every lane busy; the vectors go to hist_count.cuh, kTileLoads loads at
+// a time.  Then a loop per row counts the head and tail bytes and the pad
+// columns >= W (right tiles only; reflect101 per pixel there) through shared
+// atomics; a tile whose rows are all whole aligned vectors skips it.  The block adds its bins into the zeroed output with one
+// atomicAdd per nonzero bin.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+// Padded row R of a tile: its first interior byte s (column c0 of source
+// row reflect101(R, H)), the head bytes before s's first 16-byte boundary,
+// and the nv whole vectors after them; the len - head - 16 nv bytes left
+// are its tail.
+struct RowBody {
+  const uint8_t* s;
+  int head, nv;
+  __device__ __forceinline__ const uint4* vec() const {
+    return reinterpret_cast<const uint4*>(s + head);
+  }
+};
+
+__device__ __forceinline__ RowBody row_body(const uint8_t* plane, int R, int H, int W, int c0,
+                                            int len) {
+  const uint8_t* s = plane + int64_t(reflect101(R, H)) * W + c0;
+  const int head = min(int((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15), len);
+  return {s, head, (len - head) >> 4};
+}
+
+// Vectors a lane loads at a time (the A/B timed 1 within 2 % of 3).
+constexpr int kTileLoads = 3;
+
+__global__ void __launch_bounds__(kCountThreads, 3)
 hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
-                     int gh, int gw, int th, int tw, int band_rows) {
-  __shared__ int32_t bins[kWarps][256];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kWarps * 256; i += kThreads) (&bins[0][0])[i] = 0;
+                     int gh, int gw, int th, int tw, int band_rows, int bands) {
+  constexpr int kRowWarps = kCountThreads / 32;
+  extern __shared__ __align__(16) uint32_t count_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  HistCounter c;
+  c.begin(count_smem);
   __syncthreads();
 
   const int64_t tile = blockIdx.x;  // b * gh * gw + ty * gw + tx
@@ -48,22 +83,60 @@ hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, i
   const int64_t b = tile / ntiles;
   const int t = int(tile - b * ntiles);
   const int ty = t / gw, tx = t - (t / gw) * gw;
-  const uint8_t* p = x + b * int64_t(H) * W;
-  const int r0 = blockIdx.y * band_rows;
-  const int rows = min(band_rows, th - r0);
-  int32_t* mine = bins[tid >> 5];
+  const uint8_t* plane = x + b * int64_t(H) * W;
+  const int c0 = tx * tw;
+  const int len = max(min(c0 + tw, W) - c0, 0);  // interior columns
+  const int cp = max(c0, W);                      // first pad column
+  const int npad = c0 + tw - cp;
+  // rows with head, tail or pad bytes: unless every row starts on a 16-byte
+  // boundary and its interior is whole vectors, with no pad
+  const bool ragged = (reinterpret_cast<uintptr_t>(plane + c0) & 15) != 0 ||
+                      ((W | len) & 15) != 0 || npad > 0;
 
-  for (int i = tid; i < rows * tw; i += kThreads) {
-    const int r = i / tw, c = i - r * tw;
-    const int sy = reflect101(ty * th + r0 + r, H);
-    const int sx = reflect101(tx * tw + c, W);
-    atomicAdd(&mine[p[int64_t(sy) * W + sx]], 1);
+  for (int band = blockIdx.y; band < bands; band += gridDim.y) {
+    const int R0 = ty * th + band * band_rows;  // the band's first padded row
+    const int nrows = min(band_rows, th - band * band_rows);
+
+    // this lane's place in the stream: row q, vector j of its body
+    int q = warp, j = lane;
+    RowBody row = {nullptr, 0, 0};
+    if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+    while (q < nrows && j >= row.nv) {
+      j -= row.nv;
+      q += kRowWarps;
+      if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+    }
+    count_vectors<kTileLoads>(c, [&](VecGroup<kTileLoads>& grp) {
+#pragma unroll
+      for (int u = 0; u < kTileLoads; ++u) {
+        grp.ok[u] = q < nrows;
+        grp.v[u] = grp.ok[u] ? __ldg(row.vec() + j) : make_uint4(0, 0, 0, 0);
+        j += 32;
+        while (q < nrows && j >= row.nv) {
+          j -= row.nv;
+          q += kRowWarps;
+          if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+        }
+      }
+    });
+
+    // head and tail bytes (lanes 0-15 and 16-31), then the pad columns
+    for (int r = warp; ragged && r < nrows; r += kRowWarps) {
+      const RowBody rb = row_body(plane, R0 + r, H, W, c0, len);
+      const int tail0 = rb.head + (rb.nv << 4);
+      if (lane < 16) {
+        if (lane < rb.head) c.add_byte(rb.s[lane]);
+      } else if (tail0 + lane - 16 < len) {
+        c.add_byte(rb.s[tail0 + lane - 16]);
+      }
+      const uint8_t* src = rb.s - c0;  // the source row
+      for (int k = lane; k < npad; k += 32) c.add_byte(src[reflect101(cp + k, W)]);
+    }
   }
   __syncthreads();
 
-  int32_t sum = 0;
-  for (int w = 0; w < kWarps; ++w) sum += bins[w][tid];
-  if (sum) atomicAdd(&out[tile * 256 + tid], sum);
+  const uint32_t sum = c.bin_total();
+  if (sum) atomicAdd(&out[tile * 256 + tid], int32_t(sum));
 }
 
 // ---------------------------------------------------------------------------
@@ -380,23 +453,22 @@ extern "C" {
 
 // x: [B, H, W] u8 contiguous; out: [B*gh*gw, 256] int32, zeroed by the
 // caller.  Tile (ty, tx) covers padded rows ty*th .. ty*th+th-1 and columns
-// tx*tw .. tx*tw+tw-1, with gh*th >= H and gw*tw >= W.
+// tx*tw .. tx*tw+tw-1, with gh*th >= H and gw*tw >= W.  Its rows come in
+// `bands` bands of band_rows rows (the last one shorter), which stride over
+// grid_y <= min(bands, 65535) (kernels/clahe.py::tile_band_plan).
 int ie_hist256_tiles(const uint8_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
-                     int32_t gh, int32_t gw, int64_t th, int64_t tw, cudaStream_t stream) {
+                     int32_t gh, int32_t gw, int64_t th, int64_t tw, int64_t band_rows,
+                     int64_t bands, int64_t grid_y, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || th < 1 || tw < 1 ||
       int64_t(gh) * th < H || int64_t(gw) * tw < W || int64_t(gh) * th > 0x7fffffffLL ||
       int64_t(gw) * tw > 0x7fffffffLL || th * tw > 0x7fffffffLL ||
-      B * gh * gw > 0x7fffffffLL)
+      B * gh * gw > 0x7fffffffLL || band_rows < 1 || bands < 1 ||
+      (bands - 1) * band_rows >= th || bands * band_rows < th || grid_y < 1 || grid_y > bands ||
+      grid_y > kMaxGridY)
     return int(cudaErrorInvalidValue);
-  // about 16K pixels per block: a 4K tile of 270x480 gets 8 bands
-  int64_t bands = (th * tw + 16383) / 16384;
-  if (bands > th) bands = th;
-  if (bands > 1024) bands = 1024;
-  const int64_t band_rows = (th + bands - 1) / bands;
-  bands = (th + band_rows - 1) / band_rows;
-  const dim3 grid(unsigned(B * gh * gw), unsigned(bands));
-  hist256_tiles_kernel<<<grid, kThreads, 0, stream>>>(x, out, int(H), int(W), gh, gw, int(th),
-                                                      int(tw), int(band_rows));
+  const dim3 grid(unsigned(B * gh * gw), unsigned(grid_y));
+  hist256_tiles_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(
+      x, out, int(H), int(W), gh, gw, int(th), int(tw), int(band_rows), int(bands));
   return int(cudaGetLastError());
 }
 

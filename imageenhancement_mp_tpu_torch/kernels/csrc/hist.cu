@@ -10,10 +10,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 // Bytes one block covers in the streaming kernels: 256 threads x 16 vectors
 // of 16 B.  Planes larger than this get several blocks each.
 constexpr int64_t kBytesPerBlock = int64_t(kThreads) * 16 * 16;
@@ -43,50 +44,51 @@ int blocks_per_plane(int64_t n) {
 // ---------------------------------------------------------------------------
 // hist256: replaces the JAX package's kernels/hist.py::hist256_pallas
 // (the nibble one-hot MXU dot, whose f32 accumulation forced 2^17-pixel
-// stripes).  Here the bound is device memory: 1 B/px read once.  Each warp
-// counts into its own 256 shared-memory bins, which cuts contention on equal
-// values to one warp; each thread reads 16 B per load.  Blocks merge into the
-// zeroed [B,256] output with atomicAdd.  The counts are integers, so the
-// result does not depend on the order of the atomics.
+// stripes).  The bound is device memory: 1 B/px read once.  A block counts
+// a grid-strided share of one plane's 16-byte vectors through hist_count.cuh
+// (kHistLoads loads a group, the next group loaded while one is counted),
+// its head and tail bytes through shared atomics, and adds its 256
+// bins into the zeroed [B,256] output with one atomicAdd per nonzero bin.
+// kernels/hist.py::hist256_plan sizes the grid to the card's resident
+// blocks.  The counts are integers, so the result does not depend on the
+// order of the atomics.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void count4(int32_t* bins, uint32_t w) {
-  atomicAdd(&bins[w & 255u], 1);
-  atomicAdd(&bins[(w >> 8) & 255u], 1);
-  atomicAdd(&bins[(w >> 16) & 255u], 1);
-  atomicAdd(&bins[w >> 24], 1);
-}
+// Vectors a thread loads at a time (2 in flight with the next group; the
+// A/B timed 3 within 4 % of it).
+constexpr int kHistLoads = 1;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCountThreads, 3)
 hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t B, int64_t n) {
-  __shared__ int32_t bins[kWarps][256];
+  extern __shared__ __align__(16) uint32_t count_smem[];
   const int tid = threadIdx.x;
-  const int64_t g = int64_t(blockIdx.x) * kThreads + tid;
-  const int64_t stride = int64_t(gridDim.x) * kThreads;
-  int32_t* mine = bins[tid >> 5];
+  const int64_t g0 = int64_t(blockIdx.x) * kCountThreads;
+  const int64_t stride = int64_t(gridDim.x) * kCountThreads;
+  HistCounter c;
 
   // planes stride over gridDim.y, so any number of planes fits the grid
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
-    for (int i = tid; i < kWarps * 256; i += kThreads) (&bins[0][0])[i] = 0;
+    c.begin(count_smem);
     __syncthreads();
 
     const uint8_t* p = x + b * n;
     const Split s = split_plane(p, n);
     const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
-    for (int64_t i = g; i < s.nvec; i += stride) {
-      const uint4 v = pv[i];
-      count4(mine, v.x);
-      count4(mine, v.y);
-      count4(mine, v.z);
-      count4(mine, v.w);
-    }
-    for (int64_t i = g; i < s.head; i += stride) atomicAdd(&mine[p[i]], 1);
-    for (int64_t i = s.tail_start + g; i < n; i += stride) atomicAdd(&mine[p[i]], 1);
+    int64_t i = g0 + tid;
+    count_vectors<kHistLoads>(c, [&](VecGroup<kHistLoads>& grp) {
+#pragma unroll
+      for (int u = 0; u < kHistLoads; ++u) {
+        grp.ok[u] = i < s.nvec;
+        grp.v[u] = grp.ok[u] ? __ldg(pv + i) : make_uint4(0, 0, 0, 0);
+        i += stride;
+      }
+    });
+    for (int64_t j = g0 + tid; j < s.head; j += stride) c.add_byte(p[j]);
+    for (int64_t j = s.tail_start + g0 + tid; j < n; j += stride) c.add_byte(p[j]);
     __syncthreads();
 
-    int32_t sum = 0;
-    for (int w = 0; w < kWarps; ++w) sum += bins[w][tid];
-    if (sum) atomicAdd(&out[b * 256 + tid], sum);
+    const uint32_t sum = c.bin_total();
+    if (sum) atomicAdd(&out[b * 256 + tid], int32_t(sum));
     __syncthreads();
   }
 }
@@ -307,11 +309,16 @@ extern "C" {
 
 const char* ie_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
-// x: [B, n] u8 contiguous; out: [B, 256] int32, zeroed by the caller.
-int ie_hist256(const uint8_t* x, int32_t* out, int64_t B, int64_t n, cudaStream_t stream) {
-  if (B < 1 || n < 1) return int(cudaErrorInvalidValue);
-  const dim3 grid(blocks_per_plane(n), unsigned(B < kMaxGridY ? B : kMaxGridY));
-  hist256_kernel<<<grid, kThreads, 0, stream>>>(x, out, B, n);
+// x: [B, n] u8 contiguous; out: [B, 256] int32, zeroed by the caller; a
+// grid of blocks x grid_y (blocks per plane, and grid_y <= min(B, 65535):
+// planes stride over it), from kernels/hist.py::hist256_plan.
+int ie_hist256(const uint8_t* x, int32_t* out, int64_t B, int64_t n, int64_t blocks,
+               int64_t grid_y, cudaStream_t stream) {
+  if (B < 1 || n < 1 || blocks < 1 || blocks > 0x7fffffffLL || grid_y < 1 ||
+      grid_y > B || grid_y > kMaxGridY)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(grid_y));
+  hist256_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(x, out, B, n);
   return int(cudaGetLastError());
 }
 

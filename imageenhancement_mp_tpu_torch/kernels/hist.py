@@ -23,7 +23,7 @@ from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 
 __all__ = [
-    "hist256", "hist256_plain",
+    "hist256", "hist256_plain", "hist256_plan", "HIST_GRID_BLOCKS", "MAX_GRID_Y",
     "equalize_lut256", "equalize_lut256_plain",
     "apply_lut256", "apply_lut256_plain",
     "apply_luts_multi", "apply_luts_multi_plain", "take_rows",
@@ -38,6 +38,22 @@ def _check_u8_planes(planes: torch.Tensor, name: str) -> None:
 
 
 # --- hist256 ---------------------------------------------------------------
+
+# The counting kernels' grid (csrc/hist_count.cuh): blocks of 256 threads,
+# three on each of an H100's 132 SMs (two and four a SM were not faster on
+# all three kinds of plane, tools/torch_hist_profile.py --ab).
+HIST_GRID_BLOCKS = 3 * 132
+MAX_GRID_Y = 65535  # planes (hist256) or bands (hist256_tiles) beyond it stride
+
+
+def hist256_plan(B: int, n: int) -> tuple[int, int]:
+    """``(blocks per plane, grid_y)`` of ``hist256`` on ``B`` planes of ``n``
+    pixels: one wave of resident blocks over all planes, at least one plane
+    per block and one 16-pixel vector per thread; planes stride over
+    ``grid_y``."""
+    per_plane = max(1, min(HIST_GRID_BLOCKS // B, -(-(n // 16) // 256)))
+    return per_plane, min(B, MAX_GRID_Y)
+
 
 def hist256_plain(planes: torch.Tensor) -> torch.Tensor:
     B = planes.shape[0]
@@ -59,7 +75,8 @@ def hist256(planes: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"hist256: a plane of {n} pixels overflows the int32 counts")
     out = torch.zeros((B, 256), dtype=torch.int32, device=planes.device)
     if n:
-        launch("hist256", planes.device, planes.data_ptr(), out.data_ptr(), B, n)
+        launch("hist256", planes.device, planes.data_ptr(), out.data_ptr(), B, n,
+               *hist256_plan(B, n))
     return out
 
 

@@ -7,7 +7,9 @@ and its ``launch`` only records the call.  A ``[1, 1_100_000, 8]`` u8 plane
 (8.8 MB) is taller than 65535 tiles of 16 rows (median) or bands of 8 rows
 (clahe_blend), the grid-axis limit the kernels once put rows on (the LUT
 kernels take flat planes: tests/test_torch_lut.py drives them); the wrapper
-must neither raise nor launch more than once.
+must neither raise nor launch more than once.  K1's two counting kernels
+(hist256, hist256_tiles) take their grid from the host; its plan keeps
+``gridDim.y`` within 65535 on ``[70000, 8, 8]`` and ``[1, 2_200_000, 8]``.
 """
 
 import pytest
@@ -18,6 +20,7 @@ from imageenhancement_mp_tpu_torch.kernels import bilateral as kbilateral
 from imageenhancement_mp_tpu_torch.kernels import clahe as kclahe
 from imageenhancement_mp_tpu_torch.kernels import conv as kconv
 from imageenhancement_mp_tpu_torch.kernels import fused as kfused
+from imageenhancement_mp_tpu_torch.kernels import hist as khist
 from imageenhancement_mp_tpu_torch.kernels import median as kmedian
 from imageenhancement_mp_tpu_torch.kernels import warp as kwarp
 from imageenhancement_mp_tpu_torch.ops import clahe as tclahe
@@ -91,3 +94,23 @@ def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
     kernel, device, *args = launches[0]
     assert kernel == name and device == x.device
     assert TALL[1] in args  # the full height reaches the C entry point
+
+
+@pytest.mark.parametrize("shape,grid", [((70000, 8, 8), (1, 1)), ((1, 2_200_000, 8), (8, 8))])
+def test_grid_plans_stay_within_a_grid_axis(monkeypatch, shape, grid):
+    launches = []
+    for module in (khist, kclahe):
+        monkeypatch.setattr(module, "on_cuda", lambda t, what: True)
+        monkeypatch.setattr(module, "launch", lambda *args: launches.append(args))
+    x = torch.zeros(shape, dtype=torch.uint8)
+    B, H, W = shape
+    gh, gw, th, tw = tclahe.tile_geometry(H, W, grid)
+    assert khist.hist256(x).shape == (B, 256)
+    assert kclahe.hist256_tiles(x, gh, gw, th, tw).shape == (B * gh * gw, 256)
+    (name, _, _, _, b, n, blocks, grid_y), tiles = launches
+    assert name == "hist256" and (b, n) == (B, H * W)
+    assert 1 <= blocks <= khist.HIST_GRID_BLOCKS and 1 <= grid_y <= min(B, 65535)
+    assert tiles[0] == "hist256_tiles" and tiles[4:11] == (B, H, W, gh, gw, th, tw)
+    band_rows, bands, grid_y = tiles[11:]
+    assert (bands - 1) * band_rows < th <= bands * band_rows
+    assert 1 <= grid_y <= min(bands, 65535) and B * gh * gw < 2**31
