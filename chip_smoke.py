@@ -25,7 +25,15 @@
    (hist256, hist256_tiles) are also held on random, smooth (a 9x16 grid of
    u8 values upsampled bilinearly, plus +-2 noise) and constant (all 255)
    planes, each at odd widths and misaligned by one byte, and on
-   [1, 2_200_000, 8], and timed on each kind of plane.
+   [1, 2_200_000, 8], and timed on each kind of plane.  u16 CLAHE's stage A
+   (hist65536_tiles) and blend are held on random, smooth, constant, 12-bit
+   (values below 4096) and two-extreme ({0, 65535}) planes at eleven
+   geometries (divisible and not, tiles of a few pixels, one tile column,
+   the 164x164 grid 2x2 one, 1079x1917, 4K), each also at a storage offset
+   of one element, on tiles of 65535 and of 153600 equal pixels (an even,
+   an odd, the first and the last bin), [70000, 8, 8] (grid 1x1) and
+   [1, 2_200_000, 8], and timed on each kind at 2x2160x3840 beside their
+   bytes bounds, stage A also beside one torch.bincount.
 4. Drives the first main path through the public functions — equalize_unsharp
    at 8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
    numpy seed 0 — each call with the launch counters set to 0 just before
@@ -41,8 +49,9 @@
    2x2160x3840 u16, median_blur(5) on u16 and i16, each path with counters
    of its own; fails unless each path launched exactly its kernels (median,
    hist256_tiles, clahe_lut, clahe_blend, sep_conv_u8 once per batch through
-   the preset; the CLAHE stages for clahe, stage A only on u8; median for
-   median_blur) and no other.
+   the preset; the three CLAHE stages for clahe, stage A through
+   hist256_tiles on u8 and hist65536_tiles on u16; median for median_blur)
+   and no other.
    Before the paths, holds the median kernel (the schedules of
    median_networks.cuh) against its plain networks at 0 LSB, k 3 and 5, u8,
    u16 and i16: each residue of the thread and block tiles (1x1, 2x3, 5x7,
@@ -169,7 +178,8 @@ KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
 WARP_KERNELS = ("warp_gather_u8",)
 TAKE_KERNELS = ("take_table",)
 LUT_KERNELS = ("apply_lut256_wide", "apply_luts_multi", "median_unsharp")
-ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS + LUT_KERNELS
+U16_KERNELS = ("hist65536_tiles",)
+ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS + LUT_KERNELS + U16_KERNELS
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -186,6 +196,7 @@ SOURCES = {
     "apply_lut256_wide": f"{PKG}/kernels/csrc/hist.cu",
     "apply_luts_multi": f"{PKG}/kernels/csrc/hist.cu",
     "median_unsharp": f"{PKG}/kernels/csrc/fused.cu",
+    "hist65536_tiles": f"{PKG}/kernels/csrc/clahe.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -203,6 +214,7 @@ REPLACES = {
     "apply_lut256_wide": "imageenhancement_mp_tpu/kernels/hist.py:281 and imageenhancement_mp_tpu/kernels/hist.py:228 (u16/i16/i32/f32 tables)",
     "apply_luts_multi": "imageenhancement_mp_tpu/kernels/hist.py:350",
     "median_unsharp": "imageenhancement_mp_tpu/kernels/fused.py:240",
+    "hist65536_tiles": "imageenhancement_mp_tpu/ops/clahe.py:55-61 (an XLA stage; no Pallas kernel)",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -290,6 +302,34 @@ def k1_planes(shape: tuple, kind: str, rng) -> np.ndarray:
         v = ((g[y0][:, x0] * (1 - fx) + g[y0][:, x0 + 1] * fx) * (1 - fy)
              + (g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx) * fy)
         out[b] = np.clip(np.rint(v) + rng.integers(-2, 3, (H, W)), 0, 255)
+    return out
+
+
+# u16 CLAHE's planes: random; smooth (k1_planes' pattern on a 9x16 grid of
+# u16 values, plus +-2 noise); constant 40000; 12-bit (random below 4096, a
+# medical or raw-sensor frame); extremes ({0, 65535})
+U16_PLANES = ("random", "smooth", "constant", "12-bit", "extremes")
+
+
+def u16_planes(shape: tuple, kind: str, rng) -> np.ndarray:
+    B, H, W = shape
+    if kind == "random":
+        return rng.integers(0, 65536, shape).astype(np.uint16)
+    if kind == "constant":
+        return np.full(shape, 40000, np.uint16)
+    if kind == "12-bit":
+        return rng.integers(0, 4096, shape).astype(np.uint16)
+    if kind == "extremes":
+        return (rng.integers(0, 2, shape) * 65535).astype(np.uint16)
+    ys, xs = np.linspace(0, 8, H), np.linspace(0, 15, W)
+    y0, x0 = np.minimum(ys.astype(np.int64), 7), np.minimum(xs.astype(np.int64), 14)
+    fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+    out = np.empty(shape, np.uint16)
+    for b in range(B):
+        g = rng.integers(0, 65536, (9, 16)).astype(np.float64)
+        v = ((g[y0][:, x0] * (1 - fx) + g[y0][:, x0 + 1] * fx) * (1 - fy)
+             + (g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx) * fy)
+        out[b] = np.clip(np.rint(v) + rng.integers(-2, 3, (H, W)), 0, 65535)
     return out
 
 
@@ -1095,6 +1135,8 @@ def main() -> None:
         hp = kclahe.tile_hists_plain(x, *geo)
         if x.dtype == torch.uint8:
             check("hist256_tiles", kclahe.hist256_tiles(x, *geo), hp, what)
+        else:
+            check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo), hp, what)
         lut = kclahe.clahe_lut(hp, area, clip)
         check("clahe_lut", lut, kclahe.clahe_lut_plain(hp, area, clip), what)
         tables = coord_tables(H, W, geo)
@@ -1110,7 +1152,9 @@ def main() -> None:
                    ((1, 1079, 1917), (8, 8)),
                    # tiles of a few pixels: narrow chunks, one-row bands (the u8 blend's plan)
                    ((1, 8, 8), (8, 8)), ((2, 17, 33), (17, 33)), ((1, 40, 5000), (2, 4000)),
-                   ((1, 64, 3840), (1, 64)), ((1, 100, 4000), (3, 64))]
+                   ((1, 64, 3840), (1, 64)), ((1, 100, 4000), (3, 64)),
+                   # one tile column
+                   ((1, 6, 1100), (2, 1)), ((1, 1000, 130), (2, 1))]
     for dtype in (np.uint8, np.uint16):
         for shape, grid in clahe_geoms:
             x = rand(shape, dtype)
@@ -1251,8 +1295,63 @@ def main() -> None:
     check_athresh(tall, 11, 2.0, False, 255, what)
     check_athresh(tall, 61, 2.0, True, 255, what)
     del tall, x
+
+    # u16 CLAHE's stage A (hist65536_tiles) and blend on each kind of plane
+    # (random, smooth, constant, 12-bit, two-extreme): divisible and not,
+    # tiles of a few pixels, one tile column, the R2 geometry, 4K; each also
+    # at a storage offset of one element
+    n_u16 = 0
+
+    def check_u16(x: torch.Tensor, grid, what: str) -> None:
+        nonlocal n_u16
+        B, H, W = x.shape
+        geo = tclahe.tile_geometry(H, W, grid)
+        hp = kclahe.tile_hists_plain(x, *geo)
+        check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo), hp, what)
+        lut = kclahe.clahe_lut(hp, geo[2] * geo[3], 2.0)
+        tables = coord_tables(H, W, geo)
+        check("clahe_blend", kclahe.clahe_blend(x, lut, geo[0], geo[1], *tables),
+              kclahe.clahe_blend_plain(x, lut, geo[0], geo[1], *tables), what)
+        n_u16 += 1
+
+    urng = np.random.default_rng(21)
+    u16_geoms = [((2, 64, 256), (8, 2)), ((1, 37, 131), (8, 8)), ((1, 164, 164), (2, 2)),
+                 ((2, 17, 33), (17, 33)), ((1, 8, 8), (8, 8)), ((1, 6, 1100), (2, 1)),
+                 ((1, 1000, 130), (2, 1)), ((1, 40, 5000), (2, 4000)), ((1, 3, 1), (2, 2)),
+                 ((1, 1079, 1917), (8, 8)), ((2, 2160, 3840), (8, 8))]
+    for kind in U16_PLANES:
+        for shape, grid in u16_geoms:
+            x = on_card(u16_planes(shape, kind, urng))
+            for xx in (x, misaligned(x)):
+                check_u16(xx, grid, f"{kind} u16 {shape} grid {grid} offset {xx.storage_offset()}")
+    # tiles of one value: 65535 pixels (the most a 16-bit counter would hold)
+    # and 153600, on an even bin, an odd bin and both ends of the range
+    for v in (40000, 40001, 65535, 0):
+        for shape in ((132, 255, 257), (2, 300, 512)):
+            x = torch.full(shape, v, dtype=torch.uint16, device=dev)
+            geo = (1, 1, shape[1], shape[2])
+            check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo),
+                  kclahe.tile_hists_plain(x, *geo), f"{shape} all {v}: one bin per tile")
+    # more planes than a grid axis holds (grid 1x1: 70000 tiles; the plain
+    # versions on slices), and more rows
+    many = on_card(u16_planes((70000, 8, 8), "random", urng))
+    tables_many = coord_tables(8, 8, (1, 1, 8, 8))
+    hk = kclahe.hist65536_tiles(many, 1, 1, 8, 8)
+    lk = kclahe.clahe_lut(hk, 64, 2.0)
+    bk = kclahe.clahe_blend(many, lk, 1, 1, *tables_many)
+    for sl in (slice(0, 3), slice(-3, None)):
+        what = f"u16 70000x8x8 grid 1x1, planes {sl.start}:{sl.stop}"
+        check("hist65536_tiles", hk[sl], kclahe.tile_hists_plain(many[sl], 1, 1, 8, 8), what)
+        check("clahe_blend", bk[sl], kclahe.clahe_blend_plain(many[sl], lk[sl], 1, 1, *tables_many),
+              what)
+    del many, hk, lk, bk
+    check_u16(on_card(u16_planes((1, 2_200_000, 8), "random", urng)), (8, 8),
+              "u16 1x2200000x8 grid 8x8")
     torch.cuda.synchronize()
-    for name in KERNELS:
+    print(f"hist65536_tiles and the u16 blend vs plain on the card: 0 LSB over {n_u16} cases "
+          f"({', '.join(U16_PLANES)} planes; offset 0 and 1), tiles of 65535 and 153600 equal "
+          "pixels, [70000, 8, 8] and [1, 2200000, 8]")
+    for name in KERNELS + U16_KERNELS:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
@@ -1338,16 +1437,44 @@ def main() -> None:
         raise AssertionError("torch.bincount over tile offsets differs from hist256_tiles")
     tiles_library_ms = time_ms(lambda: torch.bincount(idx_t, minlength=T5 * 256))[0]
     del tile5, idx_t
-    # clahe_blend's u16 kernel at the same geometry, and the u8 kernel's plan
-    g16 = rand((2, 2160, 3840), np.uint16)
-    l16 = kclahe.clahe_lut(kclahe.tile_hists_plain(g16, *geo5), area5, 2.0)
-    u16_ms, u16_iqr = time_ms(lambda: kclahe.clahe_blend(g16, l16, 8, 8, *tables5))
-    T16 = l16.shape[0]
-    print(f"  clahe_blend u16 at (2, 2160, 3840) grid 8x8: kernel {u16_ms:.4f} ms (IQR "
-          f"{u16_iqr:.4f}), bound {bound_ms(4 * g16.numel() + T16 * 65536 * 2)[0]:.4f} ms (bytes); "
-          f"u8 plan: {kclahe.blend_chunk(tables5[2].cpu().numpy(), 8)} columns and "
-          f"{kclahe.blend_band(tables5[0].cpu().numpy())} rows per block  [{smi}]")
-    del g16, l16
+    print(f"  clahe_blend u8 plan at (2, 2160, 3840) grid 8x8: "
+          f"{kclahe.blend_chunk(tables5[2].cpu().numpy(), 8)} columns and "
+          f"{kclahe.blend_band(tables5[0].cpu().numpy())} rows per block")
+    # u16 CLAHE's stage A (hist65536_tiles) and blend at the same geometry on
+    # each kind of u16 plane, beside their bytes bounds (stage A: 2 B/px and
+    # the int32 tables written once; the blend: 4 B/px and the LUTs read
+    # once); stage A's library call: one torch.bincount over tile offsets
+    # made beforehand
+    n16, T16 = 2 * 2160 * 3840, 2 * geo5[0] * geo5[1]
+    b16_hist, b16_blend = bound_ms(2 * n16 + T16 * 65536 * 4), bound_ms(4 * n16 + T16 * 65536 * 2)
+    for kind in U16_PLANES:
+        g16 = on_card(u16_planes((2, 2160, 3840), kind, urng))
+        h16 = kclahe.hist65536_tiles(g16, *geo5)
+        check("hist65536_tiles", h16, kclahe.tile_hists_plain(g16, *geo5),
+              f"{kind} u16 (2, 2160, 3840) grid 8x8")
+        l16 = kclahe.clahe_lut(h16, area5, 2.0)
+        h_ms, h_iqr = time_ms(lambda: kclahe.hist65536_tiles(g16, *geo5))
+        b_ms, b_iqr = time_ms(lambda: kclahe.clahe_blend(g16, l16, 8, 8, *tables5))
+        print(f"  u16 at (2, 2160, 3840) grid 8x8, {kind} plane: hist65536_tiles {h_ms:.4f} ms "
+              f"(IQR {h_iqr:.4f}), bound {b16_hist[0]:.4f} ms ({b16_hist[1]}); clahe_blend u16 "
+              f"{b_ms:.4f} ms (IQR {b_iqr:.4f}), bound {b16_blend[0]:.4f} ms ({b16_blend[1]})  "
+              f"[{smi}]")
+        if kind == "random":
+            ms["hist65536_tiles"] = (h_ms, time_ms(lambda: kclahe.tile_hists_plain(g16, *geo5),
+                                                   10, 3)[0])
+            idx16 = ((torch.arange(2, device=dev)[:, None, None] * 64
+                      + (torch.arange(2160, device=dev) // geo5[2])[None, :, None] * 8
+                      + (torch.arange(3840, device=dev) // geo5[3])[None, None, :]) * 65536
+                     + g16.long()).view(-1)
+            if not torch.equal(torch.bincount(idx16, minlength=T16 * 65536).view(T16, 65536)
+                               .int(), h16):
+                raise AssertionError("torch.bincount over tile offsets differs from "
+                                     "hist65536_tiles")
+            u16_library_ms = time_ms(lambda: torch.bincount(idx16, minlength=T16 * 65536))[0]
+            print(f"  library call for hist65536_tiles: {u16_library_ms:.4f} ms (one "
+                  f"torch.bincount on int64 tile offsets made beforehand)  [{smi}]")
+            del idx16
+    del g16, h16, l16
     # the document kernels beside their issue floors; the share of pixels the
     # athresh screen hands to the f64 recompute, from the plain mirror of the
     # screen on the timed input
@@ -1459,7 +1586,7 @@ def main() -> None:
           "u8, u16, i16; 1x1, 2x3, 5x7, 37x131, 1079x1917; random, {0, 1}, constant, ramp and "
           "two-extreme planes; offset 1; [70000, 8, 8]; [1, 2200000, 8])")
     # each path with counters of its own: one launch of each of its kernels
-    # per call (u16 CLAHE histograms its tiles in torch), 8 over 8 batches
+    # per call, 8 over 8 batches
     out5, launches5 = drive("config 5 get_preset 2x2160x3840 u8", lambda: pipe(g4k),
                             dict.fromkeys(CONFIG5_KERNELS, 1))
     streamed, _ = drive("config 5 stream_frames 8x(2x2160x3840) u8",
@@ -1467,8 +1594,8 @@ def main() -> None:
                         dict.fromkeys(CONFIG5_KERNELS, len(frames)))
     clahe_rgb, _ = drive("clahe 1x2160x3840x3 RGB u8", lambda: port.clahe(g_rgb, 2.0, (8, 8)),
                          {"hist256_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
-    clahe_u16, _ = drive("clahe 2x2160x3840 u16", lambda: port.clahe(g_u16, 2.0, (8, 8)),
-                         {"clahe_lut": 1, "clahe_blend": 1})
+    clahe_u16, launches_u16 = drive("clahe 2x2160x3840 u16", lambda: port.clahe(g_u16, 2.0, (8, 8)),
+                                    {"hist65536_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
     med_u16, _ = drive("median_blur(5) 2x2160x3840 u16", lambda: port.median_blur(g_u16, 5),
                        {"median": 1})
     med_i16, _ = drive("median_blur(5) 2x2160x3840 i16", lambda: port.median_blur(g_i16, 5),
@@ -1899,6 +2026,7 @@ def main() -> None:
         # route adds 8 B of map per output pixel: 0.0297 ms); 9 f32 ops per
         # output pixel
         "warp_gather_u8": bound_ms(2 * n5, 9.0 * n5),
+        "hist65536_tiles": b16_hist,
     }
     for name, floor in (("bilateral", bil_floor), ("athresh", ath_floor)):
         print(f"  {name} at 2x2160x3840: kernel {ms[name][0]:.4f} ms, bound {bounds[name][0]:.4f} ms "
@@ -1913,6 +2041,7 @@ def main() -> None:
         raise AssertionError("torch.gather with the LUTs differs from apply_lut256")
     library["apply_lut256"] = time_ms(lambda: torch.gather(l8, 1, idx_l))[0]
     library["hist256_tiles"] = tiles_library_ms
+    library["hist65536_tiles"] = u16_library_ms
     del idx_h, idx_l
     for name in ("hist256", "hist256_tiles", "apply_lut256"):
         print(f"  library call for {name}: {library[name]:.4f} ms (one torch call on int64 "
@@ -1934,7 +2063,8 @@ def main() -> None:
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
                      **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
                      **{n: warp_launches[n] for n in WARP_KERNELS},
-                     **{n: take_launches[n] for n in TAKE_KERNELS}, **lut_launches}
+                     **{n: take_launches[n] for n in TAKE_KERNELS}, **lut_launches,
+                     **{n: launches_u16[n] for n in U16_KERNELS}}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],

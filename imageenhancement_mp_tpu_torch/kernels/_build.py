@@ -52,8 +52,9 @@ _SIGNATURES = {
     "ie_hist256_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
                          _P),
     "ie_clahe_lut": (_P, _P, _I64, _I32, _I32, _F32, _P),
-    "ie_clahe_blend": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _I32, _I32,
-                       _P),
+    "ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _P),
+    "ie_clahe_blend": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32,
+                       _I32, _P, _I32, _I32, _I32, _P),
     "ie_bilateral": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _P),
     "ie_athresh": (_P, _P, _P, _I64, _I64, _I64, _P, _I32, _I32, _I32, _I32, _F32, _I32, _P),
     "ie_warp_gather_u8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,

@@ -4,10 +4,12 @@ plain PyTorch version.
 * :func:`hist256_tiles` — stage A for u8: the 256-bin histogram of every
   tile of every plane, read in place, pad rows and columns through reflected
   indices (the JAX package's ``kernels/hist.py::hist256_pallas`` at
-  its CLAHE call site, ops/clahe.py:207-212).  Stage A for u16 stays torch on
-  both devices, :func:`tile_hists_plain` (a ``bincount`` over
-  ``(plane·T + tile)·65536 + v`` offsets): the JAX package computes it in
-  XLA too, outside any Pallas kernel (ops/clahe.py:55-61, :213-216).
+  its CLAHE call site, ops/clahe.py:207-212).
+* :func:`hist65536_tiles` — stage A for u16: the same walk, two blocks a
+  tile, each counting half the value range.  The JAX package computes this
+  stage in XLA, outside any Pallas kernel (ops/clahe.py:55-61, :213-216);
+  the plain version, :func:`tile_hists_plain`, is a ``bincount`` over
+  ``(plane·T + tile)·S + v`` offsets.
 * :func:`clahe_lut` — stage B, the clipped tile LUTs
   (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas).
 * :func:`clahe_blend` — stage C, the bilinear blend of the four neighbour
@@ -16,7 +18,9 @@ plain PyTorch version.
   ``kernels/clahe_blend.py::clahe_blend_pallas``.  The u8 kernel stages, per
   interpolation cell, a shared-memory table of words packing the four
   neighbour entries of each value; :func:`blend_chunk` and
-  :func:`blend_band` size its blocks.
+  :func:`blend_band` size its blocks.  The u16 kernel's blocks each lie in
+  one cell (:func:`blend16_pieces`, :func:`blend16_rows`) and stage the four
+  LUT rows in value chunks that their pixels use.
 
 Tiles are numbered ``b·gh·gw + ty·gw + tx``; the histogram and LUT tables
 are ``[B·gh·gw, S]`` with S = 256 (u8) or 65536 (u16).  The tile geometry
@@ -38,8 +42,10 @@ from imageenhancement_mp_tpu_torch.kernels.hist import HIST_GRID_BLOCKS, MAX_GRI
 __all__ = [
     "HIST_SIZE",
     "hist256_tiles", "tile_hists_plain", "tile_band_plan",
+    "hist65536_tiles",
     "clahe_lut", "clahe_lut_plain", "clip_and_scale",
     "clahe_blend", "clahe_blend_plain", "column_cells", "blend_chunk", "blend_band",
+    "blend16_pieces", "blend16_rows",
 ]
 
 HIST_SIZE = {torch.uint8: 256, torch.uint16: 65536}
@@ -49,6 +55,9 @@ _INT32_MAX = 2**31 - 1
 # at most 16 column cells (16 KiB of quad tables) and 16 rows per block;
 # chunks are whole multiples of 16 columns
 BLEND_PX, BLEND_MAX_CHUNK, BLEND_MAX_CELLS, BLEND_MAX_BAND = 16, 1024, 16, 16
+# the u16 blend's blocks (csrc/clahe.cu): 512 threads of 4 vectors of 8
+# pixels; a column piece of at most 256 vectors
+B16_ITEMS, B16_MAX_PIECE_VECS = 512 * 4, 256
 
 
 def _check_planes(planes: torch.Tensor, name: str) -> None:
@@ -123,6 +132,29 @@ def hist256_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> t
     if out.numel() and H and W:
         launch("hist256_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
                gh, gw, th, tw, *tile_band_plan(B, gh, gw, th, tw))
+    return out
+
+
+def hist65536_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
+    """Stage A for u16: ``[B, H, W]`` → ``[B·gh·gw, 65536]`` int32, tile
+    ``(ty, tx)`` covering padded rows ``ty·th ..`` and columns ``tx·tw ..``."""
+    if planes.dtype != torch.uint16:
+        raise TypeError(f"hist65536_tiles expects uint16 planes, got {planes.dtype}")
+    _check_planes(planes, "hist65536_tiles")
+    gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
+    _check_geometry(planes, gh, gw, th, tw)
+    if not on_cuda(planes, "hist65536_tiles"):
+        return tile_hists_plain(planes, gh, gw, th, tw)
+    check_kernel_input("hist65536_tiles", planes)
+    B, H, W = planes.shape
+    if B * gh * gw > _INT32_MAX:
+        raise ValueError(f"hist65536_tiles: {B * gh * gw} tiles overflow the grid")
+    if not (H and W):
+        return torch.zeros((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
+    out = torch.empty((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
+    if out.numel():  # the kernel writes every bin
+        launch("hist65536_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
+               gh, gw, th, tw)
     return out
 
 
@@ -232,6 +264,55 @@ def blend_band(yidx: np.ndarray) -> int:
     return int(min(BLEND_MAX_BAND, runs.min()))
 
 
+def _runs(idx: np.ndarray) -> np.ndarray:
+    """``[n, 2]`` (start, end) of the runs of equal ``(idx[0], idx[1])``:
+    the cells of a ``[2, n]`` coordinate table."""
+    change = np.flatnonzero((idx[0, 1:] != idx[0, :-1]) | (idx[1, 1:] != idx[1, :-1])) + 1
+    edges = np.concatenate([[0], change, [idx.shape[1]]])
+    return np.stack([edges[:-1], edges[1:]], axis=1)
+
+
+def blend16_rows(yidx: np.ndarray) -> np.ndarray:
+    """The u16 blend's row cells from the host row table ``[2, H]``:
+    ``[n, 2]`` int32 (first row, end row)."""
+    return _runs(yidx).astype(np.int32)
+
+
+def blend16_pieces(xidx: np.ndarray) -> np.ndarray:
+    """The u16 blend's column pieces from the host column table ``[2, W]``:
+    ``[n, 3]`` int32 (first column, end column, rows per block).  Each
+    column cell is cut where its 8-column vectors (counted from column 0)
+    pass ``B16_MAX_PIECE_VECS``; a block takes as many rows of a piece as
+    fill its ``B16_ITEMS`` vectors.  Vectors that straddle two cells belong
+    to a piece of each, which blends only its own columns."""
+    out = []
+    for c0, c1 in _runs(xidx):
+        va, vb = c0 // 8, -(-c1 // 8)
+        for v in range(va, vb, B16_MAX_PIECE_VECS):
+            ve = min(v + B16_MAX_PIECE_VECS, vb)
+            out.append((max(c0, 8 * v), min(c1, 8 * ve), B16_ITEMS // (ve - v)))
+    return np.array(out, np.int32).reshape(-1, 3)
+
+
+def _blend16_plan(yidx: torch.Tensor, xidx: torch.Tensor) -> tuple[int, ...]:
+    """The u16 kernel's plan arguments: the pieces and row cells on the
+    device (derived once per coordinate table) and the most row bands of
+    any piece in any row cell."""
+    dev = xidx.device
+
+    def pieces_of(a: np.ndarray):
+        p = blend16_pieces(a)
+        return torch.from_numpy(p).to(dev), len(p), int(p[:, 2].min())
+
+    def rows_of(a: np.ndarray):
+        r = blend16_rows(a)
+        return torch.from_numpy(r).to(dev), len(r), int((r[:, 1] - r[:, 0]).max())
+
+    pieces, npieces, min_rpb = host_derived(xidx, "clahe u16 blend pieces", pieces_of)
+    rows, nrows, max_h = host_derived(yidx, "clahe u16 blend rows", rows_of)
+    return pieces.data_ptr(), npieces, -(-max_h // min_rpb), rows.data_ptr(), nrows
+
+
 def clahe_blend_plain(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
                       yidx: torch.Tensor, fy: torch.Tensor, xidx: torch.Tensor,
                       fx: torch.Tensor) -> torch.Tensor:
@@ -272,15 +353,21 @@ def clahe_blend(planes: torch.Tensor, luts: torch.Tensor, gh: int, gw: int,
     out = torch.empty_like(planes)
     if not out.numel():
         return out
-    chunk = band = 0  # the u16 kernel's blocks are fixed
+    chunk = band = 0  # u8 only
+    plan16 = (0, 0, 0, 0, 0)  # u16 only
+    # each plan once per coordinate table (ops/clahe.py keeps them per geometry)
     if planes.dtype == torch.uint8:
         if luts.data_ptr() % 4:
             raise ValueError("clahe_blend: the u8 kernel reads LUT rows as 4-byte words; "
                              "pass 4-byte aligned LUTs")
-        # once per coordinate table (ops/clahe.py keeps them per geometry)
         chunk = host_derived(xidx, f"clahe blend chunk, gw {gw}", lambda a: blend_chunk(a, gw))
         band = host_derived(yidx, "clahe blend band", blend_band)
+    else:
+        if luts.data_ptr() % 16:
+            raise ValueError("clahe_blend: the u16 kernel reads LUT rows as 16-byte vectors; "
+                             "pass 16-byte aligned LUTs")
+        plan16 = _blend16_plan(yidx, xidx)
     launch("clahe_blend", planes.device, planes.data_ptr(), luts.data_ptr(), out.data_ptr(),
            B, H, W, planes.element_size(), gh, gw, yidx.data_ptr(), fy.data_ptr(),
-           xidx.data_ptr(), fx.data_ptr(), chunk, band)
+           xidx.data_ptr(), fx.data_ptr(), *plan16, chunk, band)
     return out

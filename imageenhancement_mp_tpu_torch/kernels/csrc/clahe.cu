@@ -1,6 +1,7 @@
 // CLAHE (cv2.createCLAHE(clip, grid).apply) on u8 and u16 planes, in three
-// kernels: per-tile histograms (stage A, u8), the clipped tile LUTs (stage B)
-// and the bilinear blend of the four neighbour LUTs (stage C).
+// stages: per-tile histograms (stage A: hist256_tiles for u8,
+// hist65536_tiles for u16), the clipped tile LUTs (stage B) and the bilinear
+// blend of the four neighbour LUTs (stage C: one kernel for u8, one for u16).
 //
 // The tile geometry is cv2's: th x tw tiles on a gh x gw grid over the image
 // padded at the bottom and the right with REFLECT_101 when a dimension does
@@ -13,6 +14,7 @@
 // is the one written.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "hist_count.cuh"
@@ -20,7 +22,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it stride over gridDim.y
 
 // ---------------------------------------------------------------------------
@@ -46,23 +47,97 @@ constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it strid
 // atomicAdd per nonzero bin.
 // ---------------------------------------------------------------------------
 
-// Padded row R of a tile: its first interior byte s (column c0 of source
-// row reflect101(R, H)), the head bytes before s's first 16-byte boundary,
-// and the nv whole vectors after them; the len - head - 16 nv bytes left
+// Padded row R of a tile piece: its first interior element s (column c0 of
+// source row reflect101(R, H)), the head elements before s's first 16-byte
+// boundary, and the nv whole 16-byte vectors after them; the elements left
 // are its tail.
+template <typename T>
 struct RowBody {
-  const uint8_t* s;
+  static constexpr int kShift = sizeof(T) == 1 ? 4 : 3;  // log2 of the elements a vector holds
+  const T* s;
   int head, nv;
   __device__ __forceinline__ const uint4* vec() const {
     return reinterpret_cast<const uint4*>(s + head);
   }
 };
 
-__device__ __forceinline__ RowBody row_body(const uint8_t* plane, int R, int H, int W, int c0,
-                                            int len) {
-  const uint8_t* s = plane + int64_t(reflect101(R, H)) * W + c0;
-  const int head = min(int((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15), len);
-  return {s, head, (len - head) >> 4};
+template <typename T>
+__device__ __forceinline__ RowBody<T> row_body(const T* plane, int R, int H, int W, int c0,
+                                               int len) {
+  const T* s = plane + int64_t(reflect101(R, H)) * W + c0;
+  const int head =
+      min(int(((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15) >> (sizeof(T) - 1)), len);
+  return {s, head, (len - head) >> RowBody<T>::kShift};
+}
+
+// Count padded rows R0 .. R0 + nrows - 1 of a tile piece, interior columns
+// [c0, c0 + len) and pad columns [cp, cp + npad), into c: the body vectors of
+// the rows as one lane stream (warp w takes rows w, w + kRowWarps, ...;
+// lane l starts at vector l of its first row and steps 32 vectors, carrying
+// over into the next row), kLoads loads at a time, then, where `ragged`,
+// the head and tail elements (lanes 0-15 and 16-31) and the pad columns
+// one at a time.
+template <typename T, int kLoads, int kRowWarps, typename Counter>
+__device__ __forceinline__ void count_tile_rows(Counter& c, const T* plane, int H, int W, int R0,
+                                                int nrows, int c0, int len, int cp, int npad,
+                                                bool ragged) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this lane's place in the stream: row q, vector j of its body
+  int q = warp, j = lane;
+  RowBody<T> row = {nullptr, 0, 0};
+  if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+  while (q < nrows && j >= row.nv) {
+    j -= row.nv;
+    q += kRowWarps;
+    if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+  }
+  count_vectors<kLoads>(c, [&](VecGroup<kLoads>& grp) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      grp.ok[u] = q < nrows;
+      grp.v[u] = grp.ok[u] ? __ldg(row.vec() + j) : make_uint4(0, 0, 0, 0);
+      j += 32;
+      while (q < nrows && j >= row.nv) {
+        j -= row.nv;
+        q += kRowWarps;
+        if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
+      }
+    }
+  });
+
+  // head and tail elements (lanes 0-15 and 16-31), then the pad columns
+  for (int r = warp; ragged && r < nrows; r += kRowWarps) {
+    const RowBody<T> rb = row_body(plane, R0 + r, H, W, c0, len);
+    const int tail0 = rb.head + (rb.nv << RowBody<T>::kShift);
+    if (lane < 16) {
+      if (lane < rb.head) c.add_one(rb.s[lane]);
+    } else if (tail0 + lane - 16 < len) {
+      c.add_one(rb.s[tail0 + lane - 16]);
+    }
+    const T* src = rb.s - c0;  // the source row
+    for (int k = lane; k < npad; k += 32) c.add_one(src[reflect101(cp + k, W)]);
+  }
+}
+
+// A tile piece's columns: tile column tx, columns [c0, c0 + pw) of the
+// padded plane; len interior ones, npad pad ones from cp.
+struct Piece {
+  int c0, len, cp, npad;
+  bool ragged;  // rows with head, tail or pad elements
+};
+
+template <typename T>
+__device__ __forceinline__ Piece tile_piece(const T* plane, int W, int c0, int pw) {
+  Piece p;
+  p.c0 = c0;
+  p.len = max(min(c0 + pw, W) - c0, 0);
+  p.cp = max(c0, W);
+  p.npad = c0 + pw - p.cp;
+  // unless every row starts on a 16-byte boundary and its interior is whole
+  // vectors, with no pad
+  p.ragged = (reinterpret_cast<uintptr_t>(plane + c0) & 15) != 0 ||
+             ((W | p.len) & ((1 << RowBody<T>::kShift) - 1)) != 0 || p.npad > 0;
+  return p;
 }
 
 // Vectors a lane loads at a time (the A/B timed 1 within 2 % of 3).
@@ -71,9 +146,7 @@ constexpr int kTileLoads = 3;
 __global__ void __launch_bounds__(kCountThreads, 3)
 hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
                      int gh, int gw, int th, int tw, int band_rows, int bands) {
-  constexpr int kRowWarps = kCountThreads / 32;
   extern __shared__ __align__(16) uint32_t count_smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   HistCounter c;
   c.begin(count_smem);
   __syncthreads();
@@ -84,59 +157,103 @@ hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, i
   const int t = int(tile - b * ntiles);
   const int ty = t / gw, tx = t - (t / gw) * gw;
   const uint8_t* plane = x + b * int64_t(H) * W;
-  const int c0 = tx * tw;
-  const int len = max(min(c0 + tw, W) - c0, 0);  // interior columns
-  const int cp = max(c0, W);                      // first pad column
-  const int npad = c0 + tw - cp;
-  // rows with head, tail or pad bytes: unless every row starts on a 16-byte
-  // boundary and its interior is whole vectors, with no pad
-  const bool ragged = (reinterpret_cast<uintptr_t>(plane + c0) & 15) != 0 ||
-                      ((W | len) & 15) != 0 || npad > 0;
+  const Piece pc = tile_piece(plane, W, tx * tw, tw);
 
   for (int band = blockIdx.y; band < bands; band += gridDim.y) {
     const int R0 = ty * th + band * band_rows;  // the band's first padded row
     const int nrows = min(band_rows, th - band * band_rows);
-
-    // this lane's place in the stream: row q, vector j of its body
-    int q = warp, j = lane;
-    RowBody row = {nullptr, 0, 0};
-    if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
-    while (q < nrows && j >= row.nv) {
-      j -= row.nv;
-      q += kRowWarps;
-      if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
-    }
-    count_vectors<kTileLoads>(c, [&](VecGroup<kTileLoads>& grp) {
-#pragma unroll
-      for (int u = 0; u < kTileLoads; ++u) {
-        grp.ok[u] = q < nrows;
-        grp.v[u] = grp.ok[u] ? __ldg(row.vec() + j) : make_uint4(0, 0, 0, 0);
-        j += 32;
-        while (q < nrows && j >= row.nv) {
-          j -= row.nv;
-          q += kRowWarps;
-          if (q < nrows) row = row_body(plane, R0 + q, H, W, c0, len);
-        }
-      }
-    });
-
-    // head and tail bytes (lanes 0-15 and 16-31), then the pad columns
-    for (int r = warp; ragged && r < nrows; r += kRowWarps) {
-      const RowBody rb = row_body(plane, R0 + r, H, W, c0, len);
-      const int tail0 = rb.head + (rb.nv << 4);
-      if (lane < 16) {
-        if (lane < rb.head) c.add_byte(rb.s[lane]);
-      } else if (tail0 + lane - 16 < len) {
-        c.add_byte(rb.s[tail0 + lane - 16]);
-      }
-      const uint8_t* src = rb.s - c0;  // the source row
-      for (int k = lane; k < npad; k += 32) c.add_byte(src[reflect101(cp + k, W)]);
-    }
+    count_tile_rows<uint8_t, kTileLoads, kCountThreads / 32>(c, plane, H, W, R0, nrows, pc.c0,
+                                                            pc.len, pc.cp, pc.npad, pc.ragged);
   }
   __syncthreads();
 
   const uint32_t sum = c.bin_total();
-  if (sum) atomicAdd(&out[tile * 256 + tid], int32_t(sum));
+  if (sum) atomicAdd(&out[tile * 256 + threadIdx.x], int32_t(sum));
+}
+
+// ---------------------------------------------------------------------------
+// hist65536_tiles: stage A for u16.  The JAX package computes it in XLA
+// (ops/clahe.py:55-61: a byte-split MXU product on the TPU, a scatter
+// elsewhere); no Pallas kernel.  The torch route it replaces (kernels/
+// clahe.py::tile_hists_plain: int64 widening, two index copies and a
+// bincount into B*gh*gw*65536 bins) moves about 1.5 GB for 33 MB of pixels.
+// Bound by device memory: 2 B/px read and the [B*gh*gw, 65536] int32
+// output written once.
+//
+// 65536 int32 counters (256 KiB) do not fit a block's shared memory, so two
+// blocks count each tile (tiles on gridDim.x, gridDim.y = 2): block y owns
+// values [32768 y, 32768 y + 32768) with 32768 int32 counters in 128 KiB of
+// dynamic shared memory.  Each walks the whole tile with hist256_tiles' row
+// walk (count_tile_rows: rows read in place as 16-byte vectors of 8 pixels,
+// the pad through reflected indices), adds its half's pixels with one
+// shared atomic each (one per vector of 8 equal pixels), and stores its
+// half of the tile's bins whole: no zero fill and no global atomics, for
+// 4 B/px of reads.  Chosen by A/B (tools/torch_hist_profile.py --ab16,
+// PERF.md §6) over bands of at most 65535 pixels counted into 16-bit
+// halves of 32768 words and added into a zeroed output with global
+// atomics: 0.0906 against 0.0443 ms on random 4K planes (NVIDIA H100 80GB
+// HBM3, 700 W).
+// ---------------------------------------------------------------------------
+
+constexpr int kHist16Threads = 1024;
+constexpr int kHist16Loads = 2;
+
+struct CountHalf {
+  static constexpr int kSmemBytes = 32768 * 4;
+  uint32_t* w;
+  uint32_t half;
+
+  __device__ __forceinline__ void zero() {
+    uint4* z = reinterpret_cast<uint4*>(w);
+    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void add_one(uint32_t v) {
+    if ((v >> 15) == half) atomicAdd(&w[v & 32767u], 1u);
+  }
+  __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
+    if (!valid) return;
+    const uint32_t b = v.x & 0xffffu;
+    if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
+      if ((b >> 15) == half) atomicAdd(&w[b & 32767u], 8u);
+      return;
+    }
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      add_one(q[i] & 0xffffu);
+      add_one(q[i] >> 16);
+    }
+  }
+  // the half's 32768 bins of the tile's output row; after a barrier that
+  // follows the last add
+  __device__ __forceinline__ void store(int32_t* __restrict__ o) const {
+    const uint4* src = reinterpret_cast<const uint4*>(w);
+    uint4* dst = reinterpret_cast<uint4*>(o + half * 32768);
+    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) dst[i] = src[i];
+  }
+};
+
+__global__ void __launch_bounds__(kHist16Threads, 1)
+hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
+                       int gh, int gw, int th, int tw) {
+  extern __shared__ __align__(16) uint32_t count_smem[];
+  CountHalf c;
+  c.w = count_smem;
+  c.half = blockIdx.y;
+  c.zero();
+  __syncthreads();
+
+  const int64_t tile = blockIdx.x;  // b * gh * gw + ty * gw + tx
+  const int ntiles = gh * gw;
+  const int64_t b = tile / ntiles;
+  const int t = int(tile - b * ntiles);
+  const int ty = t / gw, tx = t - (t / gw) * gw;
+  const uint16_t* plane = x + b * int64_t(H) * W;
+  const Piece pc = tile_piece(plane, W, tx * tw, tw);
+  count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(c, plane, H, W, ty * th, th, pc.c0,
+                                                              pc.len, pc.cp, pc.npad, pc.ragged);
+  __syncthreads();
+  c.store(out + tile * 65536);
 }
 
 // ---------------------------------------------------------------------------
@@ -263,12 +380,37 @@ clahe_lut_kernel(const int32_t* __restrict__ hist, L* __restrict__ lut, int32_t 
 // registers, 256-thread blocks, bands of 8 or 32 rows and 2 or 8 rows ahead
 // on the H100 (PERF.md).  The random table reads of a warp meet
 // about 3.5 bank conflicts on average; replicating the table is untried.
-// u16 (clahe_blend_kernel, S = 65536, 128 KiB per LUT): every pixel loads
-// its four entries straight from the [B*T, S] table (L1/L2).  One block
-// covers 256 columns by kBlendRows rows of one plane.
+// u16 (clahe_blend_u16_kernel, S = 65536: 128 KiB per LUT, 512 KiB for a
+// cell's four).  Per-pixel gathers from the [B*T, S] tables meet four
+// scattered 32-byte L2 sectors per pixel (about 2 GB of L2 traffic for a
+// 4K pair), so here the LUTs come to the pixels in value chunks through
+// shared memory.  A block covers a region of one plane inside one
+// interpolation cell: rows of one row cell (kernels/clahe.py::
+// blend16_rows) by the columns of one column piece (blend16_pieces: a
+// column cell, cut at kB16MaxPieceVecs vectors), as many rows as fill its
+// kB16Threads * kB16Vecs vectors of 8 pixels.  A thread loads kB16Vecs
+// vectors into shared memory (its words at a stride of kB16Threads, so a
+// warp's reads of them meet no bank conflict); pixels of an edge vector
+// outside the piece belong to the neighbouring cell's block and are not
+// stored.  The block finds its least and greatest value and the
+// kB16Chunk-value chunks its pixels use; for each used chunk it stages
+// only the values between its least and greatest, as 8-byte quads
+// (l00 | l01 << 16, l10 | l11 << 16: coalesced 16-byte loads of the four
+// LUT rows, __byte_perm), then the chunk's pixels read their quads there
+// and blend.  A warp whose lanes each have all their pixels in the chunk
+// or none (flat, 12-bit, most smooth regions) walks each lane's words in
+// order; else each lane walks its own pixels of the chunk, found through
+// bit planes of the value bits above the chunk (bit k of plane i: bit
+// kB16Shift + i of pixel k), lowest first.  u16 -> f32 as 0x4B000000 | v
+// minus 2^23 and the result as the low bits of r + 2^23, as for u8.
+// Chosen by A/B (tools/torch_hist_profile.py --ab16, PERF.md §6): 16 or
+// 64 pixels a thread, chunks of 4096 or 16384 values and the walk without
+// the one-chunk path lost on every kind of plane they changed; 1024-thread
+// blocks and four-array staging won on random planes and lost on flat and
+// 12-bit ones, which real u16 frames resemble more.  Random data stays
+// bound by the per-lane walk over 8 chunks and the L2 reads of the staged
+// quads; two-valued planes ({0, 65535}) stage two whole chunks and walk both.
 // ---------------------------------------------------------------------------
-
-constexpr int kBlendRows = 8;
 
 constexpr int kBlendThreads = 128;
 constexpr int kBlendPx = 8;      // adjacent pixels of a row per thread: one uint2
@@ -408,41 +550,273 @@ clahe_blend_u8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   }
 }
 
-template <typename P, int S>
-__global__ void __launch_bounds__(kThreads)
-clahe_blend_kernel(const P* __restrict__ x, const P* __restrict__ luts, P* __restrict__ out,
-                   int64_t B, int H, int W, int gh, int gw,
-                   const int32_t* __restrict__ yidx, const float* __restrict__ fyv,
-                   const int32_t* __restrict__ xidx, const float* __restrict__ fxv) {
-  const int xx = blockIdx.x * kThreads + threadIdx.x;
-  if (xx >= W) return;
-  const int x0 = xidx[xx], x1 = xidx[W + xx];
-  const float fx = fxv[xx];
-  const float gx = __fsub_rn(1.0f, fx);
-  const int64_t ntiles = int64_t(gh) * gw;
-  const int64_t nbands = (H + kBlendRows - 1) / kBlendRows;
+constexpr int kB16Threads = 512;
+constexpr int kB16Vecs = 4;           // 8-pixel vectors a thread holds: 32 pixels
+constexpr int kB16Items = kB16Threads * kB16Vecs;  // vectors a block covers at most
+constexpr int kB16Shift = 13;         // chunks of 8192 values: 64 KiB of quads
+constexpr int kB16Chunk = 1 << kB16Shift;
+constexpr int kB16Planes = 16 - kB16Shift;
+constexpr int kB16MaxPieceVecs = 256;  // columns of a piece: 8 KiB of fx
+constexpr int kB16MinBlocks = 2;
+// quads, the piece's fx, the block's pixels (word w of thread t at w * kB16Threads + t)
+constexpr int kB16SmemBytes = kB16Chunk * 8 + kB16MaxPieceVecs * 8 * 4 + kB16Items * 16;
+// bit 8 j + k of a thread's masks: pixel k of its vector j
+using B16Mask = std::conditional_t<kB16Vecs * 8 <= 32, uint32_t, uint64_t>;
 
-  // (plane, row band) pairs stride over gridDim.y, so any number of planes
-  // and rows fits the grid
-  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {
-    const int64_t b = item / nbands;
-    const int ya = int(item - b * nbands) * kBlendRows;
-    const int yb = min(ya + kBlendRows, H);
-    const P* lb = luts + b * ntiles * S;
+__device__ __forceinline__ float u16_entry(uint32_t w, uint32_t sel) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, kMagic, sel)), kTwo23);
+}
+
+__device__ __forceinline__ int lowest_bit(uint32_t m) { return __ffs(int(m)) - 1; }
+__device__ __forceinline__ int lowest_bit(uint64_t m) { return __ffsll((long long)(m)) - 1; }
+
+// the pixels of `m` in value chunk ch, from the bit planes
+__device__ __forceinline__ B16Mask chunk_pixels(const B16Mask (&bits)[kB16Planes], B16Mask m,
+                                                int ch) {
+#pragma unroll
+  for (int i = 0; i < kB16Planes; ++i) m &= ((ch >> i) & 1) ? bits[i] : ~bits[i];
+  return m;
+}
+
+// entry j of a thread's per-vector registers, j < kB16Vecs, without local memory
+template <typename T>
+__device__ __forceinline__ T pick(const T (&a)[kB16Vecs], int j) {
+  T r = a[0];
+#pragma unroll
+  for (int i = 1; i < kB16Vecs; ++i) r = j == i ? a[i] : r;
+  return r;
+}
+
+// Stage values v0 + 8 g .. v0 + 8 g + 7 of the four LUT rows (r00, r01:
+// the top row's left and right tiles; r10, r11 the bottom row's): one
+// 16-byte load from each row, four 16-byte stores of interleaved quads
+// (l00 | l01 << 16, l10 | l11 << 16), quad v - v0 at 8-byte word v - v0.
+__device__ __forceinline__ void stage_quads16(uint4* smem, const uint16_t* __restrict__ r00,
+                                              const uint16_t* __restrict__ r01,
+                                              const uint16_t* __restrict__ r10,
+                                              const uint16_t* __restrict__ r11, int g) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(r00) + g);
+  const uint4 b = __ldg(reinterpret_cast<const uint4*>(r01) + g);
+  const uint4 c = __ldg(reinterpret_cast<const uint4*>(r10) + g);
+  const uint4 d = __ldg(reinterpret_cast<const uint4*>(r11) + g);
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+  const uint32_t cw[4] = {c.x, c.y, c.z, c.w}, dw[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w)
+    smem[4 * g + w] = make_uint4(__byte_perm(aw[w], bw[w], 0x5410), __byte_perm(cw[w], dw[w], 0x5410),
+                                 __byte_perm(aw[w], bw[w], 0x7632), __byte_perm(cw[w], dw[w], 0x7632));
+}
+
+// the staged quad of value v (in the chunk)
+__device__ __forceinline__ uint2 quad_at(const uint4* smem, uint32_t v) {
+  return reinterpret_cast<const uint2*>(smem)[v & (kB16Chunk - 1)];
+}
+
+// blend pixel k (0 or 1) of word w through quad q: the four entries, then
+// blend_tile_luts' association, each step rounded once; the result in the
+// low 16 bits
+__device__ __forceinline__ uint32_t blend16(uint2 q, float fx, float fy) {
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
+  const float top = __fadd_rn(__fmul_rn(gx, u16_entry(q.x, 0x7610)),
+                              __fmul_rn(fx, u16_entry(q.x, 0x7632)));
+  const float bot = __fadd_rn(__fmul_rn(gx, u16_entry(q.y, 0x7610)),
+                              __fmul_rn(fx, u16_entry(q.y, 0x7632)));
+  const float r = fminf(fmaxf(__fadd_rn(__fmul_rn(gy, top), __fmul_rn(fy, bot)), 0.0f), 65535.0f);
+  return __float_as_uint(__fadd_rn(r, kTwo23));
+}
+
+// pieces: [npieces, 3] int32 (first column, end column, rows per block);
+// rcells: [nrcells, 2] int32 (first row, end row).  blockIdx.x is piece *
+// maxbands + band; (plane, row cell) pairs stride over gridDim.y.
+template <bool kVec>
+__global__ void __launch_bounds__(kB16Threads, kB16MinBlocks)
+clahe_blend_u16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ luts,
+                       uint16_t* __restrict__ out, int64_t B, int H, int W, int gh, int gw,
+                       const int32_t* __restrict__ yidx, const float* __restrict__ fyv,
+                       const int32_t* __restrict__ xidx, const float* __restrict__ fxv,
+                       const int32_t* __restrict__ pieces, int maxbands,
+                       const int32_t* __restrict__ rcells, int nrcells) {
+  extern __shared__ __align__(16) uint4 b16_smem[];
+  float* sfx = reinterpret_cast<float*>(b16_smem + kB16Chunk / 2);
+  uint32_t* px = reinterpret_cast<uint32_t*>(sfx + kB16MaxPieceVecs * 8);
+  __shared__ uint32_t vrange[3];  // the block's least and greatest value, its chunks
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x / maxbands, band = blockIdx.x - p * maxbands;
+  const int xa = pieces[3 * p], xb = pieces[3 * p + 1], rpb = pieces[3 * p + 2];
+  const int xv = xa & ~7;                      // the first vector's first column
+  const int nv = ((xb + 7) >> 3) - (xa >> 3);  // vectors per row
+  for (int i = tid; i < nv * 8; i += kB16Threads) sfx[i] = fxv[min(xv + i, W - 1)];
+  const int tx0 = xidx[xa], tx1 = xidx[W + xa];
+  const int64_t ntiles = int64_t(gh) * gw;
+
+  for (int64_t item = blockIdx.y; item < B * nrcells; item += gridDim.y) {
+    const int64_t b = item / nrcells;
+    const int rc = int(item - b * nrcells);
+    const int64_t ya64 = rcells[2 * rc] + int64_t(band) * rpb;
+    const int yend = rcells[2 * rc + 1];
+    if (ya64 >= yend) continue;  // the same for the whole block
+    const int ya = int(ya64);
+    const int n = (min(ya + rpb, yend) - ya) * nv;  // the region's vectors
+    const int ty0 = yidx[ya], ty1 = yidx[H + ya];
     const int64_t plane = b * int64_t(H) * W;
-    for (int y = ya; y < yb; ++y) {
-      const int y0 = yidx[y], y1 = yidx[H + y];
-      const float fy = fyv[y];
-      const int64_t px = plane + int64_t(y) * W + xx;
-      const int v = int(x[px]);
-      const float l00 = float(lb[(int64_t(y0) * gw + x0) * S + v]);
-      const float l01 = float(lb[(int64_t(y0) * gw + x1) * S + v]);
-      const float l10 = float(lb[(int64_t(y1) * gw + x0) * S + v]);
-      const float l11 = float(lb[(int64_t(y1) * gw + x1) * S + v]);
-      const float top = __fadd_rn(__fmul_rn(gx, l00), __fmul_rn(fx, l01));
-      const float bot = __fadd_rn(__fmul_rn(gx, l10), __fmul_rn(fx, l11));
-      const float o = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, fy), top), __fmul_rn(fy, bot));
-      out[px] = P(__float2int_rn(fminf(fmaxf(rintf(o), 0.0f), float(S - 1))));
+
+    // the thread's vectors (8 pixels each, two to a word) into px, where
+    // word w of vector j is px[(4 j + w) * kB16Threads + tid]; a pixel
+    // outside the piece's columns takes the value of one inside, so that
+    // every pixel of a vector lies in a chunk its block stages (it is
+    // blended, and not stored).  The row's fy and the first column relative
+    // to xv stay in registers.
+    float fy[kB16Vecs];
+    int col[kB16Vecs];
+    B16Mask valid = 0;                 // the block's pixels (columns [xa, xb))
+    uint32_t vmin2 = 0xffffffffu, vmax2 = 0;  // per 16-bit half
+#pragma unroll
+    for (int j = 0; j < kB16Vecs; ++j) {
+      const int it = tid + j * kB16Threads;
+      fy[j] = 0.0f;
+      col[j] = 0;
+      if (it >= n) continue;
+      const int r = it / nv;
+      col[j] = (it - r * nv) << 3;
+      fy[j] = fyv[ya + r];
+      const uint16_t* src = x + plane + int64_t(ya + r) * W + xv + col[j];
+      uint32_t d[4] = {0, 0, 0, 0};
+      if (kVec) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        d[0] = v.x;
+        d[1] = v.y;
+        d[2] = v.z;
+        d[3] = v.w;
+      }
+      uint32_t vm = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c = xv + col[j] + k;
+        if (!kVec && c < W) d[k >> 1] |= uint32_t(src[k]) << (16 * (k & 1));
+        if (c >= xa && c < xb) vm |= 1u << k;
+      }
+      valid |= B16Mask(vm) << (8 * j);
+      if (vm != 0xffu) {  // an edge vector: the first pixel inside fills the rest
+        const int k0 = __ffs(int(vm)) - 1;
+        const uint32_t v0 = (d[k0 >> 1] >> (16 * (k0 & 1))) & 0xffffu;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (!((vm >> k) & 1u))
+            d[k >> 1] = (d[k >> 1] & (0xffffu << (16 * (1 - (k & 1))))) | (v0 << (16 * (k & 1)));
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        px[(4 * j + w) * kB16Threads + tid] = d[w];
+        vmin2 = __vminu2(vmin2, d[w]);
+        vmax2 = __vmaxu2(vmax2, d[w]);
+      }
+    }
+    const uint32_t tmin = min(vmin2 & 0xffffu, vmin2 >> 16);
+    const uint32_t tmax = max(vmax2 & 0xffffu, vmax2 >> 16);
+    const int cmin = valid ? int(tmin >> kB16Shift) : 1 << kB16Planes;  // the thread's chunks
+    const int cmax = valid ? int(tmax >> kB16Shift) : -1;
+    // the pixels of each chunk, where the thread's pixels span several:
+    // bit plane i holds value bit kB16Shift + i of each pixel
+    B16Mask bits[kB16Planes] = {};
+    uint32_t mine = cmin == cmax ? 1u << cmin : 0u;  // the chunks the thread's pixels use
+    if (cmin != cmax && cmax >= 0) {
+#pragma unroll
+      for (int s = 0; s < kB16Vecs * 8; s += 2) {
+        const uint32_t w = px[(s >> 1) * kB16Threads + tid];
+#pragma unroll
+        for (int i = 0; i < kB16Planes; ++i)
+          bits[i] |= (B16Mask((w >> (kB16Shift + i)) & 1u) << s) |
+                     (B16Mask((w >> (16 + kB16Shift + i)) & 1u) << (s + 1));
+      }
+#pragma unroll
+      for (int c = 0; c < (1 << kB16Planes); ++c)
+        if (chunk_pixels(bits, valid, c)) mine |= 1u << c;
+    }
+    // the block's value range
+    const uint32_t wmin = __reduce_min_sync(0xffffffffu, valid ? tmin : 0xffffu);
+    const uint32_t wmax = __reduce_max_sync(0xffffffffu, valid ? tmax : 0u);
+    mine = __reduce_or_sync(0xffffffffu, mine);
+    __syncthreads();  // sfx is staged; the previous item's quads and vrange are read
+    if (tid == 0) {
+      vrange[0] = 0xffffu;
+      vrange[1] = 0;
+      vrange[2] = 0;
+    }
+    __syncthreads();
+    if ((tid & 31) == 0) {
+      atomicMin(&vrange[0], wmin);
+      atomicMax(&vrange[1], wmax);
+      atomicOr(&vrange[2], mine);
+    }
+    __syncthreads();
+    const int bmin = int(vrange[0]), bmax = int(vrange[1]);
+    uint32_t chunks = vrange[2];
+
+    const uint16_t* lb = luts + ((b * ntiles) << 16);
+    const int64_t t00 = int64_t(ty0 * gw + tx0) << 16, t01 = int64_t(ty0 * gw + tx1) << 16;
+    const int64_t t10 = int64_t(ty1 * gw + tx0) << 16, t11 = int64_t(ty1 * gw + tx1) << 16;
+    while (chunks) {
+      const int ch = __ffs(int(chunks)) - 1;
+      chunks &= chunks - 1;
+      const int v0 = ch << kB16Shift;
+      if (ch != (bmin >> kB16Shift)) __syncthreads();  // the previous chunk's quads are read
+      // the chunk's values the block can use, 8 a step
+      const int g0 = (max(bmin, v0) - v0) >> 3, g1 = (min(bmax, v0 + kB16Chunk - 1) - v0) >> 3;
+      for (int g = g0 + tid; g <= g1; g += kB16Threads)
+        stage_quads16(b16_smem, lb + t00 + v0, lb + t01 + v0, lb + t10 + v0, lb + t11 + v0, g);
+      __syncthreads();
+      const bool all_here = cmin == ch && cmax == ch;
+      if (__all_sync(0xffffffffu, all_here || ch < cmin || ch > cmax)) {
+        // every lane has all its pixels in this chunk or none: each takes its
+        // words in order, both pixels of a word
+        if (!all_here) continue;
+#pragma unroll
+        for (int j = 0; j < kB16Vecs; ++j) {
+          if (!((valid >> (8 * j)) & 0xffu)) continue;
+          const float* f = sfx + col[j];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            uint32_t* word = px + (4 * j + w) * kB16Threads + tid;
+            const uint32_t v = *word;
+            const uint32_t lo = blend16(quad_at(b16_smem, v), f[2 * w], fy[j]);
+            const uint32_t hi = blend16(quad_at(b16_smem, v >> 16), f[2 * w + 1], fy[j]);
+            *word = __byte_perm(lo, hi, 0x5410);
+          }
+        }
+        continue;
+      }
+      // else each lane walks its own pixels of the chunk, lowest first: a
+      // warp takes as many steps as its busiest lane has pixels there
+      B16Mask m = (ch < cmin || ch > cmax) ? B16Mask(0) : valid;
+      if (cmin != cmax) m = chunk_pixels(bits, m, ch);
+      while (__any_sync(0xffffffffu, m != 0)) {
+        if (!m) continue;
+        const int s = lowest_bit(m);
+        m &= m - 1;
+        const int j = s >> 3, k = s & 7;
+        uint16_t* slot = reinterpret_cast<uint16_t*>(px + (4 * j + (k >> 1)) * kB16Threads + tid) +
+                         (k & 1);
+        *slot = uint16_t(blend16(quad_at(b16_smem, *slot), sfx[pick(col, j) + k], pick(fy, j)));
+      }
+    }
+
+    // the results replaced the thread's own pixels in px
+#pragma unroll
+    for (int j = 0; j < kB16Vecs; ++j) {
+      const uint32_t vm = uint32_t(valid >> (8 * j)) & 0xffu;
+      if (!vm) continue;
+      const int r = (tid + j * kB16Threads) / nv;
+      uint32_t d[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) d[w] = px[(4 * j + w) * kB16Threads + tid];
+      uint16_t* dst = out + plane + int64_t(ya + r) * W + xv + col[j];
+      if (kVec && vm == 0xffu) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(d[0], d[1], d[2], d[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if ((vm >> k) & 1u) dst[k] = uint16_t(d[k >> 1] >> (16 * (k & 1)));
+      }
     }
   }
 }
@@ -472,6 +846,23 @@ int ie_hist256_tiles(const uint8_t* x, int32_t* out, int64_t B, int64_t H, int64
   return int(cudaGetLastError());
 }
 
+// x: [B, H, W] u16 contiguous; out: [B*gh*gw, 65536] int32, written
+// whole; tiles as for ie_hist256_tiles.
+int ie_hist65536_tiles(const uint16_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
+                       int32_t gh, int32_t gw, int64_t th, int64_t tw, cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || th < 1 || tw < 1 ||
+      int64_t(gh) * th < H || int64_t(gw) * tw < W || int64_t(gh) * th > 0x7fffffffLL ||
+      int64_t(gw) * tw > 0x7fffffffLL || B * gh * gw > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      hist65536_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CountHalf::kSmemBytes);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(unsigned(B * gh * gw), 2);
+  hist65536_tiles_kernel<<<grid, kHist16Threads, CountHalf::kSmemBytes, stream>>>(
+      x, out, int(H), int(W), gh, gw, int(th), int(tw));
+  return int(cudaGetLastError());
+}
+
 // hist: [BT, S] int32 (S = 256 or 65536), each row summing to the tile area;
 // lut: [BT, S] u8 (S = 256) or u16 (S = 65536).  clip_abs 0 skips the clip.
 int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t clip_abs,
@@ -490,17 +881,22 @@ int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t 
 }
 
 // x, out: [B, H, W] contiguous, u8 (elem_bytes 1, S = 256) or u16
-// (elem_bytes 2, S = 65536); luts: [B*gh*gw, S] of the same type (u8: 4-byte
-// aligned).  yidx: [2, H] int32 (y0 then y1), fy: [H] f32; xidx: [2, W], fx:
-// [W].  u8 only: chunk (a multiple of 16, at most 2048) columns and band rows
-// per block, from kernels/clahe.py::blend_chunk and blend_band (every chunk
-// within kMaxCells column cells).
+// (elem_bytes 2, S = 65536); luts: [B*gh*gw, S] of the same type (u8:
+// 4-byte aligned; u16: 16-byte aligned).  yidx: [2, H] int32 (y0 then y1),
+// fy: [H] f32; xidx: [2, W], fx: [W].  u8 only: chunk (a multiple of 16, at
+// most 2048) columns and band rows per block, from kernels/clahe.py::
+// blend_chunk and blend_band (every chunk within kMaxCells column cells).
+// u16 only: pieces [npieces, 3] and rcells [nrcells, 2] int32 from
+// kernels/clahe.py::blend16_pieces and blend16_rows, maxbands the most row
+// bands of any piece in any row cell.
 int ie_clahe_blend(const void* x, const void* luts, void* out, int64_t B, int64_t H, int64_t W,
                    int32_t elem_bytes, int32_t gh, int32_t gw, const int32_t* yidx,
-                   const float* fy, const int32_t* xidx, const float* fx, int32_t chunk,
-                   int32_t band, cudaStream_t stream) {
+                   const float* fy, const int32_t* xidx, const float* fx,
+                   const int32_t* pieces, int32_t npieces, int32_t maxbands,
+                   const int32_t* rcells, int32_t nrcells, int32_t chunk, int32_t band,
+                   cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || W > 0x7fffffffLL - kMaxChunk ||
-      H > 0x7fffffffLL - kBlendRows)
+      H > 0x7fffffffLL - kB16Items)
     return int(cudaErrorInvalidValue);
   if (elem_bytes == 1) {
     if (chunk < kBlendPx || chunk > kMaxChunk || chunk % kBlendPx || band < 1 ||
@@ -520,12 +916,32 @@ int ie_clahe_blend(const void* x, const void* luts, void* out, int64_t B, int64_
           static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
           static_cast<uint8_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx, chunk, band);
   } else if (elem_bytes == 2) {
-    const int64_t items = B * ((H + kBlendRows - 1) / kBlendRows);
-    const dim3 grid(unsigned((W + kThreads - 1) / kThreads),
+    if (pieces == nullptr || rcells == nullptr || npieces < 1 || maxbands < 1 || nrcells < 1 ||
+        int64_t(npieces) * maxbands > 0x7fffffffLL || (reinterpret_cast<uintptr_t>(luts) & 15))
+      return int(cudaErrorInvalidValue);
+    static const cudaError_t attr[2] = {
+        cudaFuncSetAttribute(clahe_blend_u16_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kB16SmemBytes),
+        cudaFuncSetAttribute(clahe_blend_u16_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kB16SmemBytes)};
+    if (attr[0] != cudaSuccess) return int(attr[0]);
+    if (attr[1] != cudaSuccess) return int(attr[1]);
+    const int64_t items = B * nrcells;
+    const dim3 grid(unsigned(int64_t(npieces) * maxbands),
                     unsigned(items < kMaxGridY ? items : kMaxGridY));
-    clahe_blend_kernel<uint16_t, 65536><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
-        static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx);
+    // 8-pixel vectors: rows of whole vectors, 16-byte aligned planes
+    const bool vec = W % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    if (vec)
+      clahe_blend_u16_kernel<true><<<grid, kB16Threads, kB16SmemBytes, stream>>>(
+          static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
+          static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx, pieces,
+          maxbands, rcells, nrcells);
+    else
+      clahe_blend_u16_kernel<false><<<grid, kB16Threads, kB16SmemBytes, stream>>>(
+          static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
+          static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx, pieces,
+          maxbands, rcells, nrcells);
   } else {
     return int(cudaErrorInvalidValue);
   }

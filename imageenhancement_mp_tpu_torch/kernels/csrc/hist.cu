@@ -83,8 +83,8 @@ hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t
         i += stride;
       }
     });
-    for (int64_t j = g0 + tid; j < s.head; j += stride) c.add_byte(p[j]);
-    for (int64_t j = s.tail_start + g0 + tid; j < n; j += stride) c.add_byte(p[j]);
+    for (int64_t j = g0 + tid; j < s.head; j += stride) c.add_one(p[j]);
+    for (int64_t j = s.tail_start + g0 + tid; j < n; j += stride) c.add_one(p[j]);
     __syncthreads();
 
     const uint32_t sum = c.bin_total();

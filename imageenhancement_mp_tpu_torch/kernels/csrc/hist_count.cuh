@@ -2,7 +2,7 @@
 // shared by hist.cu (hist256) and clahe.cu (hist256_tiles).  Both kernels
 // feed it 16-pixel vectors through count_vectors, in groups of N loads, the
 // next group loaded before the last is counted, and the odd bytes of a row
-// or plane (head, tail, pad) one at a time through add_byte.
+// or plane (head, tail, pad) one at a time through add_one.
 //
 // HistCounter keeps 32 copies of the 256 bins, one per lane index, with
 // lane l's copy of bin v at word 32 v + l: each lane of a warp adds into its
@@ -37,7 +37,7 @@ struct HistCounter {
     uint4* z = reinterpret_cast<uint4*>(smem);
     for (int i = threadIdx.x; i < kSmemBytes / 16; i += kCountThreads) z[i] = make_uint4(0, 0, 0, 0);
   }
-  __device__ __forceinline__ void add_byte(uint32_t v) { atomicAdd(&mine[v << 5], 1u); }
+  __device__ __forceinline__ void add_one(uint32_t v) { atomicAdd(&mine[v << 5], 1u); }
   __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
     if (!valid) return;
     const uint32_t b = v.x & 255u;
@@ -47,7 +47,7 @@ struct HistCounter {
     }
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) add_byte((w[i / 4] >> (8 * (i % 4))) & 255u);
+    for (int i = 0; i < 16; ++i) add_one((w[i / 4] >> (8 * (i % 4))) & 255u);
   }
   // The count of bin threadIdx.x; after a barrier that follows the last add.
   // Its 32 copies are read along a diagonal, so a warp's reads hit 32 banks.
@@ -67,11 +67,11 @@ struct VecGroup {
   bool ok[N];
 };
 
-// The loop both kernels run: `load(group)` fills the next group of this
-// thread's vectors (ok false past its last, and in every group after it);
+// The loop both kernels run (and clahe.cu's hist65536_tiles, with its own
+// counter): `load(group)` fills the next group of this thread's vectors (ok false past its last, and in every group after it);
 // each group is loaded before the previous one is counted.
-template <int N, typename Load>
-__device__ __forceinline__ void count_vectors(HistCounter& c, Load load) {
+template <int N, typename Counter, typename Load>
+__device__ __forceinline__ void count_vectors(Counter& c, Load load) {
   VecGroup<N> cur;
   load(cur);
   while (cur.ok[0]) {

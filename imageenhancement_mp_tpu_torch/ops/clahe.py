@@ -32,7 +32,7 @@ from imageenhancement_mp_tpu_torch.kernels.clahe import (
     clahe_blend,
     clahe_lut,
     hist256_tiles,
-    tile_hists_plain,
+    hist65536_tiles,
 )
 
 __all__ = ["clahe_planes", "clahe_tile_luts", "blend_tile_luts", "tile_geometry"]
@@ -99,6 +99,6 @@ def clahe_planes(planes: torch.Tensor, clip_limit: float = 40.0,
     if planes.dtype == torch.uint8:
         hists = hist256_tiles(planes, gh, gw, th, tw)
     else:
-        hists = tile_hists_plain(planes, gh, gw, th, tw)
+        hists = hist65536_tiles(planes, gh, gw, th, tw)
     luts = clahe_tile_luts(hists, th * tw, float(clip_limit))
     return blend_tile_luts(planes, luts, gh, gw, th, tw)

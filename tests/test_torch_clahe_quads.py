@@ -165,7 +165,7 @@ def test_cuda_branch_u16_and_alignment(monkeypatch):
     gh, gw, th, tw = tc.tile_geometry(64, 256, (8, 2))
     tables = (*tc._coord_tables(64, th, gh, x16.device), *tc._coord_tables(256, tw, gw, x16.device))
     kc.clahe_blend(x16, torch.zeros((gh * gw, 65536), dtype=torch.uint16), gh, gw, *tables)
-    assert launches[-1][-2:] == (0, 0)  # the u16 kernel's blocks are fixed
+    assert launches[-1][-2:] == (0, 0)  # the u8 plan: the u16 kernel takes its own
     x8 = torch.zeros((1, 64, 256), dtype=torch.uint8)
     buf = torch.zeros(gh * gw * 256 + 1, dtype=torch.uint8)
     with pytest.raises(ValueError, match="4-byte aligned"):

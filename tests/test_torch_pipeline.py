@@ -105,7 +105,8 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
     assert set(launch_counts) == {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
                                   "median", "hist256_tiles", "clahe_lut", "clahe_blend",
                                   "bilateral", "athresh", "warp_gather_u8", "take_table",
-                                  "apply_lut256_wide", "apply_luts_multi", "median_unsharp"}
+                                  "apply_lut256_wide", "apply_luts_multi", "median_unsharp",
+                                  "hist65536_tiles"}
 
 
 def test_public_functions_reject_what_the_port_does_not_take():

@@ -7,7 +7,8 @@ and its ``launch`` only records the call.  A ``[1, 1_100_000, 8]`` u8 plane
 (8.8 MB) is taller than 65535 tiles of 16 rows (median) or bands of 8 rows
 (clahe_blend), the grid-axis limit the kernels once put rows on (the LUT
 kernels take flat planes: tests/test_torch_lut.py drives them); the wrapper
-must neither raise nor launch more than once.  K1's two counting kernels
+must neither raise nor launch more than once; u16 CLAHE's stage A and
+blend take the same plane as u16.  K1's two counting kernels
 (hist256, hist256_tiles) take their grid from the host; its plan keeps
 ``gridDim.y`` within 65535 on ``[70000, 8, 8]`` and ``[1, 2_200_000, 8]``.
 """
@@ -94,6 +95,42 @@ def test_tall_plane_reaches_one_launch(monkeypatch, module, name, run):
     kernel, device, *args = launches[0]
     assert kernel == name and device == x.device
     assert TALL[1] in args  # the full height reaches the C entry point
+
+
+def _hist65536_tiles(x):
+    B, H, W = x.shape
+    return kclahe.hist65536_tiles(x, *tclahe.tile_geometry(H, W, (8, 8)))
+
+
+def _clahe_blend_u16(x):
+    B, H, W = x.shape
+    gh, gw, th, tw = tclahe.tile_geometry(H, W, (8, 8))
+    luts = torch.zeros((B * gh * gw, 65536), dtype=torch.uint16)
+    tables = (*tclahe._coord_tables(H, th, gh, x.device),
+              *tclahe._coord_tables(W, tw, gw, x.device))
+    return kclahe.clahe_blend(x, luts, gh, gw, *tables)
+
+
+@pytest.mark.parametrize("name,run,out_shape", [
+    ("hist65536_tiles", _hist65536_tiles, (64, 65536)),
+    ("clahe_blend", _clahe_blend_u16, TALL),
+], ids=["hist65536_tiles", "clahe_blend_u16"])
+def test_u16_tall_plane_reaches_one_launch(monkeypatch, name, run, out_shape):
+    """u16 CLAHE's two kernels on a [1, 1_100_000, 8] u16 plane: one launch
+    with the full height; the blend's plan puts (plane, row cell) pairs on
+    the grid's y axis and at most 2^31 - 1 blocks on its x axis."""
+    launches = []
+    monkeypatch.setattr(kclahe, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(kclahe, "launch", lambda *args: launches.append(args))
+    x = torch.zeros(TALL, dtype=torch.uint16)
+    out = run(x)
+    assert tuple(out.shape) == out_shape
+    assert len(launches) == 1
+    kernel, device, *args = launches[0]
+    assert kernel == name and device == x.device and TALL[1] in args
+    if name == "clahe_blend":
+        _, npieces, maxbands, _, nrows, chunk, band = args[-7:]
+        assert (chunk, band) == (0, 0) and npieces * maxbands < 2**31 and nrows <= 9
 
 
 @pytest.mark.parametrize("shape,grid", [((70000, 8, 8), (1, 1)), ((1, 2_200_000, 8), (8, 8))])

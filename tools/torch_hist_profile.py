@@ -30,8 +30,29 @@ device-paced, each held to its plain version first; then the SASS opcode
 histogram of both kernels in this tree and in the copy with design (a).
 The copies of designs (a), (b) and (c) carry their counters' code (_WARP,
 _COUNT_BYTES, _MATCH); the shipped header holds design (d), a copy of the
-bins per lane index.  Every line carries the card's name and power limit.
-Exits non-zero when torch sees no CUDA device.
+bins per lane index.
+
+u16 CLAHE:
+
+    python3 tools/torch_hist_profile.py --u16 --parent build/parent
+    python3 tools/torch_hist_profile.py --ab16 --parent build/parent
+
+``--u16`` replaces K1's cases: each tree's u16 stage A (hist65536_tiles,
+or tile_hists_plain in a tree without it), clahe_lut at S = 65536, the u16
+blend and the whole clahe call on 2x2160x3840 (grid 8x8) on random, smooth,
+constant and 12-bit planes (chip_smoke.py::u16_planes), and K5 and K13
+(apply_lut256 with u8, f32 and i16 tables, apply_luts_multi K = 9 with u8
+and f32 tables) on 8x1080x1920, in turns, back to back and device-paced;
+then each tree's clahe u16 calls under torch.profiler.  ``--ab16`` times
+u16 stage A and the u16 blend on the five kinds of plane in this checkout
+against copies with one design choice changed each (_ab16_variants: chunk
+size, pixels and threads a block, four-array staging, the walk without the
+one-chunk path, † copies without staging loads or blend arithmetic, stage
+A's former 16-bit counters over 65535-pixel bands, its threads and loads)
+and, with ``--parent``, two copies of the parent: its gathers with the
+blocks in another order (a), and per-cell quad tables in device memory
+with one gather a pixel (b).  Every line carries the card's name and power
+limit.  Exits non-zero when torch sees no CUDA device.
 """
 import argparse
 import collections
@@ -73,7 +94,7 @@ struct CountBytes {
     uint4* z = reinterpret_cast<uint4*>(smem);
     for (int i = threadIdx.x; i < kSmemBytes / 16; i += kCountThreads) z[i] = make_uint4(0, 0, 0, 0);
   }
-  __device__ __forceinline__ void add_byte(uint32_t v) { atomicAdd(&extra[v], 1u); }
+  __device__ __forceinline__ void add_one(uint32_t v) { atomicAdd(&extra[v], 1u); }
   __device__ __forceinline__ void add_word(uint32_t* col, uint32_t w) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -144,12 +165,12 @@ struct CountWarpAtomics {
     mine = smem + (threadIdx.x >> 5) * 256;
     for (int i = threadIdx.x; i < kSmemBytes / 4; i += kCountThreads) smem[i] = 0;
   }
-  __device__ __forceinline__ void add_byte(uint32_t v) { atomicAdd(&mine[v], 1u); }
+  __device__ __forceinline__ void add_one(uint32_t v) { atomicAdd(&mine[v], 1u); }
   __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
     if (!valid) return;
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) add_byte((w[i / 4] >> (8 * (i % 4))) & 255u);
+    for (int i = 0; i < 16; ++i) add_one((w[i / 4] >> (8 * (i % 4))) & 255u);
   }
   __device__ __forceinline__ uint32_t bin_total() const {
     uint32_t s = 0;
@@ -221,6 +242,276 @@ AB_VARIANTS = {
     "† no loads (walk and counting, hashed bytes)": (_NO_LOADS, False),
     "† neither (walk only)": ([_NO_COUNT, _NO_COUNT_SINK, _NO_COUNT_TOTAL] + _NO_LOADS, False),
 }
+# --- u16 CLAHE (--ab16): copies of this tree, or of the parent where marked
+_B16, _KP = "kernels/csrc/clahe.cu", "kernels/clahe.py"
+
+
+def _between(rel: str, start: str, end: str, root: Path = ROOT) -> str:
+    """The text of ``root``'s ``rel`` from ``start`` through ``end``."""
+    text = (root / PKG / rel).read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i) + len(end)]
+
+
+def _b16_const(name: str, old: int, new: int) -> tuple:
+    return (_B16, f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+def _b16_items(threads: int, vecs: int) -> tuple:
+    return (_KP, "B16_ITEMS, B16_MAX_PIECE_VECS = 512 * 4, 256",
+            f"B16_ITEMS, B16_MAX_PIECE_VECS = {threads} * {vecs}, 256")
+
+
+# four-array staging: the four LUT rows' entries as they are (one 16-byte
+# store each), a quad read as four 2-byte loads
+_FOUR_ARRAYS = r"""__device__ __forceinline__ void stage_quads16(uint4* smem, const uint16_t* __restrict__ r00,
+                                              const uint16_t* __restrict__ r01,
+                                              const uint16_t* __restrict__ r10,
+                                              const uint16_t* __restrict__ r11, int g) {
+  smem[g] = __ldg(reinterpret_cast<const uint4*>(r00) + g);
+  smem[kB16Chunk / 8 + g] = __ldg(reinterpret_cast<const uint4*>(r01) + g);
+  smem[kB16Chunk / 4 + g] = __ldg(reinterpret_cast<const uint4*>(r10) + g);
+  smem[3 * kB16Chunk / 8 + g] = __ldg(reinterpret_cast<const uint4*>(r11) + g);
+}
+
+// the staged quad of value v (in the chunk)
+__device__ __forceinline__ uint2 quad_at(const uint4* smem, uint32_t v) {
+  const uint16_t* s = reinterpret_cast<const uint16_t*>(smem);
+  v &= kB16Chunk - 1;
+  return make_uint2(s[v] | uint32_t(s[kB16Chunk + v]) << 16,
+                    s[2 * kB16Chunk + v] | uint32_t(s[3 * kB16Chunk + v]) << 16);
+}"""
+# (i): bands of at most 65535 pixels (hist65536_band_plan: rows, and
+# column pieces for tiles wider than 65535), each counted by one block into
+# 65536 16-bit halves of 32768 words (128 KiB), its nonzero halves added
+# into the zeroed output with global atomics
+_BANDS_COUNTER = r"""struct CountHalf {
+  static constexpr int kSmemBytes = 65536 * 2;
+  uint32_t* w;
+
+  __device__ __forceinline__ void zero() {
+    uint4* z = reinterpret_cast<uint4*>(w);
+    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void add_one(uint32_t v) {
+    atomicAdd(&w[v >> 1], 1u << ((v & 1u) << 4));
+  }
+  __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
+    if (!valid) return;
+    const uint32_t b = v.x & 0xffffu;
+    if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
+      atomicAdd(&w[b >> 1], 8u << ((b & 1u) << 4));
+      return;
+    }
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      add_one(q[i] & 0xffffu);
+      add_one(q[i] >> 16);
+    }
+  }
+  __device__ __forceinline__ void flush(int32_t* __restrict__ o) const {
+    for (int i = threadIdx.x; i < 32768; i += kHist16Threads) {
+      const uint32_t v = w[i];
+      if (v & 0xffffu) atomicAdd(&o[2 * i], int32_t(v & 0xffffu));
+      if (v >> 16) atomicAdd(&o[2 * i + 1], int32_t(v >> 16));
+    }
+  }
+};"""
+_BANDS_KERNEL = r"""__global__ void __launch_bounds__(kHist16Threads, 1)
+hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
+                       int gh, int gw, int th, int tw, int band_rows, int bands, int band_cols,
+                       int pieces) {
+  extern __shared__ __align__(16) uint32_t count_smem[];
+  CountHalf c;
+  c.w = count_smem;
+  const int64_t tile = blockIdx.x;
+  const int ntiles = gh * gw;
+  const int64_t b = tile / ntiles;
+  const int t = int(tile - b * ntiles);
+  const int ty = t / gw, tx = t - (t / gw) * gw;
+  const uint16_t* plane = x + b * int64_t(H) * W;
+  for (int item = blockIdx.y; item < bands * pieces; item += gridDim.y) {
+    const int band = item / pieces, piece = item - band * pieces;
+    const int R0 = ty * th + band * band_rows;
+    const int nrows = min(band_rows, th - band * band_rows);
+    const Piece pc = tile_piece(plane, W, tx * tw + piece * band_cols,
+                                min(band_cols, tw - piece * band_cols));
+    c.zero();
+    __syncthreads();
+    count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(c, plane, H, W, R0, nrows, pc.c0,
+                                                                pc.len, pc.cp, pc.npad,
+                                                                pc.ragged);
+    __syncthreads();
+    c.flush(out + tile * 65536);
+    __syncthreads();
+  }
+}
+"""
+_BANDS_ENTRY = r"""int ie_hist65536_tiles(const uint16_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
+                       int32_t gh, int32_t gw, int64_t th, int64_t tw, int64_t band_rows,
+                       int64_t bands, int64_t band_cols, int64_t pieces, int64_t grid_y,
+                       cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || band_rows * band_cols > 65535 || grid_y < 1 ||
+      grid_y > bands * pieces || grid_y > kMaxGridY)
+    return int(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      hist65536_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CountHalf::kSmemBytes);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(unsigned(B * gh * gw), unsigned(grid_y));
+  hist65536_tiles_kernel<<<grid, kHist16Threads, CountHalf::kSmemBytes, stream>>>(
+      x, out, int(H), int(W), gh, gw, int(th), int(tw), int(band_rows), int(bands),
+      int(band_cols), int(pieces));
+  return int(cudaGetLastError());
+}
+"""
+_BANDS_PLAN = """def hist65536_band_plan(B, gh, gw, th, tw):
+    tiles = B * gh * gw
+    pieces = -(-tw // 65535)
+    band_cols = -(-tw // pieces)
+    max_rows = min(th, 65535 // band_cols)
+    bands = min(th, max(-(-th // max_rows), -(-132 // (tiles * pieces))))
+    band_rows = -(-th // bands)
+    bands = -(-th // band_rows)
+    return band_rows, bands, band_cols, pieces, min(bands * pieces, MAX_GRID_Y)
+
+
+"""
+# (b): per cell a [65536] table of 8-byte quads in device memory (built by a
+# kernel per call), then one 8-byte gather per pixel
+_SCRATCH_KERNELS = r"""
+__global__ void quad_scratch_kernel(const uint16_t* __restrict__ luts, uint2* __restrict__ scr,
+                                    int gh, int gw) {
+  const int64_t cell = blockIdx.y;  // (b * (gh + 1) + cy) * (gw + 1) + cx
+  const int per = (gh + 1) * (gw + 1);
+  const int64_t b = cell / per;
+  const int r = int(cell - b * per), cy = r / (gw + 1), cx = r - cy * (gw + 1);
+  const int y0 = min(max(cy - 1, 0), gh - 1), y1 = min(cy, gh - 1);
+  const int x0 = min(max(cx - 1, 0), gw - 1), x1 = min(cx, gw - 1);
+  const uint16_t* lb = luts + ((b * gh * gw) << 16);
+  const int v = blockIdx.x * 256 + threadIdx.x;
+  scr[(cell << 16) + v] = make_uint2(
+      lb[(int64_t(y0 * gw + x0) << 16) + v] | uint32_t(lb[(int64_t(y0 * gw + x1) << 16) + v]) << 16,
+      lb[(int64_t(y1 * gw + x0) << 16) + v] | uint32_t(lb[(int64_t(y1 * gw + x1) << 16) + v]) << 16);
+}
+
+__global__ void gather_quad_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ scr,
+                                   uint16_t* __restrict__ out, int64_t B, int H, int W, int gh,
+                                   int gw, const int32_t* __restrict__ yidx,
+                                   const float* __restrict__ fyv, const int32_t* __restrict__ xidx,
+                                   const float* __restrict__ fxv) {
+  const int xx = blockIdx.x * 256 + threadIdx.x;
+  if (xx >= W) return;
+  const int cx = column_cell(xidx[xx], xidx[W + xx], gw);
+  const float fx = fxv[xx];
+  const float gx = __fsub_rn(1.0f, fx);
+  const int64_t nbands = (H + kBlendRows - 1) / kBlendRows;
+  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {
+    const int64_t b = item / nbands;
+    const int ya = int(item - b * nbands) * kBlendRows;
+    for (int y = ya; y < min(ya + kBlendRows, H); ++y) {
+      const int cy = column_cell(yidx[y], yidx[H + y], gh);
+      const int64_t px = (b * H + y) * int64_t(W) + xx;
+      const uint2 q = scr[(((b * (gh + 1) + cy) * (gw + 1) + cx) << 16) + x[px]];
+      const float top = __fadd_rn(__fmul_rn(gx, float(q.x & 0xffffu)), __fmul_rn(fx, float(q.x >> 16)));
+      const float bot = __fadd_rn(__fmul_rn(gx, float(q.y & 0xffffu)), __fmul_rn(fx, float(q.y >> 16)));
+      const float fy = fyv[y];
+      const float o = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, fy), top), __fmul_rn(fy, bot));
+      out[px] = uint16_t(__float2int_rn(fminf(fmaxf(rintf(o), 0.0f), 65535.0f)));
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {"""
+_SCRATCH_LAUNCH = r"""    static uint2* scr = nullptr;
+    static int64_t cap = 0;
+    const int64_t cells = B * (gh + 1) * (gw + 1);
+    if (cells > cap) {
+      cudaFree(scr);
+      if (cudaMalloc(&scr, cells * 65536 * 8) != cudaSuccess) return int(cudaErrorMemoryAllocation);
+      cap = cells;
+    }
+    quad_scratch_kernel<<<dim3(256, unsigned(cells)), 256, 0, stream>>>(
+        static_cast<const uint16_t*>(luts), scr, gh, gw);
+    gather_quad_kernel<<<grid, kThreads, 0, stream>>>(
+        static_cast<const uint16_t*>(x), scr, static_cast<uint16_t*>(out), B, int(H), int(W), gh,
+        gw, yidx, fy, xidx, fx);"""
+_PARENT_U16_LAUNCH = """    clahe_blend_kernel<uint16_t, 65536><<<grid, kThreads, 0, stream>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
+        static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx);"""
+
+
+def _ab16_variants(parent: Path | None) -> dict:
+    """label -> (edits, whether the copy keeps the result, source tree)."""
+    one_sm = _b16_const("kB16MinBlocks", 2, 1)
+    v = {
+        "chunks of 4096 values": ([_b16_const("kB16Shift", 13, 12)], True, ROOT),
+        "chunks of 16384 values, one block a SM": ([_b16_const("kB16Shift", 13, 14), one_sm],
+                                                   True, ROOT),
+        "16 pixels a thread": ([_b16_const("kB16Vecs", 4, 2), _b16_items(512, 2)], True, ROOT),
+        "64 pixels a thread, one block a SM": ([_b16_const("kB16Vecs", 4, 8), one_sm,
+                                                _b16_items(512, 8)], True, ROOT),
+        "1024 threads, one block a SM": ([_b16_const("kB16Threads", 512, 1024), one_sm,
+                                          _b16_items(1024, 4)], True, ROOT),
+        "without the one-chunk path": ([(_B16, "if (__all_sync(0xffffffffu, all_here || ch < cmin"
+                                         " || ch > cmax)) {", "if (false) {")], True, ROOT),
+        "four-array staging": ([
+            (_B16, _between(_B16, "__device__ __forceinline__ void stage_quads16(", "\n}\n"),
+             _FOUR_ARRAYS.split("\n\n// the staged quad")[0] + "\n"),
+            (_B16, _between(_B16, "__device__ __forceinline__ uint2 quad_at(", "\n}\n"),
+             _FOUR_ARRAYS.split("(in the chunk)\n")[1] + "\n")], True, ROOT),
+        "† staging without loads": ([(_B16, "const uint4 a = __ldg(reinterpret_cast<const uint4*>"
+                                      "(r00) + g);", "const uint4 a = make_uint4(g, 1, 2, 3);")]
+                                    + [(_B16, f"const uint4 {n} = __ldg(reinterpret_cast<const "
+                                        f"uint4*>(r{i}) + g);", f"const uint4 {n} = a;")
+                                       for n, i in (("b", "01"), ("c", "10"), ("d", "11"))],
+                                    False, ROOT),
+        "† no blending": ([(_B16, "  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, "
+                            "fy);\n", "  return q.x ^ q.y ^ __float_as_uint(fx) ^ "
+                            "__float_as_uint(fy);\n  const float gx = __fsub_rn(1.0f, fx), gy = "
+                            "__fsub_rn(1.0f, fy);\n")], False, ROOT),
+        "stage A (i): 16-bit counters over bands of 65535 pixels": (
+            [(_B16, _between(_B16, "struct CountHalf {", "\n};"), _BANDS_COUNTER),
+             (_B16, _between(_B16, "__global__ void __launch_bounds__(kHist16Threads, 1)",
+                             "\n}\n"), _BANDS_KERNEL),
+             (_B16, _between(_B16, "int ie_hist65536_tiles(", "\n}\n"), _BANDS_ENTRY),
+             ("kernels/_build.py", '"ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, '
+              '_I64, _I64, _P),', '"ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, '
+              '_I64, _I64, _I64, _I64, _I64, _I64, _I64, _P),'),
+             (_KP, "def hist65536_tiles(", _BANDS_PLAN + "def hist65536_tiles("),
+             (_KP, "out = torch.empty((B * gh * gw, 65536)", "out = torch.zeros((B * gh * gw, "
+              "65536)"),
+             (_KP, "gh, gw, th, tw)\n    return out", "gh, gw, th, tw, *hist65536_band_plan(B, gh, gw, "
+              "th, tw))\n    return out")], True, ROOT),
+        "stage A, 512 threads": ([_b16_const("kHist16Threads", 1024, 512)], True, ROOT),
+        "stage A, 1 load a group": ([_b16_const("kHist16Loads", 2, 1)], True, ROOT),
+        "stage A, 4 loads a group": ([_b16_const("kHist16Loads", 2, 4)], True, ROOT),
+        "stage A without the flat-vector atomic": (
+            [(_B16, "if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {",
+              "if (false) {")], True, ROOT),
+    }
+    if parent:
+        v["(a) the parent's gathers, rows of a column strip in turn"] = ([
+            (_B16, "const int xx = blockIdx.x * kThreads + threadIdx.x;",
+             "const int xx = blockIdx.y * kThreads + threadIdx.x;"),
+            (_B16, "  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {\n"
+             "    const int64_t b = item / nbands;\n    const int ya = int(item - b * nbands) * "
+             "kBlendRows;", "  for (int64_t item = blockIdx.x; item < B * nbands; item += "
+             "gridDim.x) {\n    const int64_t b = item / nbands;\n    const int ya = int(item - b "
+             "* nbands) * kBlendRows;"),
+            (_B16, "    const dim3 grid(unsigned((W + kThreads - 1) / kThreads),\n"
+             "                    unsigned(items < kMaxGridY ? items : kMaxGridY));\n"
+             "    clahe_blend_kernel<uint16_t",
+             "    const dim3 grid(unsigned(items), unsigned((W + kThreads - 1) / kThreads));\n"
+             "    clahe_blend_kernel<uint16_t")], True, parent)
+        v["(b) per-cell quad tables in device memory, one gather a pixel"] = ([
+            (_B16, "}  // namespace\n\nextern \"C\" {", _SCRATCH_KERNELS),
+            (_B16, _PARENT_U16_LAUNCH, _SCRATCH_LAUNCH)], True, parent)
+    return v
+
+
 # the 8-bit counters take more than 48 KB of dynamic shared memory
 _SMEM = [(path, f"  {kernel}<<<", "  cudaFuncSetAttribute(" + kernel +
           ", cudaFuncAttributeMaxDynamicSharedMemorySize, HistCounter::kSmemBytes);\n"
@@ -228,12 +519,12 @@ _SMEM = [(path, f"  {kernel}<<<", "  cudaFuncSetAttribute(" + kernel +
          for path, kernel in ((_HC, "hist256_kernel"), (_CC, "hist256_tiles_kernel"))]
 
 
-def ab_tree(label: str, edits) -> Path:
-    """This checkout's package under build/hist_ab/ with ``edits`` applied,
-    building only hist.cu and clahe.cu."""
+def ab_tree(label: str, edits, source: Path = ROOT) -> Path:
+    """The package of ``source`` (this checkout) under build/hist_ab/ with
+    ``edits`` applied, building only hist.cu and clahe.cu."""
     out = ROOT / "build" / "hist_ab" / re.sub(r"\W+", "_", label).strip("_")
     shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(ROOT / PKG, out / PKG, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(source / PKG, out / PKG, ignore=shutil.ignore_patterns("__pycache__"))
     for src in (out / PKG / "kernels" / "csrc").glob("*.cu"):
         if src.name not in ("hist.cu", "clahe.cu"):
             src.unlink()
@@ -309,12 +600,63 @@ def _path_cases(np, torch, port) -> dict:
             "config 5 2x2160x3840": lambda: cfg5(g4)}
 
 
-def measure(root: Path) -> dict:
+def _u16_cases(np, torch, port) -> dict:
+    """``--u16``: u16 CLAHE's three stages and the whole clahe call on
+    2x2160x3840 (grid 8x8), each on the planes of chip_smoke.py::u16_planes
+    (numpy seed 63).  Stage A is the tree's own: hist65536_tiles where the
+    tree has it, else tile_hists_plain (the parent's route on the card)."""
+    from chip_smoke import U16_PLANES, u16_planes
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
+    from imageenhancement_mp_tpu_torch.ops import clahe as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(63)
+    geo = tc.tile_geometry(2160, 3840, (8, 8))
+    stage_a = getattr(kc, "hist65536_tiles", kc.tile_hists_plain)
+    tables = (*tc._coord_tables(2160, geo[2], 8, dev), *tc._coord_tables(3840, geo[3], 8, dev))
+    cases = {}
+    for kind in U16_PLANES[:4]:
+        g = torch.from_numpy(u16_planes((2, 2160, 3840), kind, rng)).to(dev)
+        h = stage_a(g, *geo)
+        lut = kc.clahe_lut(h, geo[2] * geo[3], 2.0)
+        cases[f"u16 stage A {kind}"] = lambda g=g: stage_a(g, *geo)
+        cases[f"clahe_lut S=65536 {kind}"] = lambda h=h: kc.clahe_lut(h, geo[2] * geo[3], 2.0)
+        cases[f"clahe_blend u16 {kind}"] = lambda g=g, lut=lut: kc.clahe_blend(g, lut, 8, 8,
+                                                                               *tables)
+        cases[f"clahe u16 2x2160x3840 {kind}"] = lambda g=g: port.clahe(g, 2.0, (8, 8))
+    return cases
+
+
+def _lut_cases(np, torch) -> dict:
+    """``--u16``: K5 and K13 at chip_smoke.py's timed shape, 8x1080x1920 u8:
+    apply_lut256 with [8, 256] u8 tables, apply_lut256_wide with f32 and i16
+    tables, apply_luts_multi with K = 9 u8 and f32 tables."""
+    from imageenhancement_mp_tpu_torch.kernels import hist as kh
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(64)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, (8, 256), dtype=np.uint8)).to(dev)
+    f32 = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32)).to(dev)
+    i16 = torch.from_numpy(rng.integers(-32768, 32768, (8, 256)).astype(np.int16)).to(dev)
+    m8 = torch.from_numpy(rng.integers(0, 256, (8, 9, 256), dtype=np.uint8)).to(dev)
+    m32 = torch.from_numpy(rng.standard_normal((8, 9, 256)).astype(np.float32)).to(dev)
+    return {"apply_lut256 u8 8x1080x1920": lambda: kh.apply_lut256(x, u8),
+            "apply_lut256_wide f32 8x1080x1920": lambda: kh.apply_lut256(x, f32),
+            "apply_lut256_wide i16 8x1080x1920": lambda: kh.apply_lut256(x, i16),
+            "apply_luts_multi K=9 u8 8x1080x1920": lambda: kh.apply_luts_multi(x, m8),
+            "apply_luts_multi K=9 f32 8x1080x1920": lambda: kh.apply_luts_multi(x, m32)}
+
+
+def measure(root: Path, u16: bool) -> dict:
     """Back-to-back and device-paced times of every case in the tree under
     ``root`` (ms)."""
     np, torch, port, k1_planes = _setup(root)
-    cases = {name: fn for name, (fn, _) in _kernel_cases(np, torch, k1_planes).items()}
-    cases.update(_path_cases(np, torch, port))
+    if u16:
+        cases = {**_u16_cases(np, torch, port), **_lut_cases(np, torch)}
+    else:
+        cases = {name: fn for name, (fn, _) in _kernel_cases(np, torch, k1_planes).items()}
+        cases.update(_path_cases(np, torch, port))
     out = {}
     for name, fn in cases.items():
         out[f"{name}, back to back"] = _time_ms(torch, fn, False)
@@ -322,26 +664,54 @@ def measure(root: Path) -> dict:
     return out
 
 
-def measure_ab(root: Path, check: bool) -> dict:
-    """Device-paced times of both kernels on each kind of plane in the tree
+def _u16_kernel_cases(np, torch) -> dict:
+    """``--ab16``: name -> (kernel call, plain call) for u16 stage A (the
+    tree's own, as in _u16_cases) and the u16 blend on 2x2160x3840 (grid
+    8x8), on each kind of chip_smoke.py::u16_planes (numpy seed 65)."""
+    from chip_smoke import U16_PLANES, u16_planes
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
+    from imageenhancement_mp_tpu_torch.ops import clahe as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(65)
+    geo = tc.tile_geometry(2160, 3840, (8, 8))
+    stage_a = getattr(kc, "hist65536_tiles", kc.tile_hists_plain)
+    tables = (*tc._coord_tables(2160, geo[2], 8, dev), *tc._coord_tables(3840, geo[3], 8, dev))
+    cases = {}
+    for kind in U16_PLANES:
+        g = torch.from_numpy(u16_planes((2, 2160, 3840), kind, rng)).to(dev)
+        lut = kc.clahe_lut(kc.tile_hists_plain(g, *geo), geo[2] * geo[3], 2.0)
+        cases[f"u16 stage A {kind}"] = (lambda g=g: stage_a(g, *geo),
+                                        lambda g=g: kc.tile_hists_plain(g, *geo))
+        cases[f"clahe_blend u16 {kind}"] = (
+            lambda g=g, lut=lut: kc.clahe_blend(g, lut, 8, 8, *tables),
+            lambda g=g, lut=lut: kc.clahe_blend_plain(g, lut, 8, 8, *tables))
+    return cases
+
+
+def measure_ab(root: Path, check: bool, u16: bool) -> dict:
+    """Device-paced times of the kernels on each kind of plane in the tree
     under ``root`` (ms), each held to its plain version first where
-    ``check``."""
+    ``check``: K1's two (or with ``u16``, u16 CLAHE's stage A and blend)."""
     np, torch, _, k1_planes = _setup(root)
     out = {}
-    for name, (fn, plain) in _kernel_cases(np, torch, k1_planes).items():
+    cases = _u16_kernel_cases(np, torch) if u16 else _kernel_cases(np, torch, k1_planes)
+    for name, (fn, plain) in cases.items():
         if check and not torch.equal(fn(), plain()):
             raise SystemExit(f"torch_hist_profile: {name} differs from its plain version in {root}")
         out[name] = _time_ms(torch, fn, True)
     return out
 
 
-def profile(root: Path, label: str, smi: str) -> None:
+def profile(root: Path, label: str, smi: str, u16: bool) -> None:
     """torch.profiler split and busy share, and host enqueue time per call."""
     np, torch, port, _ = _setup(root)
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for name, fn in _path_cases(np, torch, port).items():
+    paths = ({k: fn for k, fn in _u16_cases(np, torch, port).items() if k.startswith("clahe u16")}
+             if u16 else _path_cases(np, torch, port))
+    for name, fn in paths.items():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -375,9 +745,11 @@ def profile(root: Path, label: str, smi: str) -> None:
                   f"{key[:90]}")
 
 
-def sass(root: Path, label: str) -> None:
-    """SASS opcode histogram of the two counting kernels, and ptxas's
-    registers and spills for them."""
+def sass(root: Path, label: str, u16: bool = False) -> None:
+    """SASS opcode histogram of the two counting kernels (with ``u16``, of
+    hist65536_tiles and the u16 blend), and ptxas's registers and spills
+    for them."""
+    kernels = r"(hist65536_tiles_kernel|clahe_blend_u16_kernel\w*)" if u16 else r"(hist256\w*kernel)"
     sys.path.insert(0, str(root))
     from imageenhancement_mp_tpu_torch.kernels import _build
 
@@ -386,8 +758,8 @@ def sass(root: Path, label: str) -> None:
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "Compiling entry" in line:
             entry = line
-        elif "hist256" in entry and ("Used" in line or "spill" in line):
-            print(f"[{label}] ptxas {re.search(r'(hist256\w*kernel)', entry).group(1)}: "
+        elif re.search(kernels, entry) and ("Used" in line or "spill" in line):
+            print(f"[{label}] ptxas {re.search(kernels, entry).group(1)}: "
                   f"{line.split(':', 1)[-1].strip()}")
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
@@ -397,7 +769,7 @@ def sass(root: Path, label: str) -> None:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"(hist256\w*kernel)", m.group(1))
+            k = re.search(kernels, m.group(1))
             name = k.group(1) if k else None
             if name:
                 counts[name] = collections.Counter()
@@ -415,8 +787,14 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, help="a parent tree holding imageenhancement_mp_tpu_torch")
     ap.add_argument("--tree", action="append", default=[], metavar="LABEL=PATH",
                     help="another tree, timed between the parent and this one")
+    ap.add_argument("--u16", action="store_true",
+                    help="u16 CLAHE's stages and call on five kinds of plane, and K5/K13, "
+                         "in place of K1's cases")
     ap.add_argument("--ab", action="store_true",
                     help="time this checkout against copies with one design choice changed each")
+    ap.add_argument("--ab16", action="store_true",
+                    help="time this checkout against copies with one u16 CLAHE design choice "
+                         "changed each (and, with --parent, two built on the parent)")
     ap.add_argument("--measure-ab", type=Path, help=argparse.SUPPRESS)  # one A/B tree, in a child
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)  # one tree, in a child
@@ -429,23 +807,29 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_hist_profile: torch.cuda.is_available() is False")
     if args.measure:
-        print(json.dumps(measure(args.measure.resolve())))
+        print(json.dumps(measure(args.measure.resolve(), args.u16)))
         return
     if args.measure_ab:
-        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check)))
+        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check, args.u16)))
         return
     if args.inspect:
-        profile(args.inspect.resolve(), args.label, args.smi)
+        profile(args.inspect.resolve(), args.label, args.smi, args.u16)
         return
     if args.sass:
-        sass(args.sass.resolve(), args.label)
+        sass(args.sass.resolve(), args.label, args.u16)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    if args.ab:
-        ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), keep)
-                                       for label, (edits, keep) in AB_VARIANTS.items()]
+    if args.ab or args.ab16:
+        if args.ab16:
+            ab = [("this", ROOT, True)] + [
+                (label, ab_tree(label, edits, src), keep)
+                for label, (edits, keep, src) in _ab16_variants(args.parent and
+                                                               args.parent.resolve()).items()]
+        else:
+            ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), keep)
+                                           for label, (edits, keep) in AB_VARIANTS.items()]
         if args.parent:
             ab.append(("parent", args.parent.resolve(), True))
         builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
@@ -456,15 +840,15 @@ def main() -> None:
         times: dict[str, list[dict]] = {}
         for label, root, keep in ab + ab[::-1]:
             child = subprocess.run([sys.executable, __file__, "--measure-ab", str(root)]
-                                   + (["--check"] if keep else []), check=True,
-                                   capture_output=True, text=True)
+                                   + (["--check"] if keep else []) + ["--u16"] * args.ab16,
+                                   check=True, capture_output=True, text=True)
             times.setdefault(label, []).append(json.loads(child.stdout.strip().splitlines()[-1]))
         for label, rs in times.items():
             print(f"  {label}: " + "; ".join(f"{k} {' / '.join(f'{r[k]:.4f}' for r in rs)}"
                                            for k in rs[0]) + f" ms, device-paced  [{smi}]")
-        for label, root, _ in ab[:2]:
-            subprocess.run([sys.executable, __file__, "--sass", str(root), "--label", label],
-                           check=True)
+        for label, root, _ in ab[:1] if args.ab16 else ab[:2]:
+            subprocess.run([sys.executable, __file__, "--sass", str(root), "--label", label]
+                           + ["--u16"] * args.ab16, check=True)
         return
     trees = [("this", ROOT)]
     if args.parent:
@@ -476,8 +860,8 @@ def main() -> None:
         trees = trees + trees[::-1]
     runs: dict[str, list[dict]] = {}
     for label, root in trees:
-        child = subprocess.run([sys.executable, __file__, "--measure", str(root)], check=True,
-                               capture_output=True, text=True)
+        child = subprocess.run([sys.executable, __file__, "--measure", str(root)]
+                               + ["--u16"] * args.u16, check=True, capture_output=True, text=True)
         runs.setdefault(label, []).append(json.loads(child.stdout.strip().splitlines()[-1]))
         print(f"{label} ({root}) done", flush=True)
     keys = dict.fromkeys(k for rs in runs.values() for r in rs for k in r)
@@ -487,7 +871,7 @@ def main() -> None:
                                        for label, ts in cells.items() if ts) + f"  [{smi}]")
     for label, root in dict(trees).items():
         subprocess.run([sys.executable, __file__, "--inspect", str(root), "--label", label,
-                        "--smi", smi], check=True)
+                        "--smi", smi] + ["--u16"] * args.u16, check=True)
 
 
 if __name__ == "__main__":
