@@ -33,7 +33,12 @@
    of one element, on tiles of 65535 and of 153600 equal pixels (an even,
    an odd, the first and the last bin), [70000, 8, 8] (grid 1x1) and
    [1, 2_200_000, 8], and timed on each kind at 2x2160x3840 beside their
-   bytes bounds, stage A also beside one torch.bincount.
+   bytes bounds, stage A also beside one torch.bincount.  Stage B at
+   S = 65536 (clahe_lut, one cluster of blocks a tile) is also held on
+   peaked random histograms and on stage_b_cases' adversarial ones (an
+   excess for each value step can take, resid 0 and 65535, all mass in one
+   bin, tiles of one pixel, areas up to 2^31 - 1; T = 1, 3, 13 and 511),
+   and timed on each kind of u16 plane beside its bytes bound.
 4. Drives the first main path through the public functions — equalize_unsharp
    at 8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
    numpy seed 0 — each call with the launch counters set to 0 just before
@@ -133,9 +138,11 @@
    apply_luts_multi (K in {1, 9, 64}, across the 32-table shared-memory
    chunk) and median_unsharp (km 3 and 5, amounts 1, 1.5, -0.5, 2 and 64,
    ksize 3, 5 and 31) against their plain versions bit for bit (i32 entries
-   at +-(2^31 - 1), f32 infinities, NaN and subnormals; the CPU tests'
-   cases, 1x1 and 2x3 planes, a storage offset of one element, 1079x1917,
-   [70000, 8, 8], [1, 2_200_000, 8]; for median_unsharp also the median
+   at +-(2^31 - 1), f32 infinities, NaN, NaN payloads and subnormals; the
+   CPU tests' cases, 1x1 and 2x3 planes, a storage offset of one element,
+   widths 15 to 300001 at byte offsets 1, 4, 8 and 12 (the wide route's
+   heads, tails and vector paths), 1079x1917, [70000, 8, 8],
+   [1, 2_200_000, 8]; for median_unsharp also the median
    network cases of phase 5 on u8) and median_unsharp against the
    median -> sep_conv_u8 chain; then drives config 2
    (get_preset("gamma_stretch") on 32x1080x1920x3: exactly 2 apply_lut256
@@ -331,6 +338,41 @@ def u16_planes(shape: tuple, kind: str, rng) -> np.ndarray:
              + (g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx) * fy)
         out[b] = np.clip(np.rint(v) + rng.integers(-2, 3, (H, W)), 0, 65535)
     return out
+
+
+def stage_b_cases(rng) -> list:
+    """Adversarial [T, 65536] int32 histograms for CLAHE stage B (the
+    closed form of csrc/clahe.cu::clahe_lut16_kernel): ``(label, hists,
+    area, clip limits)``.  An excess over clip_abs = 1 (clip limit 1e-9) in
+    the residue class mod 65536 that gives each value step can take (the
+    least such resid), resid 0 and 65535, T = 1; all mass in one bin, tiles
+    of one pixel, areas up to 2^31 - 1 with and without a clip; T = 13."""
+    S, tiny = 65536, 1e-9
+
+    def with_excess(resids, area):
+        # n ones on random bins and the rest in one more: excess = area - 1 - n
+        h = np.zeros((len(resids), S), np.int32)
+        for t, rho in enumerate(resids):
+            n = (area - 1 - int(rho)) % S
+            bins = rng.permutation(S)[:n + 1]
+            h[t, bins[:n]] = 1
+            h[t, bins[n]] = area - n
+        return h
+
+    area = 3 * S + 12345
+    step_resids = sorted({max(S // r, 1): r for r in range(S - 1, 0, -1)}.values())
+    cases = [("an excess for each value of step", with_excess(step_resids, area), area, (tiny,)),
+             ("resid 0, 65535, 0", with_excess([0, S - 1, 0], area), area, (tiny,)),
+             ("resid 65535", with_excess([S - 1], area), area, (tiny,))]
+    for a in (1, 7, 153600, 2**31 - 1):
+        one = np.zeros((13, S), np.int32)
+        one[np.arange(13), rng.integers(0, S, 13)] = a
+        cases.append(("all mass in one bin", one, a, (0.0, tiny, 2.0, 40.0)))
+    big = 2**31 - 12
+    cases.append(("random", np.stack([rng.multinomial(big, p) for p in
+                                      rng.dirichlet(np.full(S, 0.05), size=3)]).astype(np.int32),
+                  big, (0.0, 2.0, 40.0)))
+    return cases
 
 
 def nvidia_smi_line() -> str:
@@ -714,6 +756,33 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
     for dtype, K in ((U8, 9), (F32, 9), (torch.uint16, 64)):
         check_multi(tall, tables((1, K, 256), dtype), "[1, 2200000, 8]")
     del many, tall
+    # K5's wide route (csrc/hist.cu::lut_wide_kernel) and apply_luts_multi at
+    # K = 1, which shares it: widths below one warp's 512 pixels, odd, heads
+    # and tails; views at byte offsets 1, 4, 8 and 12 (4-byte entries keep
+    # the vector route at 4, 8 and 12, 2-byte ones at 8); f32 tables with
+    # NaN payloads
+    nan_bits = torch.from_numpy(np.array([0x7FC00001, 0xFFBADBAD, 0x7F800001, 0x7FBFFFFF,
+                                          0xFFFFFFFF, 0x80000001], np.uint32).view(np.int32))
+
+    def at_offset(x: torch.Tensor, k: int) -> torch.Tensor:
+        buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+        view = buf[k:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    for shape in ((3, 15), (2, 511), (1, 512), (2, 513), (3, 1000), (2, 16 * 32 * 3 + 7),
+                  (1, 8192 + 83), (1, 300_001), (3, 17, 333)):
+        x = rand_u8(shape)
+        for k in (0, 1, 4, 8, 12):
+            xx = at_offset(x, k)
+            what = f"{shape} byte offset {k}"
+            for dtype in table_dtypes[1:]:
+                for lut_shape in ((256,), (shape[0], 256)):
+                    lut = tables(lut_shape, dtype)
+                    if dtype == F32:
+                        lut.view(torch.int32).view(-1)[:nan_bits.numel()] = nan_bits.to(dev)
+                    check_lut(xx, lut, what)
+                check_multi(xx, tables((shape[0], 1, 256), dtype), what)
     fused_shapes = [(2, 64, 131), (1, 37, 131), (1, 1, 1), (1, 2, 3), (2, 4, 131), (3, 5, 9),
                     (1, 70, 3), (1, 1079, 1917)]
     for shape in fused_shapes:
@@ -752,8 +821,9 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print(f"LUT family and fused kernels vs plain on the card, bit for bit: {counted} cases "
           "(u8, u16, i16, i32 and f32 tables, shared and per plane, i32 at +-(2^31-1), f32 "
-          "inf/NaN/-0.0/subnormals, K in {1, 9, 64}, km 3/5, amounts 1, 1.5, -0.5, 2, 64, "
-          "ksize 3/5/31, 1x1, 2x3, offset 1, 1079x1917, [70000, 8, 8], [1, 2200000, 8]); "
+          "inf/NaN/-0.0/subnormals and NaN payloads, K in {1, 9, 64}, km 3/5, amounts 1, 1.5, "
+          "-0.5, 2, 64, ksize 3/5/31, 1x1, 2x3, offset 1, byte offsets 1/4/8/12 at widths 15 to "
+          "300001, 1079x1917, [70000, 8, 8], [1, 2200000, 8]); "
           "median_unsharp equals median -> sep_conv_u8 on 1x1, 2x3 and 1079x1917")
 
     # (b) the paths, each with counters of its own; the plain path on the card
@@ -1169,6 +1239,14 @@ def main() -> None:
         for clip in (0.0, 2.0, 40.0):
             check("clahe_lut", kclahe.clahe_lut(hr, area, clip),
                   kclahe.clahe_lut_plain(hr, area, clip), f"random S={S} clip {clip}")
+    # adversarial histograms into stage B at S = 65536 (one cluster a tile)
+    for what, hs, area, clips in stage_b_cases(rng):
+        hb = on_card(hs)
+        for clip in clips:
+            check("clahe_lut", kclahe.clahe_lut(hb, area, clip),
+                  kclahe.clahe_lut_plain(hb, area, clip),
+                  f"S=65536 {what}, T={hs.shape[0]}, area {area}, clip {clip}")
+    del hb
 
     # more planes than a grid axis of 65535 holds: every kernel
     many = rand_u8((70000, 8, 8))
@@ -1447,6 +1525,7 @@ def main() -> None:
     # made beforehand
     n16, T16 = 2 * 2160 * 3840, 2 * geo5[0] * geo5[1]
     b16_hist, b16_blend = bound_ms(2 * n16 + T16 * 65536 * 4), bound_ms(4 * n16 + T16 * 65536 * 2)
+    b16_lut = bound_ms(T16 * 65536 * (4 + 2))  # stage B: the histograms read, the LUTs written
     for kind in U16_PLANES:
         g16 = on_card(u16_planes((2, 2160, 3840), kind, urng))
         h16 = kclahe.hist65536_tiles(g16, *geo5)
@@ -1454,11 +1533,13 @@ def main() -> None:
               f"{kind} u16 (2, 2160, 3840) grid 8x8")
         l16 = kclahe.clahe_lut(h16, area5, 2.0)
         h_ms, h_iqr = time_ms(lambda: kclahe.hist65536_tiles(g16, *geo5))
+        l_ms, l_iqr = time_ms(lambda: kclahe.clahe_lut(h16, area5, 2.0))
         b_ms, b_iqr = time_ms(lambda: kclahe.clahe_blend(g16, l16, 8, 8, *tables5))
         print(f"  u16 at (2, 2160, 3840) grid 8x8, {kind} plane: hist65536_tiles {h_ms:.4f} ms "
-              f"(IQR {h_iqr:.4f}), bound {b16_hist[0]:.4f} ms ({b16_hist[1]}); clahe_blend u16 "
-              f"{b_ms:.4f} ms (IQR {b_iqr:.4f}), bound {b16_blend[0]:.4f} ms ({b16_blend[1]})  "
-              f"[{smi}]")
+              f"(IQR {h_iqr:.4f}), bound {b16_hist[0]:.4f} ms ({b16_hist[1]}); clahe_lut "
+              f"S=65536 {l_ms:.4f} ms (IQR {l_iqr:.4f}), bound {b16_lut[0]:.4f} ms "
+              f"({b16_lut[1]}); clahe_blend u16 {b_ms:.4f} ms (IQR {b_iqr:.4f}), bound "
+              f"{b16_blend[0]:.4f} ms ({b16_blend[1]})  [{smi}]")
         if kind == "random":
             ms["hist65536_tiles"] = (h_ms, time_ms(lambda: kclahe.tile_hists_plain(g16, *geo5),
                                                    10, 3)[0])

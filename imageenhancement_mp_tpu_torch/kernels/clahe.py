@@ -11,7 +11,9 @@ plain PyTorch version.
   the plain version, :func:`tile_hists_plain`, is a ``bincount`` over
   ``(plane·T + tile)·S + v`` offsets.
 * :func:`clahe_lut` — stage B, the clipped tile LUTs
-  (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas).
+  (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas):
+  one block per tile for S = 256, one cluster of 8 blocks per tile for
+  S = 65536.
 * :func:`clahe_blend` — stage C, the bilinear blend of the four neighbour
   LUTs; one kernel per pixel type for every geometry, in place of
   ``kernels/clahe_u16.py::clahe_blend_quad_pallas`` and
@@ -203,6 +205,8 @@ def clahe_lut(hists: torch.Tensor, area: int, clip_limit: float) -> torch.Tensor
     if not on_cuda(hists, "clahe_lut"):
         return clahe_lut_plain(hists, area, clip_limit)
     check_kernel_input("clahe_lut", hists)
+    if S == 65536 and hists.data_ptr() % 16:
+        hists = hists.clone()  # the S = 65536 kernel reads 16-byte vectors
     clip_abs, scale = clip_and_scale(area, clip_limit, S)
     out = torch.empty(hists.shape, dtype=_LUT_DTYPE[S], device=hists.device)
     if hists.shape[0]:

@@ -15,10 +15,13 @@
 
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "hist_count.cuh"
 #include "reflect.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -259,15 +262,17 @@ hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out
 // ---------------------------------------------------------------------------
 // clahe_lut: stage B.  The JAX package has no TPU kernel here: it is XLA
 // (the JAX package's ops/clahe.py::clahe_tile_luts, :74-97), about ten
-// small ops over [T, S].  One block per tile does all of it:
+// small ops over [T, S]:
 //   clip at clip_abs, sum the excess, raise every bin by excess / S, add 1 at
 //   bins i with i % step == 0 && i / step < excess % S (step = max(S / resid,
 //   1)), take the inclusive scan, lut = clamp(rint(f32(cdf) * scale), 0, S-1)
 // with clip_abs and scale = f32(S-1) / f32(area) computed by the caller;
-// clip_abs 0 skips the clip.  Bound by launch latency for S = 256 and by the
-// three reads of the [T, 65536] i32 histograms (from L2) for S = 65536.
-// Each thread owns kPer consecutive bins; the block reduces and scans with
-// warp shuffles.  All sums are at most the tile's area, below 2^31.
+// clip_abs 0 skips the clip.  All sums are at most the tile's area, below
+// 2^31.  Two routes, one per table size:
+//  * S = 256 (u8): one block of 256 threads per tile, one bin a thread; the
+//    block reduces and scans with warp shuffles.  Bound by launch latency.
+//  * S = 65536 (u16): clahe_lut16_kernel below, one cluster of blocks per
+//    tile.  Bound by device memory: 6 B per bin.
 // ---------------------------------------------------------------------------
 
 template <int kW>
@@ -340,6 +345,160 @@ clahe_lut_kernel(const int32_t* __restrict__ hist, L* __restrict__ lut, int32_t 
     cdf += bin(j);
     const float r = rintf(__fmul_rn(__int2float_rn(cdf), scale));
     o[j] = L(__float2int_rn(fminf(fmaxf(r, 0.0f), float(S - 1))));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// clahe_lut16_kernel: stage B at S = 65536.  The same function in closed
+// form: with Pc(i) the inclusive prefix of min(h, clip_abs) (of h without a
+// clip), raise = excess / S and resid = excess % S, the bumps at bins <= i
+// number min(i / step + 1, resid) (resid * step <= S, so every bump lies
+// below S; none when resid = 0), and
+//   cdf(i) = Pc(i) + raise * (i + 1) + min(i / step + 1, resid).
+// So one read of a bin gives both its share of the excess and its clipped
+// value, and i / step is one division per thread and round, then a counter.
+//
+// One cluster of kLut16Blocks blocks per tile (tiles stride over the
+// clusters of the grid): block `rank` owns bins [rank * 8192, rank * 8192 +
+// 8192), warp w of it 512 of them, and in round r lane l the 8 bins from
+// w * 512 + r * 256 + l * 8: two 16-byte loads, one 16-byte store of 8 u16,
+// so a warp's loads cover 1 KiB and its store 512 contiguous bytes.  Each
+// block reduces its clipped sum and its excess into shared memory; after a
+// cluster barrier, warp 0 reads the cluster's pairs through distributed
+// shared memory: the tile's excess and the clipped sum of the lower ranks.
+// Each lane then scans its bins in registers.  The histograms are read
+// once and the LUTs written once, 6 B per bin, and a 4K frame pair on an
+// 8x8 grid gives 1024 blocks, where one block a tile gave 128 for 132 SMs.
+// ---------------------------------------------------------------------------
+
+constexpr int kLut16Blocks = 8;  // a cluster: the most a launch may ask for without opting in
+// Chosen by A/B (tools/torch_hist_profile.py --ablut, PERF.md §6) over
+// clusters of 2 or 4 blocks of 1024 threads, blocks of 256 or 1024 threads,
+// and 2 or 4 resident blocks a SM.
+constexpr int kLut16Threads = 512;
+constexpr int kLut16MinBlocks = 3;  // resident blocks a SM: at most 42 registers
+constexpr int kLut16Warps = kLut16Threads / 32;
+constexpr int kLut16Bins = 8;  // bins a lane takes in a round
+constexpr int kLut16Rounds = 65536 / (kLut16Blocks * kLut16Threads * kLut16Bins);
+constexpr int kLut16WarpBins = kLut16Rounds * 32 * kLut16Bins;
+static_assert(kLut16Rounds >= 1 &&
+              kLut16Rounds * kLut16Blocks * kLut16Threads * kLut16Bins == 65536,
+              "the cluster covers a tile's 65536 bins exactly");
+
+__device__ __forceinline__ int32_t warp_inclusive_scan(int32_t v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t up = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += up;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int32_t warp_total(int32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The halves of the cluster barrier that cooperative_groups' sync() joins:
+// arrive (release) once this block's reads of its peers are done, wait
+// (acquire) before its shared memory is written again or the block exits.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__global__ void __cluster_dims__(kLut16Blocks, 1, 1)
+__launch_bounds__(kLut16Threads, kLut16MinBlocks)
+clahe_lut16_kernel(const int32_t* __restrict__ hist, uint16_t* __restrict__ lut, int64_t T,
+                   int32_t clip_abs, float scale) {
+  __shared__ int32_t warp_clip[kLut16Warps], warp_ex[kLut16Warps];
+  __shared__ int32_t block_pair[2];  // this block's clipped sum and excess, for the cluster
+  __shared__ int32_t tile_ctx[2];    // the tile's excess, the lower ranks' clipped sum
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this lane's first bin in round 0; round r adds r * 256
+  const int i_lane = rank * (65536 / kLut16Blocks) + warp * kLut16WarpBins + lane * kLut16Bins;
+
+  for (int64_t tile = blockIdx.x / kLut16Blocks; tile < T; tile += gridDim.x / kLut16Blocks) {
+    const int32_t* h = hist + tile * 65536 + i_lane;
+    int32_t c[kLut16Rounds][kLut16Bins];
+#pragma unroll
+    for (int r = 0; r < kLut16Rounds; ++r) {
+      const int4* p = reinterpret_cast<const int4*>(h + r * 32 * kLut16Bins);
+      const int4 a = __ldg(p), b = __ldg(p + 1);
+      c[r][0] = a.x, c[r][1] = a.y, c[r][2] = a.z, c[r][3] = a.w;
+      c[r][4] = b.x, c[r][5] = b.y, c[r][6] = b.z, c[r][7] = b.w;
+    }
+    // clip in place; each round's clipped sum scanned over the warp's lanes
+    int32_t ex = 0, mine[kLut16Rounds], incl[kLut16Rounds];
+#pragma unroll
+    for (int r = 0; r < kLut16Rounds; ++r) {
+      mine[r] = 0;
+#pragma unroll
+      for (int j = 0; j < kLut16Bins; ++j) {
+        if (clip_abs > 0) {
+          ex += max(c[r][j] - clip_abs, 0);
+          c[r][j] = min(c[r][j], clip_abs);
+        }
+        mine[r] += c[r][j];
+      }
+      incl[r] = warp_inclusive_scan(mine[r]);
+    }
+    int32_t wclip = 0;
+#pragma unroll
+    for (int r = 0; r < kLut16Rounds; ++r) wclip += __shfl_sync(0xffffffffu, incl[r], 31);
+    ex = warp_total(ex);
+    if (lane == 0) warp_clip[warp] = wclip, warp_ex[warp] = ex;
+    __syncthreads();
+    if (warp == 0) {
+      const int32_t a = warp_total(lane < kLut16Warps ? warp_clip[lane] : 0);
+      const int32_t e = warp_total(lane < kLut16Warps ? warp_ex[lane] : 0);
+      if (lane == 0) block_pair[0] = a, block_pair[1] = e;
+    }
+    cluster.sync();  // every block's pair is in its shared memory
+    if (warp == 0) {
+      int32_t a = 0, e = 0;
+      if (lane < kLut16Blocks) {
+        const int32_t* peer = cluster.map_shared_rank(block_pair, lane);
+        e = peer[1];
+        a = lane < rank ? peer[0] : 0;
+      }
+      a = warp_total(a);
+      e = warp_total(e);
+      if (lane == 0) tile_ctx[0] = e, tile_ctx[1] = a;
+    }
+    __syncthreads();
+    const int32_t excess = tile_ctx[0];
+    int32_t before = tile_ctx[1];  // clipped bins before this lane's in round 0
+    for (int w = 0; w < warp; ++w) before += warp_clip[w];
+    cluster_arrive();  // this block is done with its peers' and its own shared memory
+
+    const int32_t raise = excess >> 16, resid = excess & 65535;
+    const int step = max(65536 / max(resid, 1), 1);
+    uint16_t* o = lut + tile * 65536 + i_lane;
+#pragma unroll
+    for (int r = 0; r < kLut16Rounds; ++r) {
+      const int i0 = i_lane + r * 32 * kLut16Bins;
+      int q = i0 / step, rem = i0 - q * step;  // i / step and i % step, carried below
+      int32_t cum = before + incl[r] - mine[r];
+      uint32_t w[kLut16Bins / 2] = {};
+#pragma unroll
+      for (int j = 0; j < kLut16Bins; ++j) {
+        cum += c[r][j];
+        const int32_t cdf = cum + raise * (i0 + j + 1) + min(q + 1, resid);
+        const float f = rintf(__fmul_rn(__int2float_rn(cdf), scale));
+        w[j >> 1] |= uint32_t(__float2int_rn(fminf(fmaxf(f, 0.0f), 65535.0f))) << (16 * (j & 1));
+        if (++rem == step) rem = 0, ++q;
+      }
+      *reinterpret_cast<uint4*>(o + r * 32 * kLut16Bins) = make_uint4(w[0], w[1], w[2], w[3]);
+      before += __shfl_sync(0xffffffffu, incl[r], 31);
+    }
+    cluster_wait();  // the cluster's reads of this block's pair are done
   }
 }
 
@@ -864,7 +1023,8 @@ int ie_hist65536_tiles(const uint16_t* x, int32_t* out, int64_t B, int64_t H, in
 }
 
 // hist: [BT, S] int32 (S = 256 or 65536), each row summing to the tile area;
-// lut: [BT, S] u8 (S = 256) or u16 (S = 65536).  clip_abs 0 skips the clip.
+// lut: [BT, S] u8 (S = 256) or u16 (S = 65536; both 16-byte aligned).
+// clip_abs 0 skips the clip.
 int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t clip_abs,
                  float scale, cudaStream_t stream) {
   if (BT < 1 || BT > 0x7fffffffLL || clip_abs < 0) return int(cudaErrorInvalidValue);
@@ -872,8 +1032,12 @@ int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t 
     clahe_lut_kernel<256, uint8_t><<<unsigned(BT), kLutThreads<256>, 0, stream>>>(
         hist, static_cast<uint8_t*>(lut), clip_abs, scale);
   } else if (S == 65536) {
-    clahe_lut_kernel<65536, uint16_t><<<unsigned(BT), kLutThreads<65536>, 0, stream>>>(
-        hist, static_cast<uint16_t*>(lut), clip_abs, scale);
+    if ((reinterpret_cast<uintptr_t>(hist) | reinterpret_cast<uintptr_t>(lut)) & 15)
+      return int(cudaErrorInvalidValue);
+    // one cluster a tile; tiles beyond the grid's 2^31 - 1 blocks stride
+    const int64_t clusters = BT < 0x7fffffffLL / kLut16Blocks ? BT : 0x7fffffffLL / kLut16Blocks;
+    clahe_lut16_kernel<<<unsigned(clusters * kLut16Blocks), kLut16Threads, 0, stream>>>(
+        hist, static_cast<uint16_t*>(lut), BT, clip_abs, scale);
   } else {
     return int(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // Histogram-family kernels for u8 planes: the per-plane 256-bin histogram,
-// cv2's equalizeHist LUT built from it, and the per-plane 256-entry LUT apply.
+// cv2's equalizeHist LUT built from it, and the 256-entry LUT apply (u8
+// tables; wider tables; K tables at once).
 //
 // Each exported function launches on the caller's stream, allocates nothing,
 // and returns the cudaError_t of cudaGetLastError() right after its launch.
@@ -7,6 +8,7 @@
 // is the one written (int->f32 conversion to nearest, IEEE division and
 // product, rintf half-to-even).
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -188,15 +190,11 @@ apply_lut256_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ l
 // lut_multi_kernel<T>: K tables of 256 entries per plane applied to the same
 // u8 planes, out[k][b] = luts[b][k][x[b]], entries of 1, 2 or 4 bytes copied
 // bit for bit (u8; u16/i16; i32/f32 -- NaN payloads, infinities and
-// subnormals included).  It serves two C entry points:
-//  * apply_lut256_wide (K = 1): replaces the JAX package's kernels/hist.py::
-//    apply_lut256_pallas for u16/i16/i32/f32 tables.  Its TPU form is a
-//    one-hot bilinear product on the MXU at HIGHEST precision, exact only for
-//    integer entries below 2^24; here an entry is read from shared memory as
-//    it is.
-//  * apply_luts_multi: replaces kernels/hist.py::apply_luts_multi_pallas
-//    (K one-hot products per pixel stripe).  Each pixel is read once for up
-//    to kMaxTables tables; a larger K loops over chunks of tables.
+// subnormals included).  It serves apply_luts_multi, which replaces the JAX
+// package's kernels/hist.py::apply_luts_multi_pallas (K one-hot products
+// per pixel stripe), for K >= 2 and for u8 tables; K = 1 with wider tables
+// goes to lut_wide_kernel below.  Each pixel is read once for up to
+// kMaxTables tables; a larger K loops over chunks of tables.
 // Bound by device memory: 1 B/px read plus K * sizeof(T) B/px written.  The
 // block stages its plane's chunk of tables in dynamic shared memory (at most
 // kMaxTables * 1 KB).  Each thread reads the 16 / sizeof(T) pixels whose
@@ -282,6 +280,122 @@ lut_multi_kernel(const uint8_t* __restrict__ x, const T* __restrict__ luts, int6
   }
 }
 
+// ---------------------------------------------------------------------------
+// lut_wide_kernel<T>: one table of 256 entries of 2 or 4 bytes per plane (or
+// one shared), out[b] = luts[b][x[b]], entries copied bit for bit.  It
+// serves apply_lut256_wide, which replaces the JAX package's kernels/
+// hist.py::apply_lut256_pallas for u16/i16/i32/f32 tables (on the TPU a
+// one-hot bilinear product on the MXU at HIGHEST precision, exact only for
+// integer entries below 2^24), and apply_luts_multi at K = 1.  Bound by
+// device memory: 1 B/px read and sizeof(T) B/px written.
+//
+// Each lane loads one 16-byte vector of 16 pixels, so a warp's load covers
+// 512 contiguous pixels, a chunk; its outputs are G = sizeof(T) 16-byte
+// vectors.  The warp writes the chunk's 32 * G output vectors in G store
+// instructions of 512 contiguous bytes: in store k, lane l writes output
+// vector 32k + l, whose pixels are piece l % G (4-byte word, or 8-byte pair
+// for 2-byte entries) of lane 32k / G + l / G's vector.  G shuffle rounds
+// move the pieces: in round m, lane l fetches the piece for store
+// (l % G + m) % G, and the lane it reads from, s, serves only it, with its
+// piece (s / (32 / G) - m) % G; tests/test_torch_lut_lanes.py mirrors the
+// schedule.  kWideLoads chunks are in flight per warp, so a lane has 64
+// bytes of loads outstanding where lut_multi_kernel's K = 1 lanes had 4 or
+// 8.  Heads, tails and planes whose output is not as aligned as their
+// input go pixel by pixel.
+// ---------------------------------------------------------------------------
+
+// Chosen by A/B (tools/torch_hist_profile.py --ablut, PERF.md §6): 4 chunks
+// in flight a warp and 8 blocks per SM of an H100 (132 SMs) in the grid
+// beat 1, 2 or 8 chunks and 2, 4 or 16 blocks; streaming stores (__stcs)
+// beat plain ones.
+constexpr int kWideLoads = 4;             // chunks in flight per warp
+constexpr int kWideGrid = 8 * 132;        // blocks in the grid, over all planes
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ uint32_t pick4(uint32_t a, uint32_t b, uint32_t c, uint32_t d, int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+// Store the chunk whose 16 pixels this lane loaded (v), as output vectors
+// [0, nout) of dst: G stores of 512 contiguous bytes.
+__device__ __forceinline__ void wide_chunk(const uint32_t* tab, uint4 v, uint4* dst,
+                                           int64_t nout, int lane) {
+  const int a = lane >> 3, j = lane & 3;
+  uint32_t got[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int k = (j + m) & 3;
+    got[m] = __shfl_sync(0xffffffffu, pick4(v.x, v.y, v.z, v.w, (a - m) & 3),
+                         8 * k + (lane >> 2));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t w = pick4(got[0], got[1], got[2], got[3], (k - j) & 3);
+    if (32 * k + lane < nout) __stcs(dst + 32 * k + lane, map_vec(tab, w));
+  }
+}
+
+__device__ __forceinline__ void wide_chunk(const uint16_t* tab, uint4 v, uint4* dst,
+                                           int64_t nout, int lane) {
+  const int a = lane >> 4, j = lane & 1;
+  uint2 got[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int k = (j + m) & 1, src = 16 * k + (lane >> 1);
+    const bool lo = ((a - m) & 1) == 0;
+    got[m].x = __shfl_sync(0xffffffffu, lo ? v.x : v.z, src);
+    got[m].y = __shfl_sync(0xffffffffu, lo ? v.y : v.w, src);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint2 w = ((k - j) & 1) == 0 ? got[0] : got[1];
+    if (32 * k + lane < nout) __stcs(dst + 32 * k + lane, map_vec(tab, w));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lut_wide_kernel(const uint8_t* __restrict__ x, const T* __restrict__ luts, int64_t lut_stride,
+                T* __restrict__ out, int64_t B, int64_t n) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "2- or 4-byte entries");
+  constexpr int G = sizeof(T);
+  __shared__ T tab[256];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t g = int64_t(blockIdx.x) * kThreads + tid;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  const int64_t warp0 = g >> 5, nwarps = stride >> 5;
+
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    __syncthreads();  // the previous plane's reads of tab are done
+    tab[tid] = luts[b * lut_stride + tid];
+    __syncthreads();
+
+    const uint8_t* p = x + b * n;
+    T* q = out + b * n;
+    Split s = split_plane(p, n);
+    if (reinterpret_cast<uintptr_t>(q + s.head) & 15) s = {n, 0, n};  // pixel by pixel
+    const uint4* pv = reinterpret_cast<const uint4*>(p + s.head);
+    uint4* qv = reinterpret_cast<uint4*>(q + s.head);
+    const int64_t nchunks = (s.nvec + 31) >> 5;
+    for (int64_t c0 = warp0; c0 < nchunks; c0 += nwarps * kWideLoads) {
+      uint4 v[kWideLoads];
+#pragma unroll
+      for (int u = 0; u < kWideLoads; ++u) {
+        const int64_t i = ((c0 + u * nwarps) << 5) + lane;
+        v[u] = i < s.nvec ? __ldg(pv + i) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kWideLoads; ++u) {
+        const int64_t c = c0 + u * nwarps;  // the same for the whole warp
+        if (c < nchunks)
+          wide_chunk(tab, v[u], qv + c * 32 * G, (s.nvec - (c << 5)) * G, lane);
+      }
+    }
+    for (int64_t i = g; i < s.head; i += stride) q[i] = tab[p[i]];
+    for (int64_t i = s.tail_start + g; i < n; i += stride) q[i] = tab[p[i]];
+  }
+}
+
 template <typename T>
 int launch_lut_multi(const uint8_t* x, const void* luts, int64_t plane_stride, int64_t K,
                      void* out, int64_t B, int64_t n, cudaStream_t stream) {
@@ -295,6 +409,22 @@ int launch_lut_multi(const uint8_t* x, const void* luts, int64_t plane_stride, i
 int launch_lut_bytes(const uint8_t* x, const void* luts, int64_t plane_stride, int64_t K,
                      void* out, int64_t B, int64_t n, int32_t elem_bytes, cudaStream_t stream) {
   if (B < 1 || n < 1 || K < 1 || K > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  if (K == 1 && elem_bytes > 1) {
+    const int64_t grid_y = B < kMaxGridY ? B : kMaxGridY;
+    // a wave of kWideGrid blocks over all planes, at most a chunk per warp
+    const int64_t per_plane = std::max<int64_t>(
+        1, std::min<int64_t>(kWideGrid / grid_y, ((n >> 9) + kWarps) / kWarps));
+    const dim3 grid(static_cast<unsigned>(per_plane), static_cast<unsigned>(grid_y));
+    if (elem_bytes == 2)
+      lut_wide_kernel<uint16_t><<<grid, kThreads, 0, stream>>>(
+          x, static_cast<const uint16_t*>(luts), plane_stride, static_cast<uint16_t*>(out), B, n);
+    else if (elem_bytes == 4)
+      lut_wide_kernel<uint32_t><<<grid, kThreads, 0, stream>>>(
+          x, static_cast<const uint32_t*>(luts), plane_stride, static_cast<uint32_t*>(out), B, n);
+    else
+      return int(cudaErrorInvalidValue);
+    return int(cudaGetLastError());
+  }
   switch (elem_bytes) {
     case 1: return launch_lut_multi<uint8_t>(x, luts, plane_stride, K, out, B, n, stream);
     case 2: return launch_lut_multi<uint16_t>(x, luts, plane_stride, K, out, B, n, stream);

@@ -38,12 +38,22 @@ u16 CLAHE:
     python3 tools/torch_hist_profile.py --ab16 --parent build/parent
 
 ``--u16`` replaces K1's cases: each tree's u16 stage A (hist65536_tiles,
-or tile_hists_plain in a tree without it), clahe_lut at S = 65536, the u16
-blend and the whole clahe call on 2x2160x3840 (grid 8x8) on random, smooth,
-constant and 12-bit planes (chip_smoke.py::u16_planes), and K5 and K13
-(apply_lut256 with u8, f32 and i16 tables, apply_luts_multi K = 9 with u8
-and f32 tables) on 8x1080x1920, in turns, back to back and device-paced;
-then each tree's clahe u16 calls under torch.profiler.  ``--ab16`` times
+or tile_hists_plain in a tree without it), the u16 blend and the whole
+clahe call on 2x2160x3840 (grid 8x8) on random, smooth, constant and
+12-bit planes (chip_smoke.py::u16_planes), and _lut_cases: clahe_lut at
+S = 65536 on those planes' tiles and at S = 256 on config 5's, K5 and K13
+(apply_lut256 with u8, f32 and i16 tables, warm and L2-cold;
+apply_luts_multi K = 9 with u8 and f32 tables) on 8x1080x1920, in turns,
+back to back and device-paced; then each tree's clahe u16 calls under
+torch.profiler.
+
+    python3 tools/torch_hist_profile.py --ablut --parent build/parent
+
+``--ablut`` times _lut_cases device-paced in this checkout against copies
+with one choice of stage B at S = 65536 (cluster size, threads a block) or
+of K5's wide route (chunks in flight, blocks a SM, streaming stores)
+changed each (LUT_AB_VARIANTS), and the parent, in turns, each held to its
+plain versions first.  ``--ab16`` times
 u16 stage A and the u16 blend on the five kinds of plane in this checkout
 against copies with one design choice changed each (_ab16_variants: chunk
 size, pixels and threads a block, four-array staging, the walk without the
@@ -512,6 +522,45 @@ def _ab16_variants(parent: Path | None) -> dict:
     return v
 
 
+# --- stage B at S = 65536 and K5's wide route (--ablut): copies of this tree
+def _lut16(blocks: int, threads: int, min_blocks: int) -> list:
+    return [(_CC, "constexpr int kLut16Blocks = 8;", f"constexpr int kLut16Blocks = {blocks};"),
+            (_CC, "constexpr int kLut16Threads = 512;",
+             f"constexpr int kLut16Threads = {threads};"),
+            (_CC, "constexpr int kLut16MinBlocks = 3;",
+             f"constexpr int kLut16MinBlocks = {min_blocks};")]
+
+
+def _wide(loads: int = 4, per_sm: int = 8, streaming: bool = True) -> list:
+    edits = [(_HC, "constexpr int kWideLoads = 4;", f"constexpr int kWideLoads = {loads};"),
+             (_HC, "constexpr int kWideGrid = 8 * 132;",
+              f"constexpr int kWideGrid = {per_sm} * 132;")]
+    if not streaming:
+        edits.append((_HC, "__stcs(dst + 32 * k + lane, map_vec(tab, w));",
+                      "dst[32 * k + lane] = map_vec(tab, w);"))
+    return edits
+
+
+# this tree: stage B in clusters of 8 blocks of 512 threads, 3 blocks a SM;
+# K5's wide route with 4 chunks in flight a warp, 8 blocks a SM in the grid,
+# streaming stores
+LUT_AB_VARIANTS = {
+    "stage B, 2 blocks a SM (no register cap)": _lut16(8, 512, 1),
+    "stage B, 4 blocks a SM (at most 32 registers)": _lut16(8, 512, 4),
+    "stage B, 8 blocks of 256 threads (4 rounds), 6 a SM": _lut16(8, 256, 6),
+    "stage B, 8 blocks of 1024 threads (1 round), 2 a SM": _lut16(8, 1024, 2),
+    "stage B, clusters of 4 blocks of 1024 threads, 1 a SM": _lut16(4, 1024, 1),
+    "stage B, clusters of 2 blocks of 1024 threads, 1 a SM": _lut16(2, 1024, 1),
+    "K5 wide, plain stores": _wide(streaming=False),
+    "K5 wide, 2 chunks in flight a warp": _wide(loads=2),
+    "K5 wide, 8 chunks in flight a warp": _wide(loads=8),
+    "K5 wide, 4 blocks a SM": _wide(per_sm=4),
+    "K5 wide, 16 blocks a SM": _wide(per_sm=16),
+    "K5 wide, 2 chunks in flight, 4 blocks a SM, plain stores (its first version)":
+        _wide(loads=2, per_sm=4, streaming=False),
+}
+
+
 # the 8-bit counters take more than 48 KB of dynamic shared memory
 _SMEM = [(path, f"  {kernel}<<<", "  cudaFuncSetAttribute(" + kernel +
           ", cudaFuncAttributeMaxDynamicSharedMemorySize, HistCounter::kSmemBytes);\n"
@@ -620,7 +669,6 @@ def _u16_cases(np, torch, port) -> dict:
         h = stage_a(g, *geo)
         lut = kc.clahe_lut(h, geo[2] * geo[3], 2.0)
         cases[f"u16 stage A {kind}"] = lambda g=g: stage_a(g, *geo)
-        cases[f"clahe_lut S=65536 {kind}"] = lambda h=h: kc.clahe_lut(h, geo[2] * geo[3], 2.0)
         cases[f"clahe_blend u16 {kind}"] = lambda g=g, lut=lut: kc.clahe_blend(g, lut, 8, 8,
                                                                                *tables)
         cases[f"clahe u16 2x2160x3840 {kind}"] = lambda g=g: port.clahe(g, 2.0, (8, 8))
@@ -628,24 +676,61 @@ def _u16_cases(np, torch, port) -> dict:
 
 
 def _lut_cases(np, torch) -> dict:
-    """``--u16``: K5 and K13 at chip_smoke.py's timed shape, 8x1080x1920 u8:
-    apply_lut256 with [8, 256] u8 tables, apply_lut256_wide with f32 and i16
-    tables, apply_luts_multi with K = 9 u8 and f32 tables."""
+    """``--u16`` and ``--ablut``: name -> (call, plain call).  K5 and K13 at
+    chip_smoke.py's timed shape, 8x1080x1920 u8: apply_lut256 with [8, 256]
+    u8 tables, apply_lut256_wide with f32 and i16 tables, apply_luts_multi
+    with K = 9 u8 and f32 tables; K5 also L2-cold (each call takes the next
+    of four inputs, 66 MB of planes, so its input left the 50 MB L2 since
+    its last use); clahe_lut at S = 256 on config 5's tiles (2x2160x3840 u8,
+    grid 8x8) and at S = 65536 on the u16 tiles of each kind of
+    chip_smoke.py::u16_planes."""
+    import itertools
+
+    from chip_smoke import U16_PLANES, u16_planes
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
     from imageenhancement_mp_tpu_torch.kernels import hist as kh
+    from imageenhancement_mp_tpu_torch.ops import clahe as tc
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(64)
-    x = torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(dev)
+    xs = [torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(dev)
+          for _ in range(4)]
+    x = xs[0]
     u8 = torch.from_numpy(rng.integers(0, 256, (8, 256), dtype=np.uint8)).to(dev)
     f32 = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32)).to(dev)
     i16 = torch.from_numpy(rng.integers(-32768, 32768, (8, 256)).astype(np.int16)).to(dev)
     m8 = torch.from_numpy(rng.integers(0, 256, (8, 9, 256), dtype=np.uint8)).to(dev)
     m32 = torch.from_numpy(rng.standard_normal((8, 9, 256)).astype(np.float32)).to(dev)
-    return {"apply_lut256 u8 8x1080x1920": lambda: kh.apply_lut256(x, u8),
-            "apply_lut256_wide f32 8x1080x1920": lambda: kh.apply_lut256(x, f32),
-            "apply_lut256_wide i16 8x1080x1920": lambda: kh.apply_lut256(x, i16),
-            "apply_luts_multi K=9 u8 8x1080x1920": lambda: kh.apply_luts_multi(x, m8),
-            "apply_luts_multi K=9 f32 8x1080x1920": lambda: kh.apply_luts_multi(x, m32)}
+    cases = {}
+    for label, lut in (("apply_lut256 u8", u8), ("apply_lut256_wide f32", f32),
+                       ("apply_lut256_wide i16", i16)):
+        nxt = itertools.cycle(xs).__next__
+        cases[f"{label} 8x1080x1920"] = (lambda lut=lut: kh.apply_lut256(x, lut),
+                                         lambda lut=lut: kh.apply_lut256_plain(x, lut))
+        cases[f"{label} 8x1080x1920 L2-cold"] = (
+            lambda lut=lut, nxt=nxt: kh.apply_lut256(nxt(), lut),
+            lambda lut=lut: kh.apply_lut256_plain(x, lut))
+    for label, luts in (("u8", m8), ("f32", m32)):
+        cases[f"apply_luts_multi K=9 {label} 8x1080x1920"] = (
+            lambda luts=luts: kh.apply_luts_multi(x, luts),
+            lambda luts=luts: kh.apply_luts_multi_plain(x, luts))
+    # a yardstick, no kernel of the port: torch's fill of the f32 output
+    # (66 MB written)
+    out32 = torch.empty((8, 1080, 1920), dtype=torch.float32, device=dev)
+    cases["torch fill_ of an [8, 1080, 1920] f32 tensor"] = (lambda: out32.fill_(1.0),
+                                                              lambda: out32.fill_(1.0))
+    geo = tc.tile_geometry(2160, 3840, (8, 8))
+    area = geo[2] * geo[3]
+    g8 = torch.from_numpy(rng.integers(0, 256, (2, 2160, 3840), dtype=np.uint8)).to(dev)
+    h8 = kc.tile_hists_plain(g8, *geo)
+    cases["clahe_lut S=256 config 5 tiles"] = (lambda: kc.clahe_lut(h8, area, 2.0),
+                                               lambda: kc.clahe_lut_plain(h8, area, 2.0))
+    for kind in U16_PLANES[:4]:
+        h = kc.tile_hists_plain(torch.from_numpy(u16_planes((2, 2160, 3840), kind, rng)).to(dev),
+                                *geo)
+        cases[f"clahe_lut S=65536 {kind}"] = (lambda h=h: kc.clahe_lut(h, area, 2.0),
+                                              lambda h=h: kc.clahe_lut_plain(h, area, 2.0))
+    return cases
 
 
 def measure(root: Path, u16: bool) -> dict:
@@ -653,7 +738,8 @@ def measure(root: Path, u16: bool) -> dict:
     ``root`` (ms)."""
     np, torch, port, k1_planes = _setup(root)
     if u16:
-        cases = {**_u16_cases(np, torch, port), **_lut_cases(np, torch)}
+        cases = {**_u16_cases(np, torch, port),
+                 **{name: fn for name, (fn, _) in _lut_cases(np, torch).items()}}
     else:
         cases = {name: fn for name, (fn, _) in _kernel_cases(np, torch, k1_planes).items()}
         cases.update(_path_cases(np, torch, port))
@@ -689,15 +775,20 @@ def _u16_kernel_cases(np, torch) -> dict:
     return cases
 
 
-def measure_ab(root: Path, check: bool, u16: bool) -> dict:
+def measure_ab(root: Path, check: bool, u16: bool, lut: bool = False) -> dict:
     """Device-paced times of the kernels on each kind of plane in the tree
     under ``root`` (ms), each held to its plain version first where
-    ``check``: K1's two (or with ``u16``, u16 CLAHE's stage A and blend)."""
+    ``check``: K1's two (with ``u16``, u16 CLAHE's stage A and blend; with
+    ``lut``, stage B and the LUT applies of _lut_cases)."""
     np, torch, _, k1_planes = _setup(root)
     out = {}
-    cases = _u16_kernel_cases(np, torch) if u16 else _kernel_cases(np, torch, k1_planes)
+    cases = (_lut_cases(np, torch) if lut else _u16_kernel_cases(np, torch) if u16
+             else _kernel_cases(np, torch, k1_planes))
     for name, (fn, plain) in cases.items():
-        if check and not torch.equal(fn(), plain()):
+        got, want = fn(), plain()
+        if isinstance(got, tuple):  # apply_luts_multi's K outputs
+            got, want = torch.stack(got), torch.stack(want)
+        if check and not torch.equal(got, want):
             raise SystemExit(f"torch_hist_profile: {name} differs from its plain version in {root}")
         out[name] = _time_ms(torch, fn, True)
     return out
@@ -795,6 +886,10 @@ def main() -> None:
     ap.add_argument("--ab16", action="store_true",
                     help="time this checkout against copies with one u16 CLAHE design choice "
                          "changed each (and, with --parent, two built on the parent)")
+    ap.add_argument("--ablut", action="store_true",
+                    help="time this checkout against copies with one choice of stage B at "
+                         "S = 65536 or of K5's wide route changed each, and the parent")
+    ap.add_argument("--lut", action="store_true", help=argparse.SUPPRESS)  # --ablut's cases
     ap.add_argument("--measure-ab", type=Path, help=argparse.SUPPRESS)  # one A/B tree, in a child
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)  # one tree, in a child
@@ -810,7 +905,7 @@ def main() -> None:
         print(json.dumps(measure(args.measure.resolve(), args.u16)))
         return
     if args.measure_ab:
-        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check, args.u16)))
+        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check, args.u16, args.lut)))
         return
     if args.inspect:
         profile(args.inspect.resolve(), args.label, args.smi, args.u16)
@@ -821,8 +916,11 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    if args.ab or args.ab16:
-        if args.ab16:
+    if args.ab or args.ab16 or args.ablut:
+        if args.ablut:
+            ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), True)
+                                           for label, edits in LUT_AB_VARIANTS.items()]
+        elif args.ab16:
             ab = [("this", ROOT, True)] + [
                 (label, ab_tree(label, edits, src), keep)
                 for label, (edits, keep, src) in _ab16_variants(args.parent and
@@ -840,15 +938,17 @@ def main() -> None:
         times: dict[str, list[dict]] = {}
         for label, root, keep in ab + ab[::-1]:
             child = subprocess.run([sys.executable, __file__, "--measure-ab", str(root)]
-                                   + (["--check"] if keep else []) + ["--u16"] * args.ab16,
+                                   + (["--check"] if keep else []) + ["--u16"] * args.ab16
+                                   + ["--lut"] * args.ablut,
                                    check=True, capture_output=True, text=True)
             times.setdefault(label, []).append(json.loads(child.stdout.strip().splitlines()[-1]))
         for label, rs in times.items():
             print(f"  {label}: " + "; ".join(f"{k} {' / '.join(f'{r[k]:.4f}' for r in rs)}"
                                            for k in rs[0]) + f" ms, device-paced  [{smi}]")
-        for label, root, _ in ab[:1] if args.ab16 else ab[:2]:
-            subprocess.run([sys.executable, __file__, "--sass", str(root), "--label", label]
-                           + ["--u16"] * args.ab16, check=True)
+        if not args.ablut:
+            for label, root, _ in ab[:1] if args.ab16 else ab[:2]:
+                subprocess.run([sys.executable, __file__, "--sass", str(root), "--label", label]
+                               + ["--u16"] * args.ab16, check=True)
         return
     trees = [("this", ROOT)]
     if args.parent:
