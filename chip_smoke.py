@@ -39,11 +39,24 @@
    excess for each value step can take, resid 0 and 65535, all mass in one
    bin, tiles of one pixel, areas up to 2^31 - 1; T = 1, 3, 13 and 511),
    and timed on each kind of u16 plane beside its bytes bound.
+   The fused count + LUT kernels (hist256_lut: each plane's equalize LUT,
+   tile_luts256: each tile's CLAHE LUT, stage B run by the last block of a
+   plane or tile on its finished histogram) are held against their plain
+   versions on random, smooth, constant and two-valued planes at
+   8x1080x1920, 2x2160x3840 (config 5's tiles), 1079x1917 and five small or
+   uneven geometries, each also misaligned by one byte, clip 0, 2 and 40;
+   on [70000, 8, 8] (grids 2x2 and 8x8), [1, 2_200_000, 8] and the last
+   planes of the 1100x1080x1920 batch; over 100 back-to-back calls of
+   changing plane count and tile grid on one stream and 20 rounds of calls
+   interleaved on two streams, which hold only if every ticket counter
+   comes back to 0; on 20x4000x4000 tiles of one plane each (more scratch
+   rows than a stream's workspace keeps); and timed on each kind of plane.
 4. Drives the first main path through the public functions — equalize_unsharp
    at 8x1080x1920 and 2x2160x3840 and equalize_hist at 8x1080x1920, u8 from
    numpy seed 0 — each call with the launch counters set to 0 just before
    and read just after; fails unless each of its kernels was launched
-   exactly once (and no other kernel at all).  Holds the
+   exactly once (and no other kernel at all): hist256_lut and sep_conv_u8
+   for equalize_unsharp, hist256_lut and apply_lut256 for equalize_hist.  Holds the
    results against the plain path on the card and one 1080p frame against
    the plain path on the CPU, at 0 LSB, then times equalize_unsharp (kernel
    path vs plain path, CUDA events around 10 back-to-back calls, median of 20
@@ -53,10 +66,10 @@
    8 such batches from host NumPy, clahe on 1x2160x3840x3 RGB and on
    2x2160x3840 u16, median_blur(5) on u16 and i16, each path with counters
    of its own; fails unless each path launched exactly its kernels (median,
-   hist256_tiles, clahe_lut, clahe_blend, sep_conv_u8 once per batch through
-   the preset; the three CLAHE stages for clahe, stage A through
-   hist256_tiles on u8 and hist65536_tiles on u16; median for median_blur)
-   and no other.
+   tile_luts256, clahe_blend, sep_conv_u8 once per batch through the
+   preset; tile_luts256 and clahe_blend for u8 clahe, hist65536_tiles,
+   clahe_lut and clahe_blend for u16; median for median_blur) and no other;
+   hist256_tiles, stage A alone, is driven by itself once.
    Before the paths, holds the median kernel (the schedules of
    median_networks.cuh) against its plain networks at 0 LSB, k 3 and 5, u8,
    u16 and i16: each residue of the thread and block tiles (1x1, 2x3, 5x7,
@@ -128,8 +141,8 @@
    share printed); then drives cvt_color rgb2lab, lab2rgb, rgb2luv and
    rgb2gray at 32x1080x1920x3, clahe_lab at 1x2160x3840x3 and the four
    non-local-means functions at 1080p (and u16 L1 at 512x512), each with
-   counters of its own (exactly 6, 9, 25, 0, 15 plus the three CLAHE
-   stages, 441, 891, 1323 and 441 take_table launches), against the plain
+   counters of its own (exactly 6, 9, 25, 0, 15 plus tile_luts256 and
+   clahe_blend, 441, 891, 1323 and 441 take_table launches), against the plain
    path on the card (the same ops with take_table_plain) and on the CPU at
    0 LSB, and times them; then times take_table alone at the rgb2lab shape
    beside its bound and torch.take.
@@ -178,15 +191,23 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PKG = "imageenhancement_mp_tpu_torch"
-MAIN_KERNELS = ("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8")
-CONFIG5_KERNELS = ("median", "hist256_tiles", "clahe_lut", "clahe_blend", "sep_conv_u8")
+MAIN_KERNELS = ("hist256_lut", "apply_lut256", "sep_conv_u8")
+CONFIG5_KERNELS = ("median", "tile_luts256", "clahe_blend", "sep_conv_u8")
 SLICE3_KERNELS = ("bilateral", "athresh")
-KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SLICE3_KERNELS
+# held in phase 3; hist256 serves Otsu and pooled equalize_hist, hist256_tiles
+# is stage A alone, equalize_lut256 serves pooled equalize_hist, clahe_lut u16
+# clahe
+SCAN_KERNELS = ("hist256", "equalize_lut256", "hist256_tiles", "clahe_lut")
+KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SCAN_KERNELS + SLICE3_KERNELS
 WARP_KERNELS = ("warp_gather_u8",)
 TAKE_KERNELS = ("take_table",)
 LUT_KERNELS = ("apply_lut256_wide", "apply_luts_multi", "median_unsharp")
 U16_KERNELS = ("hist65536_tiles",)
-ALL_KERNELS = KERNELS + WARP_KERNELS + TAKE_KERNELS + LUT_KERNELS + U16_KERNELS
+# the summary line's order: every kernel of earlier slices as before, the
+# fused ones last
+ALL_KERNELS = (("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8", "median",
+                "hist256_tiles", "clahe_lut", "clahe_blend") + SLICE3_KERNELS + WARP_KERNELS
+               + TAKE_KERNELS + LUT_KERNELS + U16_KERNELS + ("hist256_lut", "tile_luts256"))
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -204,6 +225,8 @@ SOURCES = {
     "apply_luts_multi": f"{PKG}/kernels/csrc/hist.cu",
     "median_unsharp": f"{PKG}/kernels/csrc/fused.cu",
     "hist65536_tiles": f"{PKG}/kernels/csrc/clahe.cu",
+    "hist256_lut": f"{PKG}/kernels/csrc/hist.cu",
+    "tile_luts256": f"{PKG}/kernels/csrc/clahe.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -222,6 +245,8 @@ REPLACES = {
     "apply_luts_multi": "imageenhancement_mp_tpu/kernels/hist.py:350",
     "median_unsharp": "imageenhancement_mp_tpu/kernels/fused.py:240",
     "hist65536_tiles": "imageenhancement_mp_tpu/ops/clahe.py:55-61 (an XLA stage; no Pallas kernel)",
+    "hist256_lut": "imageenhancement_mp_tpu/kernels/hist.py:572 (equalize_hist_pallas's histogram and LUT phases) and imageenhancement_mp_tpu/kernels/hist.py:156",
+    "tile_luts256": "imageenhancement_mp_tpu/kernels/hist.py:156 via imageenhancement_mp_tpu/ops/clahe.py:212, and imageenhancement_mp_tpu/ops/clahe.py:74 (an XLA stage)",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -310,6 +335,16 @@ def k1_planes(shape: tuple, kind: str, rng) -> np.ndarray:
              + (g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx) * fy)
         out[b] = np.clip(np.rint(v) + rng.integers(-2, 3, (H, W)), 0, 255)
     return out
+
+
+def fold_planes(shape: tuple, kind: str, rng) -> np.ndarray:
+    """k1_planes' kinds and two-valued planes ({3, 200}, a binarised scan)."""
+    if kind == "two-valued":
+        return np.where(rng.integers(0, 2, shape) == 1, 200, 3).astype(np.uint8)
+    return k1_planes(shape, kind, rng)
+
+
+FOLD_PLANES = K1_PLANES + ("two-valued",)
 
 
 # u16 CLAHE's planes: random; smooth (k1_planes' pattern on a 9x16 grid of
@@ -589,7 +624,7 @@ def colour_and_nlmeans(port, dev, smi, gen, on_card, misaligned, check, drive, c
         ("cvt_color rgb2gray 32x1080x1920x3 u8", x_c, lambda x: port.cvt_color(x, "rgb2gray"),
          0, {}, None),
         ("clahe_lab(2.0, 8x8) 1x2160x3840x3 u8", x_4k, lambda x: port.clahe_lab(x, 2.0, (8, 8)),
-         15, {"hist256_tiles": 1, "clahe_lut": 1, "clahe_blend": 1}, plain_clahe_lab),
+         15, {"tile_luts256": 1, "clahe_blend": 1}, plain_clahe_lab),
         ("fast_nl_means_denoising(h=10, 7, 21) 1080x1920 u8", x_gray,
          lambda x: port.fast_nl_means_denoising(x, 10.0, 7, 21), 441, {}, None),
         ("fast_nl_means_denoising_colored(3, 3, 7, 21) 1080x1920x3 u8", x_col,
@@ -877,7 +912,8 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
     for label, x, fn, expect, plain_run, cpu_part in paths:
         g = on_card(x)
         out, got = drive(label, lambda: fn(g), expect)
-        path_launches.update({n: got[n] for n in LUT_KERNELS if n in expect})
+        path_launches.update({n: got[n] for n in LUT_KERNELS + ("equalize_lut256",)
+                              if n in expect})
         want = plain_run()
         cpu_in = x if cpu_part == "the whole batch" else x[:1]
         cpu = fn(torch.from_numpy(cpu_in))
@@ -1119,6 +1155,68 @@ def main() -> None:
     print(f"hist256 and hist256_tiles vs plain on the card: 0 LSB over {n_k1} cases "
           f"({', '.join(K1_PLANES)} planes; odd widths; offset 0 and 1)")
 
+    # the fused count + LUT kernels: hist256_lut (equalize LUTs) and
+    # tile_luts256 (CLAHE stage B on the finished tile counts), on each kind
+    # of plane, at the main paths' shapes, odd widths and uneven grids, 1-byte
+    # misaligned views, three clip limits
+    n_fold = 0
+    fold_geoms = [((8, 1080, 1920), (8, 8)), ((2, 2160, 3840), (8, 8)), ((2, 1079, 1917), (8, 8)),
+                  ((1, 300, 301), (3, 7)), ((1, 37, 131), (8, 8)), ((3, 5, 9), (2, 2)),
+                  ((1, 6, 1100), (2, 1)), ((1, 20, 27), (4, 3))]
+    for kind in FOLD_PLANES:
+        for shape, grid in fold_geoms:
+            x = on_card(fold_planes(shape, kind, rng))
+            geo = tclahe.tile_geometry(shape[1], shape[2], grid)
+            for xx in (x, misaligned(x)):
+                what = f"{kind} {shape} grid {grid} offset {xx.storage_offset()}"
+                check("hist256_lut", khist.hist256_equalize_lut(xx),
+                      khist.hist256_equalize_lut_plain(xx), what)
+                for clip in (0.0, 2.0, 40.0):
+                    check("tile_luts256", kclahe.tile_luts256(xx, *geo, clip),
+                          kclahe.tile_luts256_plain(xx, *geo, clip), f"{what} clip {clip}")
+                n_fold += 1
+    del x, xx
+    # back-to-back calls of changing plane count and tile grid on one stream:
+    # each call must leave its ticket counters at 0 for the next
+    frng = np.random.default_rng(17)
+    for i in range(100):
+        B, H, W = int(frng.integers(1, 12)), int(frng.integers(1, 700)), int(frng.integers(1, 1000))
+        x = on_card(frng.integers(0, 256, (B, H, W), dtype=np.uint8))
+        geo = tclahe.tile_geometry(H, W, (int(frng.integers(1, 9)), int(frng.integers(1, 9))))
+        check("hist256_lut", khist.hist256_equalize_lut(x), khist.hist256_equalize_lut_plain(x),
+              f"back-to-back call {i} {(B, H, W)}")
+        check("tile_luts256", kclahe.tile_luts256(x, *geo, 2.0),
+              kclahe.tile_luts256_plain(x, *geo, 2.0), f"back-to-back call {i} {(B, H, W)} {geo}")
+    # calls interleaved on two streams, no synchronisation between them: each
+    # stream keeps its own counters
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    xs = [on_card(frng.integers(0, 256, (4, 1080, 1920), dtype=np.uint8)) for _ in range(2)]
+    geo2 = tclahe.tile_geometry(1080, 1920, (8, 8))
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for stream, x in zip((s1, s2), xs):
+            with torch.cuda.stream(stream):
+                outs.append((x, khist.hist256_equalize_lut(x), kclahe.tile_luts256(x, *geo2, 2.0)))
+    torch.cuda.synchronize()
+    for x, lut, tl in outs:
+        check("hist256_lut", lut, khist.hist256_equalize_lut_plain(x), "two streams")
+        check("tile_luts256", tl, kclahe.tile_luts256_plain(x, *geo2, 2.0), "two streams")
+    # more scratch rows than a stream's workspace keeps (kernels/hist.py::
+    # WORKSPACE_ROWS): 20 tiles of 4000x4000, 250 band blocks each
+    x = on_card(frng.integers(0, 256, (20, 4000, 4000), dtype=np.uint8))
+    if 20 * kclahe.tile_band_plan(20, 1, 1, 4000, 4000)[2] <= khist.WORKSPACE_ROWS:
+        raise AssertionError("20x4000x4000 grid 1x1 no longer needs rows past the workspace")
+    check("tile_luts256", kclahe.tile_luts256(x, 1, 1, 4000, 4000, 2.0),
+          kclahe.tile_luts256_plain(x, 1, 1, 4000, 4000, 2.0), "20x4000x4000 grid 1x1")
+    check("hist256_tiles", kclahe.hist256_tiles(x, 1, 1, 4000, 4000),
+          kclahe.tile_hists_plain(x, 1, 1, 4000, 4000), "20x4000x4000 grid 1x1")
+    del x, xs, outs
+    print(f"hist256_lut and tile_luts256 vs plain on the card: 0 LSB over {n_fold} cases "
+          f"({', '.join(FOLD_PLANES)} planes; offset 0 and 1; clip 0, 2, 40), 100 back-to-back "
+          "calls of changing shape and grid, 20 rounds on two streams, scratch rows past the "
+          "workspace (20x4000x4000 grid 1x1)")
+
     # sep_conv_u8: every instance and route (k 3/5/7 compile-time, packed at
     # sigma 0 and int32 at sigma 1.1/1.5/2.3; the runtime instance at k 1, 9,
     # 31, (3, 5), (1, 31)) on the kernel's residues: widths = 0, 1, 15 mod 16,
@@ -1173,6 +1271,10 @@ def main() -> None:
     ht = kclahe.hist256_tiles(big, *gbig)
     check("hist256_tiles", ht[-128:], kclahe.tile_hists_plain(tail, *gbig),
           "1100x1080x1920 grid 8x8, last planes")
+    check("hist256_lut", khist.hist256_equalize_lut(big)[-2:],
+          khist.hist256_equalize_lut_plain(tail), "1100x1080x1920, last planes")
+    check("tile_luts256", kclahe.tile_luts256(big, *gbig, 2.0)[-128:],
+          kclahe.tile_luts256_plain(tail, *gbig, 2.0), "1100x1080x1920 grid 8x8, last planes")
     lt = kclahe.clahe_lut(ht, gbig[2] * gbig[3], 2.0)
     check("clahe_blend", kclahe.clahe_blend(big, lt, 8, 8, *tables_big)[-2:],
           kclahe.clahe_blend_plain(tail, lt[-128:], 8, 8, *tables_big),
@@ -1254,6 +1356,10 @@ def main() -> None:
     check("hist256", hm, khist.hist256_plain(many), "70000x8x8")
     lm = khist.equalize_lut256(hm, 64)
     check("equalize_lut256", lm, khist.equalize_lut256_plain(hm, 64), "70000x8x8")
+    check("hist256_lut", khist.hist256_equalize_lut(many), khist.hist256_equalize_lut_plain(many),
+          "70000x8x8")
+    check("tile_luts256", kclahe.tile_luts256(many, 2, 2, 4, 4, 2.0),
+          kclahe.tile_luts256_plain(many, 2, 2, 4, 4, 2.0), "70000x8x8 grid 2x2")
     check("apply_lut256", khist.apply_lut256(many, lm), khist.apply_lut256_plain(many, lm),
           "70000x8x8")
     check("sep_conv_u8", kconv.sep_conv_u8(many, tv5, th5, 1.0, lm),
@@ -1265,12 +1371,15 @@ def main() -> None:
     # grid 8x8: 4.48 M tiles of one pixel; the plain versions run on slices
     hk = kclahe.hist256_tiles(many, 8, 8, 1, 1)
     lk = kclahe.clahe_lut(hk, 1, 40.0)
+    fk = kclahe.tile_luts256(many, 8, 8, 1, 1, 40.0)
     bk = kclahe.clahe_blend(many, lk, 8, 8, *coord_tables(8, 8, (8, 8, 1, 1)))
     for sl in (slice(0, 3), slice(-3, None)):
         what = f"70000x8x8 grid 8x8, planes {sl.start}:{sl.stop}"
         h_sl, l_sl = hk.view(70000, 64, 256)[sl].reshape(-1, 256), lk.view(70000, 64, 256)[sl]
         check("hist256_tiles", h_sl, kclahe.tile_hists_plain(many[sl], 8, 8, 1, 1), what)
         check("clahe_lut", l_sl.reshape(-1, 256), kclahe.clahe_lut_plain(h_sl, 1, 40.0), what)
+        check("tile_luts256", fk.view(70000, 64, 256)[sl].reshape(-1, 256),
+              kclahe.tile_luts256_plain(many[sl], 8, 8, 1, 1, 40.0), what)
         check("clahe_blend", bk[sl], clahe_plain(many[sl], 40.0, (8, 8)), what)
     bil9 = tbil.bilateral_tables(9, 75.0, 75.0, 1, dev)
     taps11 = tthr.gaussian_taps(11, dev)
@@ -1278,7 +1387,7 @@ def main() -> None:
           "70000x8x8 d=9")
     check("athresh", kathr.adaptive_threshold_gaussian(many, taps11, 255, 2, False),
           kathr.adaptive_threshold_gaussian_plain(many, taps11, 255, 2, False), "70000x8x8 k=11")
-    del many, hm, lm, hk, lk, bk
+    del many, hm, lm, hk, lk, bk, fk
 
     # the bilateral kernel family: every compile-time radius (1..5, d 3..11),
     # each also through the runtime instance, and the runtime instance alone
@@ -1365,6 +1474,11 @@ def main() -> None:
     tall = rand_u8((1, 2_200_000, 8))
     what = "1x2200000x8"
     check("hist256", khist.hist256(tall), khist.hist256_plain(tall), what)
+    check("hist256_lut", khist.hist256_equalize_lut(tall), khist.hist256_equalize_lut_plain(tall),
+          what)
+    gtall = tclahe.tile_geometry(2_200_000, 8, (8, 8))
+    check("tile_luts256", kclahe.tile_luts256(tall, *gtall, 2.0),
+          kclahe.tile_luts256_plain(tall, *gtall, 2.0), what + " grid 8x8")
     check("sep_conv_u8", kconv.sep_conv_u8(tall, tv5, th5, 1.0),
           kconv.sep_conv_u8_plain(tall, tv5, th5, 1.0), what)
     check("median", kmedian.median_blur(tall, 5), kmedian.median_blur_plain(tall, 5), what)
@@ -1433,7 +1547,8 @@ def main() -> None:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
     print("kernels vs plain on the card: 0 LSB over "
-          f"{len(planes_cases)} plane cases, {n_k1} K1 plane-kind cases, {n_conv} conv cases, "
+          f"{len(planes_cases)} plane cases, {n_k1} K1 plane-kind cases, {n_fold} fused "
+          f"count + LUT cases, {n_conv} conv cases, "
           f"{n_med} median cases, {n_clahe} CLAHE cases (each stage and the whole op), "
           f"{n_bil} bilateral and {n_ath} athresh cases ({n_forced} more with every athresh "
           f"pixel recomputed in f64), the 70000x8x8 batch through every "
@@ -1472,6 +1587,12 @@ def main() -> None:
         "hist256_tiles": (lambda: kclahe.hist256_tiles(g5, *geo5),
                           lambda: kclahe.tile_hists_plain(g5, *geo5),
                           tuple(g5.shape) + ("grid 8x8",), (10, 3)),
+        "hist256_lut": (lambda: khist.hist256_equalize_lut(x8),
+                        lambda: khist.hist256_equalize_lut_plain(x8),
+                        tuple(x8.shape), (TIMED_RUNS, CALLS_PER_RUN)),
+        "tile_luts256": (lambda: kclahe.tile_luts256(g5, *geo5, 2.0),
+                         lambda: kclahe.tile_luts256_plain(g5, *geo5, 2.0),
+                         tuple(g5.shape) + ("grid 8x8 clip 2.0",), (10, 3)),
         "clahe_lut": (lambda: kclahe.clahe_lut(h5, area5, 2.0),
                       lambda: kclahe.clahe_lut_plain(h5, area5, 2.0),
                       tuple(h5.shape) + ("clip 2.0",), (TIMED_RUNS, CALLS_PER_RUN)),
@@ -1491,14 +1612,20 @@ def main() -> None:
         ms[name] = (k_ms, p_ms)
         print(f"  {name} at {label}: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
               f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f})  [{smi}]")
-    # K1's counting on each kind of plane at the timed shapes (random: above)
-    for kind in K1_PLANES[1:]:
-        xk = on_card(k1_planes(tuple(x8.shape), kind, rng))
-        gk = on_card(k1_planes(tuple(g5.shape), kind, rng))
+    # K1's counting and the fused kernels on each kind of plane at the timed
+    # shapes (random: above)
+    for kind in FOLD_PLANES[1:]:
+        xk = on_card(fold_planes(tuple(x8.shape), kind, rng))
+        gk = on_card(fold_planes(tuple(g5.shape), kind, rng))
         for name, fn, want, label in (
                 ("hist256", lambda: khist.hist256(xk), khist.hist256_plain(xk), tuple(x8.shape)),
                 ("hist256_tiles", lambda: kclahe.hist256_tiles(gk, *geo5),
-                 kclahe.tile_hists_plain(gk, *geo5), tuple(g5.shape) + ("grid 8x8",))):
+                 kclahe.tile_hists_plain(gk, *geo5), tuple(g5.shape) + ("grid 8x8",)),
+                ("hist256_lut", lambda: khist.hist256_equalize_lut(xk),
+                 khist.hist256_equalize_lut_plain(xk), tuple(x8.shape)),
+                ("tile_luts256", lambda: kclahe.tile_luts256(gk, *geo5, 2.0),
+                 kclahe.tile_luts256_plain(gk, *geo5, 2.0),
+                 tuple(g5.shape) + ("grid 8x8 clip 2.0",))):
             check(name, fn(), want, f"{kind} {label}")
             k_ms, k_iqr = time_ms(fn)
             print(f"  {name} at {label}, {kind} plane: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}); "
@@ -1593,13 +1720,13 @@ def main() -> None:
     x1080 = np.random.default_rng(0).integers(0, 256, (8, 1080, 1920), dtype=np.uint8)
     x4k = np.random.default_rng(0).integers(0, 256, (2, 2160, 3840), dtype=np.uint8)
     g1080, g4k = on_card(x1080), on_card(x4k)
-    eu_launches = {"hist256": 1, "equalize_lut256": 1, "sep_conv_u8": 1}
+    eu_launches = {"hist256_lut": 1, "sep_conv_u8": 1}
     out1080, c1 = drive("equalize_unsharp 8x1080x1920", lambda: port.equalize_unsharp(
         g1080, 1.0, 5, 0.0), eu_launches)
     out4k, c2 = drive("equalize_unsharp 2x2160x3840", lambda: port.equalize_unsharp(
         g4k, 1.0, 5, 0.0), eu_launches)
     eq1080, c3 = drive("equalize_hist 8x1080x1920", lambda: port.equalize_hist(g1080),
-                       {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1})
+                       {"hist256_lut": 1, "apply_lut256": 1})
     launches = {n: c1[n] + c2[n] + c3[n] for n in MAIN_KERNELS}
 
     def plain_equalize_unsharp(planes: torch.Tensor) -> torch.Tensor:
@@ -1674,7 +1801,14 @@ def main() -> None:
                         lambda: list(port.stream_frames(pipe, frames, 2, device=dev)),
                         dict.fromkeys(CONFIG5_KERNELS, len(frames)))
     clahe_rgb, _ = drive("clahe 1x2160x3840x3 RGB u8", lambda: port.clahe(g_rgb, 2.0, (8, 8)),
-                         {"hist256_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
+                         {"tile_luts256": 1, "clahe_blend": 1})
+    geo4k = tclahe.tile_geometry(2160, 3840, (8, 8))
+    tiles4k, launches_tiles = drive("hist256_tiles (stage A alone) 2x2160x3840 u8",
+                                    lambda: kclahe.hist256_tiles(g4k, *geo4k),
+                                    {"hist256_tiles": 1})
+    if max_err(tiles4k, kclahe.tile_hists_plain(g4k, *geo4k)):
+        raise AssertionError("hist256_tiles alone differs from its plain version")
+    del tiles4k
     clahe_u16, launches_u16 = drive("clahe 2x2160x3840 u16", lambda: port.clahe(g_u16, 2.0, (8, 8)),
                                     {"hist65536_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
     med_u16, _ = drive("median_blur(5) 2x2160x3840 u16", lambda: port.median_blur(g_u16, 5),
@@ -1797,7 +1931,7 @@ def main() -> None:
         ("make_pipeline(bilateral -> adaptive_threshold)", doc_pipe,
          {"bilateral": 1, "athresh": 1}, lambda x: plain_athresh(plain_bilateral(x))),
     ]
-    launches3 = {}
+    launches3, otsu_launches = {}, {}
     for label, fn, expect, plain in slice3:
         label = f"{label} 2x2160x3840 u8"
         out, got = drive(label, lambda: fn(g4k), expect)
@@ -1820,6 +1954,8 @@ def main() -> None:
             raise AssertionError(f"{label}: kernel path differs from the plain path")
         if "make_pipeline" in label:
             launches3 = got
+        if label.startswith("threshold"):
+            otsu_launches = got
     for label, fn, _, plain in slice3:
         (k_ms, k_iqr), (p_ms, p_iqr) = time_ms(lambda: fn(g4k)), time_ms(lambda: plain(g4k), 5, 2)
         gpix = g4k.numel() / 1e9
@@ -2108,6 +2244,9 @@ def main() -> None:
         # output pixel
         "warp_gather_u8": bound_ms(2 * n5, 9.0 * n5),
         "hist65536_tiles": b16_hist,
+        # the fused kernels: the planes read once, the LUT rows written once
+        "hist256_lut": bound_ms(n8 + B8 * 256),
+        "tile_luts256": bound_ms(n5 + T5 * 256),
     }
     for name, floor in (("bilateral", bil_floor), ("athresh", ath_floor)):
         print(f"  {name} at 2x2160x3840: kernel {ms[name][0]:.4f} ms, bound {bounds[name][0]:.4f} ms "
@@ -2123,6 +2262,12 @@ def main() -> None:
     library["apply_lut256"] = time_ms(lambda: torch.gather(l8, 1, idx_l))[0]
     library["hist256_tiles"] = tiles_library_ms
     library["hist65536_tiles"] = u16_library_ms
+    # no one PyTorch call builds an equalize or CLAHE LUT (library_ms null
+    # for the fused kernels); a yardstick: torch.bincount and the plain LUT
+    yard_ms = time_ms(lambda: khist.equalize_lut256_plain(
+        torch.bincount(idx_h, minlength=256 * B8).view(B8, 256).int(), n8 // B8))[0]
+    print(f"  yardstick for hist256_lut, not a kernel of the port: torch.bincount on int64 "
+          f"indices made beforehand and the plain equalize LUT {yard_ms:.4f} ms  [{smi}]")
     del idx_h, idx_l
     for name in ("hist256", "hist256_tiles", "apply_lut256"):
         print(f"  library call for {name}: {library[name]:.4f} ms (one torch call on int64 "
@@ -2137,12 +2282,16 @@ def main() -> None:
                                         ms, bounds, library)
 
     # each kernel's launches from the path that runs it: the first main path's
-    # three calls for its four kernels, get_preset's config 5 call for the
+    # three calls for its three kernels, get_preset's config 5 call for the
     # config 5 kernels, the bilateral -> adaptive_threshold pipeline for
-    # bilateral and athresh, the warp_affine rot15 call for warp_gather_u8,
+    # bilateral and athresh, Otsu for hist256, the pooled equalize_hist for
+    # equalize_lut256, u16 clahe for clahe_lut, hist256_tiles driven alone, the warp_affine rot15 call for warp_gather_u8,
     # cvt_color rgb2lab for take_table, phase 10's paths for its three kernels
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
                      **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
+                     "hist256": otsu_launches["hist256"],
+                     "hist256_tiles": launches_tiles["hist256_tiles"],
+                     "clahe_lut": launches_u16["clahe_lut"],
                      **{n: warp_launches[n] for n in WARP_KERNELS},
                      **{n: take_launches[n] for n in TAKE_KERNELS}, **lut_launches,
                      **{n: launches_u16[n] for n in U16_KERNELS}}

@@ -16,7 +16,7 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input",
-           "host_derived"]
+           "host_derived", "stream_workspace"]
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -57,3 +57,31 @@ def host_derived(t: torch.Tensor, key: str, fn):
             del _HOST_CACHE[k]
     _HOST_CACHE[(id(t), key)] = (weakref.ref(t), t._version, value)
     return value
+
+
+# (device, stream, zeroed) -> the stream's int32 buffer: see stream_workspace
+_WORKSPACES: dict[tuple, torch.Tensor] = {}
+_WORKSPACE_KEYS = 128  # the most buffers kept: two a stream
+
+
+def stream_workspace(device: torch.device, n: int, zeroed: bool) -> torch.Tensor:
+    """At least ``n`` int32 words of one of the two buffers a stream keeps
+    for the count kernels' handoff (csrc/hist_count.cuh::last_of_group):
+    ``zeroed``, the arrival counters, zeroed when made or grown and left at
+    0 by every launch; else the scratch rows, never zeroed.  Launches on
+    one stream run in order, so each stream keeps one of each for all its
+    launches and two streams never share one.  The least recently used
+    beyond ``_WORKSPACE_KEYS`` is dropped (the caching allocator reuses its
+    memory only on its own stream, after the launches queued there)."""
+    # the handle torch.cuda.current_stream(device).cuda_stream gives, without
+    # building a Stream object (4 us a call on the card's host)
+    stream = torch._C._cuda_getCurrentRawStream(device.index) if device.type == "cuda" else 0
+    key = (device, stream, zeroed)
+    t = _WORKSPACES.pop(key, None)
+    if t is None or t.numel() < n:
+        size = max(n, 1024, 0 if t is None else 2 * t.numel())
+        t = (torch.zeros if zeroed else torch.empty)(size, dtype=torch.int32, device=device)
+    _WORKSPACES[key] = t  # the most recently used last
+    while len(_WORKSPACES) > _WORKSPACE_KEYS:
+        del _WORKSPACES[next(iter(_WORKSPACES))]
+    return t

@@ -5,15 +5,18 @@ plain PyTorch version.
   tile of every plane, read in place, pad rows and columns through reflected
   indices (the JAX package's ``kernels/hist.py::hist256_pallas`` at
   its CLAHE call site, ops/clahe.py:207-212).
+* :func:`tile_luts256` — stages A and B for u8 in one launch: the same
+  kernel as :func:`hist256_tiles`, whose epilogue runs stage B's S = 256 law
+  on each tile's finished histogram and writes only the tile's LUT.
 * :func:`hist65536_tiles` — stage A for u16: the same walk, two blocks a
   tile, each counting half the value range.  The JAX package computes this
   stage in XLA, outside any Pallas kernel (ops/clahe.py:55-61, :213-216);
   the plain version, :func:`tile_hists_plain`, is a ``bincount`` over
   ``(plane·T + tile)·S + v`` offsets.
-* :func:`clahe_lut` — stage B, the clipped tile LUTs
-  (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no Pallas):
-  one block per tile for S = 256, one cluster of 8 blocks per tile for
-  S = 65536.
+* :func:`clahe_lut` — stage B, the clipped tile LUTs of histograms held in
+  memory (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no
+  Pallas): one block per tile for S = 256, one cluster of 8 blocks per tile
+  for S = 65536.
 * :func:`clahe_blend` — stage C, the bilinear blend of the four neighbour
   LUTs; one kernel per pixel type for every geometry, in place of
   ``kernels/clahe_u16.py::clahe_blend_quad_pallas`` and
@@ -39,11 +42,11 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, host_derived, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.conv import reflect101
-from imageenhancement_mp_tpu_torch.kernels.hist import HIST_GRID_BLOCKS, MAX_GRID_Y
+from imageenhancement_mp_tpu_torch.kernels.hist import HIST_GRID_BLOCKS, MAX_GRID_Y, handoff_scratch
 
 __all__ = [
     "HIST_SIZE",
-    "hist256_tiles", "tile_hists_plain", "tile_band_plan",
+    "hist256_tiles", "tile_hists_plain", "tile_band_plan", "tile_luts256", "tile_luts256_plain",
     "hist65536_tiles",
     "clahe_lut", "clahe_lut_plain", "clip_and_scale",
     "clahe_blend", "clahe_blend_plain", "column_cells", "blend_chunk", "blend_band",
@@ -116,25 +119,59 @@ def tile_band_plan(B: int, gh: int, gw: int, th: int, tw: int) -> tuple[int, int
     return band_rows, bands, min(bands, MAX_GRID_Y)
 
 
+def _count_tiles(name: str, planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                 clip_limit: float | None = None) -> torch.Tensor | None:
+    """Check, then on CUDA planes launch ``hist256_tiles`` (``[B·gh·gw,
+    256]`` int32 histograms) or, with a ``clip_limit``, ``tile_luts256``
+    (u8 LUTs): one launch, the output written whole.  None on CPU planes."""
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"{name} expects uint8 planes, got {planes.dtype}")
+    _check_planes(planes, name)
+    _check_geometry(planes, gh, gw, th, tw)
+    if not on_cuda(planes, name):
+        return None
+    check_kernel_input(name, planes)
+    B, H, W = planes.shape
+    if B * gh * gw > _INT32_MAX:
+        raise ValueError(f"{name}: {B * gh * gw} tiles overflow the grid")
+    lut_args = ()
+    if clip_limit is not None:
+        clip_abs, scale = clip_and_scale(th * tw, clip_limit, 256)
+        lut_args = (clip_abs, float(scale))
+    out = torch.empty((B * gh * gw, 256), dtype=torch.uint8 if lut_args else torch.int32,
+                      device=planes.device)
+    if out.numel():
+        plan = tile_band_plan(B, gh, gw, th, tw)
+        rows, partial, tickets = handoff_scratch(planes.device, B * gh * gw, plan[2])
+        launch(name, planes.device, planes.data_ptr(), out.data_ptr(), *lut_args, B, H, W,
+               gh, gw, th, tw, *plan, partial, tickets)
+        del rows  # queued: the caching allocator reuses it in stream order
+    return out
+
+
 def hist256_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
     """Stage A for u8: ``[B, H, W]`` → ``[B·gh·gw, 256]`` int32, tile
     ``(ty, tx)`` covering padded rows ``ty·th ..`` and columns ``tx·tw ..``."""
-    if planes.dtype != torch.uint8:
-        raise TypeError(f"hist256_tiles expects uint8 planes, got {planes.dtype}")
-    _check_planes(planes, "hist256_tiles")
     gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
-    _check_geometry(planes, gh, gw, th, tw)
-    if not on_cuda(planes, "hist256_tiles"):
-        return tile_hists_plain(planes, gh, gw, th, tw)
-    check_kernel_input("hist256_tiles", planes)
-    B, H, W = planes.shape
-    if B * gh * gw > _INT32_MAX:
-        raise ValueError(f"hist256_tiles: {B * gh * gw} tiles overflow the grid")
-    out = torch.zeros((B * gh * gw, 256), dtype=torch.int32, device=planes.device)
-    if out.numel() and H and W:
-        launch("hist256_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
-               gh, gw, th, tw, *tile_band_plan(B, gh, gw, th, tw))
-    return out
+    out = _count_tiles("hist256_tiles", planes, gh, gw, th, tw)
+    return tile_hists_plain(planes, gh, gw, th, tw) if out is None else out
+
+
+def tile_luts256_plain(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                       clip_limit: float) -> torch.Tensor:
+    return clahe_lut_plain(tile_hists_plain(planes, gh, gw, th, tw), th * tw, clip_limit)
+
+
+def tile_luts256(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                 clip_limit: float) -> torch.Tensor:
+    """Stages A and B for u8: ``[B, H, W]`` → ``[B·gh·gw, 256]`` u8 tile LUTs,
+    equal to ``clahe_lut(hist256_tiles(planes, gh, gw, th, tw), th·tw,
+    clip_limit)``.  On CUDA one launch (``tile_luts256``): the last band
+    block of each tile runs stage B on the tile's finished histogram; no
+    histogram is kept."""
+    gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
+    out = _count_tiles("tile_luts256", planes, gh, gw, th, tw, float(clip_limit))
+    return tile_luts256_plain(planes, gh, gw, th, tw, clip_limit) if out is None else out
 
 
 def hist65536_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:

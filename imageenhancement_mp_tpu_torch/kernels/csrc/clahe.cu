@@ -2,6 +2,8 @@
 // stages: per-tile histograms (stage A: hist256_tiles for u8,
 // hist65536_tiles for u16), the clipped tile LUTs (stage B) and the bilinear
 // blend of the four neighbour LUTs (stage C: one kernel for u8, one for u16).
+// For u8, stage B runs in stage A's epilogue (tile_luts256), so the CLAHE
+// path makes two launches.
 //
 // The tile geometry is cv2's: th x tw tiles on a gh x gw grid over the image
 // padded at the bottom and the right with REFLECT_101 when a dimension does
@@ -46,8 +48,13 @@ constexpr int64_t kMaxGridY = 65535;  // (plane, row band) pairs beyond it strid
 // every lane busy; the vectors go to hist_count.cuh, kTileLoads loads at
 // a time.  Then a loop per row counts the head and tail bytes and the pad
 // columns >= W (right tiles only; reflect101 per pixel there) through shared
-// atomics; a tile whose rows are all whole aligned vectors skips it.  The block adds its bins into the zeroed output with one
-// atomicAdd per nonzero bin.
+// atomics; a tile whose rows are all whole aligned vectors skips it.  The
+// tile's band blocks then hand their bins to the last of them
+// (hist_count.cuh::last_of_group), which writes the tile's histogram row
+// whole (`hist`, when given) or runs stage B's S = 256 law on it and writes
+// the tile's u8 LUT row (`lut`, when given; clip_abs and scale as for
+// clahe_lut): stages A and B in one launch, with no tile histogram in
+// device memory beyond the band blocks' scratch rows, and no zeroed output.
 // ---------------------------------------------------------------------------
 
 // Padded row R of a tile piece: its first interior element s (column c0 of
@@ -147,7 +154,9 @@ __device__ __forceinline__ Piece tile_piece(const T* plane, int W, int c0, int p
 constexpr int kTileLoads = 3;
 
 __global__ void __launch_bounds__(kCountThreads, 3)
-hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
+hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
+                     uint8_t* __restrict__ lut, int32_t clip_abs, float scale,
+                     uint32_t* __restrict__ partial, int32_t* __restrict__ tickets, int H, int W,
                      int gh, int gw, int th, int tw, int band_rows, int bands) {
   extern __shared__ __align__(16) uint32_t count_smem[];
   HistCounter c;
@@ -170,8 +179,12 @@ hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, i
   }
   __syncthreads();
 
-  const uint32_t sum = c.bin_total();
-  if (sum) atomicAdd(&out[tile * 256 + threadIdx.x], int32_t(sum));
+  uint32_t sum = c.bin_total();
+  if (!last_of_group(sum, partial + tile * gridDim.y * 256, blockIdx.y, gridDim.y,
+                     tickets + tile))
+    return;
+  if (hist) hist[tile * 256 + threadIdx.x] = int32_t(sum);
+  if (lut) lut[tile * 256 + threadIdx.x] = clahe_lut256_entry(int32_t(sum), clip_abs, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -271,81 +284,20 @@ hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out
 // 2^31.  Two routes, one per table size:
 //  * S = 256 (u8): one block of 256 threads per tile, one bin a thread; the
 //    block reduces and scans with warp shuffles.  Bound by launch latency.
+//    The CLAHE path runs this law in hist256_tiles' epilogue instead
+//    (tile_luts256); this kernel serves callers that hold histograms.
 //  * S = 65536 (u16): clahe_lut16_kernel below, one cluster of blocks per
 //    tile.  Bound by device memory: 6 B per bin.
 // ---------------------------------------------------------------------------
 
-template <int kW>
-__device__ __forceinline__ int32_t block_sum(int32_t v, int32_t* warp_sums) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int32_t total = 0;
-  for (int w = 0; w < kW; ++w) total += warp_sums[w];
-  __syncthreads();  // warp_sums is reused
-  return total;
-}
-
-template <int kW>
-__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v, int32_t* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t c = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t up = __shfl_up_sync(0xffffffffu, c, o);
-    if (lane >= o) c += up;
-  }
-  if (lane == 31) warp_sums[warp] = c;
-  __syncthreads();
-  int32_t excl = c - v;
-  for (int w = 0; w < warp; ++w) excl += warp_sums[w];
-  __syncthreads();
-  return excl;
-}
-
-template <int S>
-constexpr int kLutThreads = S < 1024 ? S : 1024;
-
-template <int S, typename L>
-__global__ void __launch_bounds__(kLutThreads<S>)
-clahe_lut_kernel(const int32_t* __restrict__ hist, L* __restrict__ lut, int32_t clip_abs,
-                 float scale) {
-  constexpr int kT = kLutThreads<S>;
-  constexpr int kPer = S / kT;
-  constexpr int kW = kT / 32;
-  __shared__ int32_t warp_sums[kW];
-  const int t = threadIdx.x;
-  const int64_t tile = blockIdx.x;
-  const int32_t* h = hist + tile * S + int64_t(t) * kPer;
-  const int i0 = t * kPer;
-
-  int32_t raise = 0, resid = 0, step = 1;
-  if (clip_abs > 0) {
-    int32_t ex = 0;
-    for (int j = 0; j < kPer; ++j) ex += max(h[j] - clip_abs, 0);
-    const int32_t excess = block_sum<kW>(ex, warp_sums);
-    raise = excess / S;
-    resid = excess % S;
-    step = max(S / max(resid, 1), 1);
-  }
-  // the final bin value: clipped, raised and bumped
-  auto bin = [&](int j) -> int32_t {
-    int32_t v = h[j];
-    if (clip_abs > 0) {
-      const int i = i0 + j;
-      v = min(v, clip_abs) + raise + ((i % step == 0 && i / step < resid) ? 1 : 0);
-    }
-    return v;
-  };
-
-  int32_t mine = 0;
-  for (int j = 0; j < kPer; ++j) mine += bin(j);
-  int32_t cdf = block_exclusive_scan<kW>(mine, warp_sums);
-  L* o = lut + tile * S + i0;
-  for (int j = 0; j < kPer; ++j) {
-    cdf += bin(j);
-    const float r = rintf(__fmul_rn(__int2float_rn(cdf), scale));
-    o[j] = L(__float2int_rn(fminf(fmaxf(r, 0.0f), float(S - 1))));
-  }
+// S = 256: one block of 256 threads a tile, one bin a thread, through
+// hist_count.cuh::clahe_lut256_entry (the law the tiles kernel's epilogue
+// runs too).
+__global__ void __launch_bounds__(256)
+clahe_lut256_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ lut, int32_t clip_abs,
+                    float scale) {
+  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  lut[i] = clahe_lut256_entry(hist[i], clip_abs, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -980,29 +932,59 @@ clahe_blend_u16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: [B, H, W] u8 contiguous; out: [B*gh*gw, 256] int32, zeroed by the
-// caller.  Tile (ty, tx) covers padded rows ty*th .. ty*th+th-1 and columns
-// tx*tw .. tx*tw+tw-1, with gh*th >= H and gw*tw >= W.  Its rows come in
-// `bands` bands of band_rows rows (the last one shorter), which stride over
-// grid_y <= min(bands, 65535) (kernels/clahe.py::tile_band_plan).
-int ie_hist256_tiles(const uint8_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
-                     int32_t gh, int32_t gw, int64_t th, int64_t tw, int64_t band_rows,
-                     int64_t bands, int64_t grid_y, cudaStream_t stream) {
+// x: [B, H, W] u8 contiguous; hist: [B*gh*gw, 256] int32 and lut:
+// [B*gh*gw, 256] u8, each written whole where not null.  Tile (ty, tx)
+// covers padded rows ty*th .. ty*th+th-1 and columns tx*tw .. tx*tw+tw-1,
+// with gh*th >= H and gw*tw >= W.  Its rows come in `bands` bands of
+// band_rows rows (the last one shorter), which stride over grid_y <=
+// min(bands, 65535) (kernels/clahe.py::tile_band_plan).  With grid_y > 1,
+// partial: [B*gh*gw, grid_y, 256] u32 scratch and tickets: B*gh*gw int32
+// counters at 0 (left at 0), both unused (may be null) at grid_y == 1.
+int launch_hist256_tiles(const uint8_t* x, int32_t* hist, uint8_t* lut, int32_t clip_abs,
+                         float scale, uint32_t* partial, int32_t* tickets, int64_t B, int64_t H,
+                         int64_t W, int32_t gh, int32_t gw, int64_t th, int64_t tw,
+                         int64_t band_rows, int64_t bands, int64_t grid_y, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || th < 1 || tw < 1 ||
       int64_t(gh) * th < H || int64_t(gw) * tw < W || int64_t(gh) * th > 0x7fffffffLL ||
       int64_t(gw) * tw > 0x7fffffffLL || th * tw > 0x7fffffffLL ||
       B * gh * gw > 0x7fffffffLL || band_rows < 1 || bands < 1 ||
       (bands - 1) * band_rows >= th || bands * band_rows < th || grid_y < 1 || grid_y > bands ||
-      grid_y > kMaxGridY)
+      grid_y > kMaxGridY || clip_abs < 0 ||
+      (grid_y > 1 && (partial == nullptr || tickets == nullptr)))
     return int(cudaErrorInvalidValue);
   const dim3 grid(unsigned(B * gh * gw), unsigned(grid_y));
   hist256_tiles_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(
-      x, out, int(H), int(W), gh, gw, int(th), int(tw), int(band_rows), int(bands));
+      x, hist, lut, clip_abs, scale, partial, tickets, int(H), int(W), gh, gw, int(th), int(tw),
+      int(band_rows), int(bands));
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Stage A for u8: x's tile histograms into hist ([B*gh*gw, 256] int32,
+// written whole); tiles, bands, partial and tickets as for
+// launch_hist256_tiles.
+int ie_hist256_tiles(const uint8_t* x, int32_t* hist, int64_t B, int64_t H, int64_t W,
+                     int32_t gh, int32_t gw, int64_t th, int64_t tw, int64_t band_rows,
+                     int64_t bands, int64_t grid_y, uint32_t* partial, int32_t* tickets,
+                     cudaStream_t stream) {
+  if (hist == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist256_tiles(x, hist, nullptr, 0, 0.0f, partial, tickets, B, H, W, gh, gw, th,
+                              tw, band_rows, bands, grid_y, stream);
+}
+
+// Stages A and B for u8 in one launch: x's tile LUTs into lut ([B*gh*gw,
+// 256] u8), clip_abs and scale of the tile area as for ie_clahe_lut; no
+// histogram kept.  The rest as for ie_hist256_tiles.
+int ie_tile_luts256(const uint8_t* x, uint8_t* lut, int32_t clip_abs, float scale, int64_t B,
+                    int64_t H, int64_t W, int32_t gh, int32_t gw, int64_t th, int64_t tw,
+                    int64_t band_rows, int64_t bands, int64_t grid_y, uint32_t* partial,
+                    int32_t* tickets, cudaStream_t stream) {
+  if (lut == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist256_tiles(x, nullptr, lut, clip_abs, scale, partial, tickets, B, H, W, gh, gw,
+                              th, tw, band_rows, bands, grid_y, stream);
 }
 
 // x: [B, H, W] u16 contiguous; out: [B*gh*gw, 65536] int32, written
@@ -1029,8 +1011,8 @@ int ie_clahe_lut(const int32_t* hist, void* lut, int64_t BT, int32_t S, int32_t 
                  float scale, cudaStream_t stream) {
   if (BT < 1 || BT > 0x7fffffffLL || clip_abs < 0) return int(cudaErrorInvalidValue);
   if (S == 256) {
-    clahe_lut_kernel<256, uint8_t><<<unsigned(BT), kLutThreads<256>, 0, stream>>>(
-        hist, static_cast<uint8_t*>(lut), clip_abs, scale);
+    clahe_lut256_kernel<<<unsigned(BT), 256, 0, stream>>>(hist, static_cast<uint8_t*>(lut),
+                                                          clip_abs, scale);
   } else if (S == 65536) {
     if ((reinterpret_cast<uintptr_t>(hist) | reinterpret_cast<uintptr_t>(lut)) & 15)
       return int(cudaErrorInvalidValue);

@@ -1,6 +1,7 @@
 // Histogram-family kernels for u8 planes: the per-plane 256-bin histogram,
-// cv2's equalizeHist LUT built from it, and the 256-entry LUT apply (u8
-// tables; wider tables; K tables at once).
+// cv2's equalizeHist LUT built from it (in the histogram kernel's epilogue,
+// or from a histogram in memory), and the 256-entry LUT apply (u8 tables;
+// wider tables; K tables at once).
 //
 // Each exported function launches on the caller's stream, allocates nothing,
 // and returns the cudaError_t of cudaGetLastError() right after its launch.
@@ -46,14 +47,18 @@ int blocks_per_plane(int64_t n) {
 // ---------------------------------------------------------------------------
 // hist256: replaces the JAX package's kernels/hist.py::hist256_pallas
 // (the nibble one-hot MXU dot, whose f32 accumulation forced 2^17-pixel
-// stripes).  The bound is device memory: 1 B/px read once.  A block counts
-// a grid-strided share of one plane's 16-byte vectors through hist_count.cuh
-// (kHistLoads loads a group, the next group loaded while one is counted),
-// its head and tail bytes through shared atomics, and adds its 256
-// bins into the zeroed [B,256] output with one atomicAdd per nonzero bin.
-// kernels/hist.py::hist256_plan sizes the grid to the card's resident
-// blocks.  The counts are integers, so the result does not depend on the
-// order of the atomics.
+// stripes), and with a LUT output the histogram and LUT phases of
+// equalize_hist_pallas, which builds cv2's LUT in the same pallas_call
+// (kernels/hist.py:549-572).  The bound is device memory: 1 B/px read
+// once.  A block counts a grid-strided share of one plane's 16-byte
+// vectors through hist_count.cuh (kHistLoads loads a group, the next group
+// loaded while one is counted), its head and tail bytes through shared
+// atomics.  The plane's blocks then hand their bins to the last of them
+// (hist_count.cuh::last_of_group), which writes the plane's histogram row
+// whole (`hist`, when given) and its equalize LUT row (`lut`, when given):
+// no zeroed output and no second launch.  kernels/hist.py::hist256_plan
+// sizes the grid to the card's resident blocks.  The counts are integers,
+// so the result does not depend on which block arrives last.
 // ---------------------------------------------------------------------------
 
 // Vectors a thread loads at a time (2 in flight with the next group; the
@@ -61,14 +66,17 @@ int blocks_per_plane(int64_t n) {
 constexpr int kHistLoads = 1;
 
 __global__ void __launch_bounds__(kCountThreads, 3)
-hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t B, int64_t n) {
+hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
+               uint8_t* __restrict__ lut, uint32_t* __restrict__ partial,
+               int32_t* __restrict__ tickets, int64_t B, int64_t n) {
   extern __shared__ __align__(16) uint32_t count_smem[];
   const int tid = threadIdx.x;
   const int64_t g0 = int64_t(blockIdx.x) * kCountThreads;
   const int64_t stride = int64_t(gridDim.x) * kCountThreads;
   HistCounter c;
 
-  // planes stride over gridDim.y, so any number of planes fits the grid
+  // planes stride over gridDim.y, so any number of planes fits the grid;
+  // each plane has its own ticket and scratch rows
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     c.begin(count_smem);
     __syncthreads();
@@ -89,58 +97,28 @@ hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out, int64_t
     for (int64_t j = s.tail_start + g0 + tid; j < n; j += stride) c.add_one(p[j]);
     __syncthreads();
 
-    const uint32_t sum = c.bin_total();
-    if (sum) atomicAdd(&out[b * 256 + tid], int32_t(sum));
+    uint32_t sum = c.bin_total();
+    if (last_of_group(sum, partial + b * gridDim.x * 256, blockIdx.x, gridDim.x, tickets + b)) {
+      if (hist) hist[b * 256 + tid] = int32_t(sum);
+      if (lut) lut[b * 256 + tid] = equalize_lut_entry(int32_t(sum), int32_t(n));
+    }
     __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// equalize_lut256: replaces the LUT phase of
-// the JAX package's kernels/hist.py::equalize_hist_pallas (triangular
-// dots on the MXU) and the XLA equalize_lut of ops/histogram.py:92-111.  One
-// block of 256 threads per plane; the work is 256 values, so launch latency
-// bounds it.  A warp-shuffle inclusive scan gives the cdf; the first nonzero
-// bin i0 is the number of bins whose cdf is still 0.  Then
-//   lut = clamp(rint(f32(cdf - h0) * f32(255 / f32(max(total - h0, 1)))), 0, 255)
-// with the identity when h0 == total (a constant plane), exactly the law of
-// ops/histogram.py::equalize_lut.
+// equalize_lut256: the equalize LUT of histograms already in memory (the
+// JAX package's ops/histogram.py::equalize_lut for callers that hold a
+// histogram: a pooled one, or one passed in).  One block of 256 threads per
+// histogram through hist_count.cuh::equalize_lut_entry; the work is 256
+// values, so launch latency bounds it.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(256)
 equalize_lut256_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ lut,
                        int32_t total) {
-  __shared__ int32_t warp_sums[8];
-  __shared__ int32_t s_h0;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int64_t b = blockIdx.x;
-
-  const int32_t h = hist[b * 256 + t];
-  int32_t c = h;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t up = __shfl_up_sync(0xffffffffu, c, o);
-    if (lane >= o) c += up;
-  }
-  if (lane == 31) warp_sums[warp] = c;
-  if (t == 0) s_h0 = 0;  // stays 0 for an all-zero histogram
-  __syncthreads();
-  int32_t cdf = c;
-  for (int w = 0; w < warp; ++w) cdf += warp_sums[w];
-
-  const int i0 = __syncthreads_count(cdf == 0);
-  if (t == i0) s_h0 = h;
-  __syncthreads();
-  const int32_t h0 = s_h0;
-
-  int32_t v = t;
-  if (h0 != total) {
-    const int32_t denom = max(total - h0, 1);
-    const float scale = __fdiv_rn(255.0f, __int2float_rn(denom));
-    const float r = rintf(__fmul_rn(__int2float_rn(cdf - h0), scale));
-    v = __float2int_rn(fminf(fmaxf(r, 0.0f), 255.0f));
-  }
-  lut[b * 256 + t] = uint8_t(v);
+  const int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  lut[i] = equalize_lut_entry(hist[i], total);
 }
 
 // ---------------------------------------------------------------------------
@@ -433,23 +411,45 @@ int launch_lut_bytes(const uint8_t* x, const void* luts, int64_t plane_stride, i
   }
 }
 
+// x: [B, n] u8 contiguous; hist: [B, 256] int32 and lut: [B, 256] u8, each
+// written whole where not null; a grid of blocks x grid_y (blocks per
+// plane, and grid_y <= min(B, 65535): planes stride over it), from
+// kernels/hist.py::hist256_plan.  With blocks > 1, partial: [B, blocks,
+// 256] u32 scratch and tickets: B int32 counters at 0 (left at 0), both
+// unused (may be null) at blocks == 1.
+int launch_hist256(const uint8_t* x, int32_t* hist, uint8_t* lut, uint32_t* partial,
+                   int32_t* tickets, int64_t B, int64_t n, int64_t blocks, int64_t grid_y,
+                   cudaStream_t stream) {
+  if (B < 1 || n < 1 || n > 0x7fffffffLL || blocks < 1 || blocks > 0x7fffffffLL ||
+      grid_y < 1 || grid_y > B || grid_y > kMaxGridY ||
+      (blocks > 1 && (partial == nullptr || tickets == nullptr)))
+    return int(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(grid_y));
+  hist256_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(
+      x, hist, lut, partial, tickets, B, n);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* ie_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
-// x: [B, n] u8 contiguous; out: [B, 256] int32, zeroed by the caller; a
-// grid of blocks x grid_y (blocks per plane, and grid_y <= min(B, 65535):
-// planes stride over it), from kernels/hist.py::hist256_plan.
-int ie_hist256(const uint8_t* x, int32_t* out, int64_t B, int64_t n, int64_t blocks,
-               int64_t grid_y, cudaStream_t stream) {
-  if (B < 1 || n < 1 || blocks < 1 || blocks > 0x7fffffffLL || grid_y < 1 ||
-      grid_y > B || grid_y > kMaxGridY)
-    return int(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(grid_y));
-  hist256_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(x, out, B, n);
-  return int(cudaGetLastError());
+// The histograms of x ([B, n] u8 contiguous) into hist ([B, 256] int32,
+// written whole); grid, partial and tickets as for launch_hist256.
+int ie_hist256(const uint8_t* x, int32_t* hist, int64_t B, int64_t n, int64_t blocks,
+               int64_t grid_y, uint32_t* partial, int32_t* tickets, cudaStream_t stream) {
+  if (hist == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist256(x, hist, nullptr, partial, tickets, B, n, blocks, grid_y, stream);
+}
+
+// cv2's equalizeHist LUTs of x's planes into lut ([B, 256] u8) in one
+// launch, no histogram kept; grid, partial and tickets as for ie_hist256.
+int ie_hist256_lut(const uint8_t* x, uint8_t* lut, int64_t B, int64_t n, int64_t blocks,
+                   int64_t grid_y, uint32_t* partial, int32_t* tickets, cudaStream_t stream) {
+  if (lut == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist256(x, nullptr, lut, partial, tickets, B, n, blocks, grid_y, stream);
 }
 
 // hist: [B, 256] int32 with each row summing to total; lut: [B, 256] u8.

@@ -2,8 +2,12 @@
 
 * :func:`hist256` — exact per-plane 256-bin histogram (replaces
   the JAX package's ``kernels/hist.py::hist256_pallas``).
-* :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram (the LUT
-  phase of ``equalize_hist_pallas`` and ``ops/histogram.py::equalize_lut``).
+* :func:`hist256_equalize_lut` — cv2's equalizeHist LUT of each plane in
+  one launch of the same kernel, its epilogue building the LUT from the
+  plane's finished histogram (the histogram and LUT phases of
+  ``equalize_hist_pallas``, which are one ``pallas_call`` there too).
+* :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram held in
+  memory (``ops/histogram.py::equalize_lut``).
 * :func:`apply_lut256` — ``cv2.LUT`` with a u8, u16, i16, i32 or f32 table,
   shared or per plane (replaces ``apply_lut256_pallas``: u8 tables launch
   ``apply_lut256``, the others ``apply_lut256_wide``).
@@ -19,11 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda, stream_workspace
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 
 __all__ = [
     "hist256", "hist256_plain", "hist256_plan", "HIST_GRID_BLOCKS", "MAX_GRID_Y",
+    "hist256_equalize_lut", "hist256_equalize_lut_plain", "handoff_scratch",
     "equalize_lut256", "equalize_lut256_plain",
     "apply_lut256", "apply_lut256_plain",
     "apply_luts_multi", "apply_luts_multi_plain", "take_rows",
@@ -63,6 +68,45 @@ def hist256_plain(planes: torch.Tensor) -> torch.Tensor:
     return counts.reshape(B, 256).to(torch.int32)
 
 
+# scratch rows a launch takes from its stream's workspace (4 MB); more come
+# from the caching allocator
+WORKSPACE_ROWS = 4096
+
+
+def handoff_scratch(device: torch.device, groups: int, members: int) -> tuple:
+    """``(rows, partial, tickets)`` for a count kernel whose ``groups``
+    groups (planes or tiles) are counted by ``members`` blocks each
+    (csrc/hist_count.cuh::last_of_group): pointers to ``[groups, members,
+    256]`` scratch rows and to ``groups`` arrival counters at 0, from the
+    stream's two buffers (kernels/__init__.py::stream_workspace); past
+    ``WORKSPACE_ROWS`` rows the rows come from the caching allocator and
+    ``rows`` holds them: keep it until the launch is queued.  A group of one
+    block needs neither: ``(None, 0, 0)``."""
+    if members == 1:
+        return None, 0, 0
+    n_rows = groups * members
+    tickets = stream_workspace(device, groups, zeroed=True).data_ptr()
+    if n_rows <= WORKSPACE_ROWS:
+        return None, stream_workspace(device, n_rows * 256, zeroed=False).data_ptr(), tickets
+    rows = torch.empty((n_rows, 256), dtype=torch.int32, device=device)
+    return rows, rows.data_ptr(), tickets
+
+
+def _count_planes(name: str, planes: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch ``hist256`` (``out`` the histograms) or ``hist256_lut`` (``out``
+    the equalize LUTs) on non-empty CUDA planes: one launch, ``out`` written
+    whole."""
+    B = planes.shape[0]
+    n = planes.numel() // B
+    if n >= 2**31:
+        raise ValueError(f"{name}: a plane of {n} pixels overflows the int32 counts")
+    blocks, grid_y = hist256_plan(B, n)
+    rows, partial, tickets = handoff_scratch(planes.device, B, blocks)
+    launch(name, planes.device, planes.data_ptr(), out.data_ptr(), B, n, blocks, grid_y, partial,
+           tickets)
+    del rows  # queued: the caching allocator reuses it in stream order
+
+
 def hist256(planes: torch.Tensor) -> torch.Tensor:
     """Exact per-plane histogram: ``[B, H, W]`` or ``[B, P]`` u8 → ``[B, 256]`` int32."""
     _check_u8_planes(planes, "hist256")
@@ -70,13 +114,32 @@ def hist256(planes: torch.Tensor) -> torch.Tensor:
         return hist256_plain(planes)
     check_kernel_input("hist256", planes)
     B = planes.shape[0]
-    n = planes.numel() // B if B else 0
-    if n >= 2**31:
-        raise ValueError(f"hist256: a plane of {n} pixels overflows the int32 counts")
-    out = torch.zeros((B, 256), dtype=torch.int32, device=planes.device)
-    if n:
-        launch("hist256", planes.device, planes.data_ptr(), out.data_ptr(), B, n,
-               *hist256_plan(B, n))
+    if not planes.numel():
+        return torch.zeros((B, 256), dtype=torch.int32, device=planes.device)
+    out = torch.empty((B, 256), dtype=torch.int32, device=planes.device)
+    _count_planes("hist256", planes, out)
+    return out
+
+
+def hist256_equalize_lut_plain(planes: torch.Tensor) -> torch.Tensor:
+    B = planes.shape[0]
+    return equalize_lut256_plain(hist256_plain(planes), planes.numel() // B if B else 0)
+
+
+def hist256_equalize_lut(planes: torch.Tensor) -> torch.Tensor:
+    """cv2's equalizeHist LUT of each plane: ``[B, H, W]`` or ``[B, P]`` u8 →
+    ``[B, 256]`` u8, equal to ``equalize_lut256(hist256(planes), H·W)``.  On
+    CUDA one launch (``hist256_lut``) counts each plane and builds its LUT
+    from the finished counts; no histogram is kept."""
+    _check_u8_planes(planes, "hist256_equalize_lut")
+    if not on_cuda(planes, "hist256_lut"):
+        return hist256_equalize_lut_plain(planes)
+    check_kernel_input("hist256_lut", planes)
+    B = planes.shape[0]
+    if not planes.numel():  # no pixels: the identity, as equalize_lut256 gives at total 0
+        return torch.arange(256, dtype=torch.uint8, device=planes.device).repeat(B, 1)
+    out = torch.empty((B, 256), dtype=torch.uint8, device=planes.device)
+    _count_planes("hist256_lut", planes, out)
     return out
 
 

@@ -2,8 +2,10 @@
 pooled.
 
 The counterpart of the JAX package's ``ops/histogram.py`` (:53-182).  u8
-planes take one route for every size: the histogram kernel, the
-equalize-LUT kernel, then the LUT-apply kernel (``kernels/hist.py``).  u16
+planes take one route for every size: per frame, the histogram kernel with
+its equalize-LUT epilogue, then the LUT-apply kernel; pooled, the
+histogram kernel, the equalize-LUT kernel on the pooled counts, then the
+LUT-apply kernel (``kernels/hist.py``).  u16
 histograms are one ``torch.bincount`` over plane-offset indices on both
 devices, as the JAX package scatters them in XLA.
 """
@@ -12,7 +14,12 @@ from __future__ import annotations
 
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256, equalize_lut256, hist256
+from imageenhancement_mp_tpu_torch.kernels.hist import (
+    apply_lut256,
+    equalize_lut256,
+    hist256,
+    hist256_equalize_lut,
+)
 
 __all__ = ["histogram_256", "equalize_lut", "equalize_hist_planes", "equalize_hist_global_planes"]
 
@@ -48,11 +55,11 @@ def equalize_lut(hist: torch.Tensor, total: int) -> torch.Tensor:
 
 
 def equalize_hist_planes(planes: torch.Tensor) -> torch.Tensor:
-    """``cv2.equalizeHist`` on each plane of ``[B, H, W]`` u8 — exact."""
+    """``cv2.equalizeHist`` on each plane of ``[B, H, W]`` u8 — exact.  Two
+    launches on CUDA: ``hist256_lut`` and ``apply_lut256``."""
     _check_u8(planes)
     planes = planes.contiguous()
-    luts = equalize_lut256(hist256(planes), planes.shape[-1] * planes.shape[-2])
-    return apply_lut256(planes, luts)
+    return apply_lut256(planes, hist256_equalize_lut(planes))
 
 
 def _check_pool_total(total: int) -> None:

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels.conv import sep_conv_u8
-from imageenhancement_mp_tpu_torch.kernels.hist import equalize_lut256, hist256
+from imageenhancement_mp_tpu_torch.kernels.hist import hist256_equalize_lut
 from imageenhancement_mp_tpu_torch.ops import OP_REGISTRY
 from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
@@ -145,15 +145,16 @@ def equalize_unsharp(img: torch.Tensor, amount: float = 1.0, ksize: int = 5,
     ``[N,H,W,C]``, per plane; equal to
     ``ref.unsharp_mask(ref.equalize_hist(p), amount, ksize, sigma)``.
 
-    Three launches for every shape: the histogram kernel, the equalize-LUT
-    kernel, then ONE conv pass that applies each plane's LUT as it loads the
-    pixels, runs the Gaussian and writes the unsharp epilogue — two reads of
-    the image and one write.  Any odd ``ksize`` ≤ 31, including 1.
+    Two launches for every shape: the histogram kernel, whose epilogue
+    builds each plane's equalize LUT from its finished counts, then ONE conv
+    pass that applies each plane's LUT as it loads the pixels, runs the
+    Gaussian and writes the unsharp epilogue — two reads of the image and
+    one write.  Any odd ``ksize`` ≤ 31, including 1.
     """
     if img.dtype != torch.uint8:
         raise TypeError(f"expected uint8 image tensor, got {img.dtype}")
     planes, restore = as_planes(img)
     planes = planes.contiguous()
     tv, th = q8_taps(int(ksize), float(sigma))
-    luts = equalize_lut256(hist256(planes), planes.shape[-2] * planes.shape[-1])
+    luts = hist256_equalize_lut(planes)
     return restore(sep_conv_u8(planes, tv, th, float(amount), luts=luts))

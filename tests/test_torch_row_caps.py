@@ -144,10 +144,10 @@ def test_grid_plans_stay_within_a_grid_axis(monkeypatch, shape, grid):
     gh, gw, th, tw = tclahe.tile_geometry(H, W, grid)
     assert khist.hist256(x).shape == (B, 256)
     assert kclahe.hist256_tiles(x, gh, gw, th, tw).shape == (B * gh * gw, 256)
-    (name, _, _, _, b, n, blocks, grid_y), tiles = launches
+    (name, _, _, _, b, n, blocks, grid_y, _, _), tiles = launches
     assert name == "hist256" and (b, n) == (B, H * W)
     assert 1 <= blocks <= khist.HIST_GRID_BLOCKS and 1 <= grid_y <= min(B, 65535)
     assert tiles[0] == "hist256_tiles" and tiles[4:11] == (B, H, W, gh, gw, th, tw)
-    band_rows, bands, grid_y = tiles[11:]
+    band_rows, bands, grid_y = tiles[11:14]
     assert (bands - 1) * band_rows < th <= bands * band_rows
     assert 1 <= grid_y <= min(bands, 65535) and B * gh * gw < 2**31

@@ -20,6 +20,34 @@ run, so the events see the kernels alone).  Then, for each tree,
 equalize_unsharp and config 5 under torch.profiler: device time per call by
 kernel, the device's busy share, the host's enqueue time per call.
 
+The fused kernels (hist256_lut through hist256_equalize_lut, 8x1080x1920;
+tile_luts256, config 5's tiles at clip 2.0) are timed on the three kinds
+of plane beside them; a tree without them (the parent) runs its own route
+there, the zero fill, the count kernel and the 256-entry scan kernel.
+Each measuring process also reads the host's enqueue time per call of
+both paths (10 calls between two host clock reads, the device left to run
+them), so ``--turns N`` (N rounds of parent, this, this, parent) gives 2N
+processes per tree.
+
+    python3 tools/torch_hist_profile.py --abfold --parent build/parent
+    python3 tools/torch_hist_profile.py --host --parent build/parent
+
+``--host`` prints, per tree in turns, the host's us per call of hist256,
+the fused count + LUT and tiles + LUT wrappers (the parent's three-op
+routes there), equalize_lut256 and their pieces (torch.empty and
+torch.zeros of a histogram, the current stream's handle two ways, the
+handoff's scratch and counters), with the launch made and stubbed.
+
+``--abfold`` times the fused kernels, the count-only kernels and both
+paths device-paced, each held to its plain version first, in this
+checkout (design (b): each block's 256 partial bins stored whole into
+scratch rows, the group's last block summing them in 16-byte loads) and in
+copies with one choice of the handoff changed (FOLD_AB_VARIANTS: (a)
+atomics into a per-stream accumulator kept at zero, read back by the last
+block; (b) with the first scalar tail, or 4 or 16 loads in flight; (c) the
+tiles' band blocks as one thread-block cluster summing through
+distributed shared memory, no ticket), and the parent, in turns.
+
 ``--ab`` instead times this checkout against copies of it under
 ``build/hist_ab/`` with one design choice changed each (AB_VARIANTS, text
 edits of ``csrc/hist_count.cuh``, ``kernels/hist.py`` and
@@ -220,6 +248,13 @@ _NO_LOADS = [(_HC, "__ldg(pv + i)", "make_uint4(uint32_t(i) * 2654435761u, uint3
 _NO_FLAT = (_H, "    if (v.x == b * 0x01010101u && v.y == v.x && v.z == v.x && v.w == v.x) {",
             "    if (false) {")
 
+def _between(rel: str, start: str, end: str, root: Path = ROOT) -> str:
+    """The text of ``root``'s ``rel`` from ``start`` through ``end``."""
+    text = (root / PKG / rel).read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i) + len(end)]
+
+
 def _counter(text: str, name: str, rounds: bool) -> list:
     """Edits that make ``name`` (defined by ``text``) the kernels' counter."""
     edits = [(_H, _STRUCT, "struct CountLaneCopies {"),
@@ -252,15 +287,76 @@ AB_VARIANTS = {
     "† no loads (walk and counting, hashed bytes)": (_NO_LOADS, False),
     "† neither (walk only)": ([_NO_COUNT, _NO_COUNT_SINK, _NO_COUNT_TOTAL] + _NO_LOADS, False),
 }
+# --- the handoff of the fused kernels (--abfold): copies of this tree
+_TAIL = _between(_H, "  // tail: begin", "  // tail: end") if (ROOT / PKG / _H).is_file() else ""
+_ACC = [  # (a): atomics into the group's accumulator row, kept at 0 between launches
+    (_H, "  rows[int64_t(member) * 256 + t] = bin;", "  if (bin) atomicAdd(rows + t, bin);"),
+    (_H, _TAIL, "  bin = __ldcg(rows + t);\n  rows[t] = 0;"),
+    (_HC, "partial + b * gridDim.x * 256", "partial + b * 256"),
+    (_CC, "partial + tile * gridDim.y * 256", "partial + tile * 256"),
+    (_KH, """    n_rows = groups * members
+    tickets = stream_workspace(device, groups, zeroed=True).data_ptr()""",
+     """    acc = stream_workspace(device, groups * 257, zeroed=True)  # the rows, then the counters
+    return None, acc.data_ptr(), acc.data_ptr() + groups * 256 * 4""")]
+_SCALAR_TAIL = [(_H, _TAIL, """  uint32_t s = 0;
+#pragma unroll 8
+  for (int k = 0; k < members; ++k) s += __ldcg(rows + int64_t(k) * 256 + t);
+  bin = s;""")]
+_CLUSTER = [  # (c): a tile's band blocks as one cluster, no scratch and no ticket
+    (_CC, """  if (!last_of_group(sum, partial + tile * gridDim.y * 256, blockIdx.y, gridDim.y,
+                     tickets + tile))
+    return;""", """  if (gridDim.y > 1) {
+    __shared__ uint32_t ctot[256];
+    cg::cluster_group cluster = cg::this_cluster();
+    ctot[threadIdx.x] = sum;
+    cluster.sync();
+    if (cluster.block_rank() != 0) {
+      cluster.sync();
+      return;
+    }
+    uint32_t s = 0;
+    for (int r = 0; r < int(gridDim.y); ++r) s += cluster.map_shared_rank(ctot, r)[threadIdx.x];
+    sum = s;
+    cluster.sync();
+  }"""),
+    (_CC, "  hist256_tiles_kernel<<<grid, kCountThreads", """  if (grid_y > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kCountThreads);
+    cfg.dynamicSmemBytes = HistCounter::kSmemBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = unsigned(grid_y);
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, hist256_tiles_kernel, x, hist, lut, clip_abs,
+                                             scale, partial, tickets, int(H), int(W), gh, gw,
+                                             int(th), int(tw), int(band_rows), int(bands));
+    return int(e != cudaSuccess ? e : cudaGetLastError());
+  }
+  hist256_tiles_kernel<<<grid, kCountThreads"""),
+    ("kernels/clahe.py", "    return band_rows, bands, min(bands, MAX_GRID_Y)",
+     "    return band_rows, bands, min(bands, 8)  # a portable cluster")]
+
+
+def _tail_loads(n: int) -> list:
+    return [(_H, "constexpr int kTailLoads = 8;", f"constexpr int kTailLoads = {n};")]
+
+
+# label -> edits; this tree is design (b) with the 16-byte tail, 8 loads
+# in flight a thread
+FOLD_AB_VARIANTS = {
+    "(a) atomics into a per-stream accumulator": _ACC,
+    "(b) scalar tail, 8 loads in flight (first version)": _SCALAR_TAIL,
+    "(b) 16-byte tail, 4 loads in flight": _tail_loads(4),
+    "(b) 16-byte tail, 16 loads in flight": _tail_loads(16),
+    "(c) tiles: a cluster of the band blocks (hist256 as (b))": _CLUSTER,
+}
 # --- u16 CLAHE (--ab16): copies of this tree, or of the parent where marked
 _B16, _KP = "kernels/csrc/clahe.cu", "kernels/clahe.py"
-
-
-def _between(rel: str, start: str, end: str, root: Path = ROOT) -> str:
-    """The text of ``root``'s ``rel`` from ``start`` through ``end``."""
-    text = (root / PKG / rel).read_text()
-    i = text.index(start)
-    return text[i:text.index(end, i) + len(end)]
 
 
 def _b16_const(name: str, old: int, new: int) -> tuple:
@@ -568,14 +664,14 @@ _SMEM = [(path, f"  {kernel}<<<", "  cudaFuncSetAttribute(" + kernel +
          for path, kernel in ((_HC, "hist256_kernel"), (_CC, "hist256_tiles_kernel"))]
 
 
-def ab_tree(label: str, edits, source: Path = ROOT) -> Path:
+def ab_tree(label: str, edits, source: Path = ROOT, keep=("hist.cu", "clahe.cu")) -> Path:
     """The package of ``source`` (this checkout) under build/hist_ab/ with
-    ``edits`` applied, building only hist.cu and clahe.cu."""
+    ``edits`` applied, building only the sources in ``keep``."""
     out = ROOT / "build" / "hist_ab" / re.sub(r"\W+", "_", label).strip("_")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(source / PKG, out / PKG, ignore=shutil.ignore_patterns("__pycache__"))
     for src in (out / PKG / "kernels" / "csrc").glob("*.cu"):
-        if src.name not in ("hist.cu", "clahe.cu"):
+        if src.name not in keep:
             src.unlink()
     edits = list(edits) + _SMEM + [("kernels/_build.py", "        fn = getattr(lib, name)\n",
                             "        fn = getattr(lib, name, None)\n        if fn is None:\n"
@@ -639,11 +735,46 @@ def _kernel_cases(np, torch, k1_planes) -> dict:
     return cases
 
 
-def _path_cases(np, torch, port) -> dict:
+def _fold_cases(np, torch, k1_planes) -> dict:
+    """name -> (call, plain call): the fused kernels, count + LUT on
+    8x1080x1920 and tiles + LUT on config 5's 2x2160x3840 (grid 8x8, clip
+    2.0), on each kind of plane (numpy seed 66).  A tree without them runs
+    its own route: the fill, the count kernel, the scan kernel."""
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
+    from imageenhancement_mp_tpu_torch.kernels import hist as kh
+    from imageenhancement_mp_tpu_torch.ops import clahe as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(66)
+    geo = tc.tile_geometry(2160, 3840, (8, 8))
+    area = geo[2] * geo[3]
+    eq = getattr(kh, "hist256_equalize_lut", None) or (
+        lambda x: kh.equalize_lut256(kh.hist256(x), x[0].numel()))
+    tl = getattr(kc, "tile_luts256", None) or (
+        lambda x, *g: kc.clahe_lut(kc.hist256_tiles(x, *g[:4]), area, g[4]))
+    cases = {}
+    for kind in KINDS:
+        x8 = torch.from_numpy(k1_planes((8, 1080, 1920), kind, rng)).to(dev)
+        g4 = torch.from_numpy(k1_planes((2, 2160, 3840), kind, rng)).to(dev)
+        cases[f"count + LUT 8x1080x1920 {kind}"] = (
+            lambda x=x8: eq(x),
+            lambda x=x8: kh.equalize_lut256_plain(kh.hist256_plain(x), x[0].numel()))
+        cases[f"tiles + LUT 2x2160x3840 8x8 {kind}"] = (
+            lambda x=g4: tl(x, *geo, 2.0),
+            lambda x=g4: kc.clahe_lut_plain(kc.tile_hists_plain(x, *geo), area, 2.0))
+    return cases
+
+
+def _path_inputs(np, torch) -> tuple:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(62)
     x8 = torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(dev)
     g4 = torch.from_numpy(rng.integers(0, 256, (2, 2160, 3840), dtype=np.uint8)).to(dev)
+    return x8, g4
+
+
+def _path_cases(np, torch, port) -> dict:
+    x8, g4 = _path_inputs(np, torch)
     cfg5 = port.get_preset("denoise_clahe_sharpen")
     return {"equalize_unsharp 8x1080x1920": lambda: port.equalize_unsharp(x8),
             "config 5 2x2160x3840": lambda: cfg5(g4)}
@@ -742,12 +873,33 @@ def measure(root: Path, u16: bool) -> dict:
                  **{name: fn for name, (fn, _) in _lut_cases(np, torch).items()}}
     else:
         cases = {name: fn for name, (fn, _) in _kernel_cases(np, torch, k1_planes).items()}
+        cases.update({name: fn for name, (fn, _) in _fold_cases(np, torch, k1_planes).items()})
         cases.update(_path_cases(np, torch, port))
     out = {}
     for name, fn in cases.items():
         out[f"{name}, back to back"] = _time_ms(torch, fn, False)
         out[f"{name}, device-paced"] = _time_ms(torch, fn, True)
+    if not u16:
+        for name, fn in _path_cases(np, torch, port).items():
+            out[f"{name}, host us per call"] = _host_us(torch, fn)
     return out
+
+
+def _host_us(torch, fn) -> float:
+    """The host's enqueue time per call (us): the median over RUNS runs of
+    CALLS calls between two host clock reads, the device left to run them
+    and drained between runs."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        runs.append((time.perf_counter() - t0) / CALLS * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 def _u16_kernel_cases(np, torch) -> dict:
@@ -775,7 +927,7 @@ def _u16_kernel_cases(np, torch) -> dict:
     return cases
 
 
-def measure_ab(root: Path, check: bool, u16: bool, lut: bool = False) -> dict:
+def measure_ab(root: Path, check: bool, u16: bool, lut: bool = False, fold: bool = False) -> dict:
     """Device-paced times of the kernels on each kind of plane in the tree
     under ``root`` (ms), each held to its plain version first where
     ``check``: K1's two (with ``u16``, u16 CLAHE's stage A and blend; with
@@ -784,6 +936,14 @@ def measure_ab(root: Path, check: bool, u16: bool, lut: bool = False) -> dict:
     out = {}
     cases = (_lut_cases(np, torch) if lut else _u16_kernel_cases(np, torch) if u16
              else _kernel_cases(np, torch, k1_planes))
+    if fold:
+        port = sys.modules["imageenhancement_mp_tpu_torch"]
+        cases = {**_fold_cases(np, torch, k1_planes), **_kernel_cases(np, torch, k1_planes)}
+        x8, g4 = _path_inputs(np, torch)
+        cfg5 = port.get_preset("denoise_clahe_sharpen")
+        cases["equalize_unsharp 8x1080x1920"] = (lambda: port.equalize_unsharp(x8),
+                                                 lambda: _plain_equalize_unsharp(x8))
+        cases["config 5 2x2160x3840"] = (lambda: cfg5(g4), lambda: _plain_config5(g4))
     for name, (fn, plain) in cases.items():
         got, want = fn(), plain()
         if isinstance(got, tuple):  # apply_luts_multi's K outputs
@@ -792,6 +952,33 @@ def measure_ab(root: Path, check: bool, u16: bool, lut: bool = False) -> dict:
             raise SystemExit(f"torch_hist_profile: {name} differs from its plain version in {root}")
         out[name] = _time_ms(torch, fn, True)
     return out
+
+
+def _plain_equalize_unsharp(x):
+    """equalize_unsharp(x) through the plain versions of its kernels."""
+    from imageenhancement_mp_tpu_torch.kernels import conv as kv
+    from imageenhancement_mp_tpu_torch.kernels import hist as kh
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    luts = kh.equalize_lut256_plain(kh.hist256_plain(x), x[0].numel())
+    return kv.sep_conv_u8_plain(x, *q8_taps(5, 0.0), 1.0, luts)
+
+
+def _plain_config5(x):
+    """Config 5 through the plain versions of its kernels."""
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
+    from imageenhancement_mp_tpu_torch.kernels import conv as kv
+    from imageenhancement_mp_tpu_torch.kernels import median as km
+    from imageenhancement_mp_tpu_torch.ops import clahe as tc
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    m = km.median_blur_plain(x, 5)
+    B, H, W = m.shape
+    gh, gw, th, tw = tc.tile_geometry(H, W, (8, 8))
+    luts = kc.clahe_lut_plain(kc.tile_hists_plain(m, gh, gw, th, tw), th * tw, 2.0)
+    tables = (*tc._coord_tables(H, th, gh, m.device), *tc._coord_tables(W, tw, gw, m.device))
+    out = kc.clahe_blend_plain(m, luts, gh, gw, *tables)
+    return kv.sep_conv_u8_plain(out, *q8_taps(5, 0.0), 1.0)
 
 
 def profile(root: Path, label: str, smi: str, u16: bool) -> None:
@@ -873,6 +1060,60 @@ def sass(root: Path, label: str, u16: bool = False) -> None:
               ", ".join(f"{op} {n}" for op, n in c.most_common(24)))
 
 
+def host_probe(root: Path, label: str, smi: str) -> None:
+    """``--host``: the host's time per call (us, median of 5 runs of 3000
+    calls, each run drained) of the count wrappers and their pieces in the
+    tree under ``root``, with the launch made and with it stubbed."""
+    np, torch, _, _ = _setup(root)
+    from imageenhancement_mp_tpu_torch import kernels as kp
+    from imageenhancement_mp_tpu_torch.kernels import _build
+    from imageenhancement_mp_tpu_torch.kernels import clahe as kc
+    from imageenhancement_mp_tpu_torch.kernels import hist as kh
+
+    dev = torch.device("cuda", 0)
+    x, g = _path_inputs(np, torch)
+    _build.library()
+
+    def us(fn, n=3000):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(runs)
+
+    h = kh.hist256(x)
+    eq = getattr(kh, "hist256_equalize_lut", None) or (lambda y: kh.equalize_lut256(kh.hist256(y),
+                                                                                   y[0].numel()))
+    tl = ((lambda y: kc.tile_luts256(y, 8, 8, 270, 480, 2.0)) if hasattr(kc, "tile_luts256") else
+          (lambda y: kc.clahe_lut(kc.hist256_tiles(y, 8, 8, 270, 480), 270 * 480, 2.0)))
+    cases = {
+        "torch.empty((8, 256)) int32": lambda: torch.empty((8, 256), dtype=torch.int32, device=dev),
+        "torch.zeros((8, 256)) int32": lambda: torch.zeros((8, 256), dtype=torch.int32, device=dev),
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(0)": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "hist256(x)": lambda: kh.hist256(x),
+        "count + LUT (x)": lambda: eq(x),
+        "equalize_lut256(h)": lambda: kh.equalize_lut256(h, 1080 * 1920),
+        "tiles + LUT (g)": lambda: tl(g),
+    }
+    if hasattr(kh, "handoff_scratch"):
+        cases["handoff_scratch(dev, 8, 49)"] = lambda: kh.handoff_scratch(dev, 8, 49)
+        cases["stream_workspace(dev, 8, zeroed=True)"] = lambda: kp.stream_workspace(dev, 8, True)
+    out = {k: us(fn) for k, fn in cases.items()}
+    for mod in (kh, kc):
+        mod.launch = lambda *a: None
+    for k in ("hist256(x)", "count + LUT (x)", "tiles + LUT (g)"):
+        out[f"{k}, launch stubbed"] = us(cases[k])
+    print(f"[{label}] host us per call: " + "; ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f"  [{smi}]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, help="a parent tree holding imageenhancement_mp_tpu_torch")
@@ -889,12 +1130,21 @@ def main() -> None:
     ap.add_argument("--ablut", action="store_true",
                     help="time this checkout against copies with one choice of stage B at "
                          "S = 65536 or of K5's wide route changed each, and the parent")
+    ap.add_argument("--abfold", action="store_true",
+                    help="time the fused kernels and both paths in this checkout against copies "
+                         "with one choice of the handoff changed each, and the parent")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="rounds of parent, this, this, parent (each a process per tree)")
+    ap.add_argument("--host", action="store_true",
+                    help="the host's us per call of the count wrappers and their pieces, per tree")
+    ap.add_argument("--fold", action="store_true", help=argparse.SUPPRESS)  # --abfold's cases
     ap.add_argument("--lut", action="store_true", help=argparse.SUPPRESS)  # --ablut's cases
     ap.add_argument("--measure-ab", type=Path, help=argparse.SUPPRESS)  # one A/B tree, in a child
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)  # one tree, in a child
     ap.add_argument("--inspect", type=Path, help=argparse.SUPPRESS)  # profile, in a child
     ap.add_argument("--sass", type=Path, help=argparse.SUPPRESS)  # SASS, in a child
+    ap.add_argument("--host-tree", type=Path, help=argparse.SUPPRESS)  # --host, in a child
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     ap.add_argument("--smi", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -905,7 +1155,8 @@ def main() -> None:
         print(json.dumps(measure(args.measure.resolve(), args.u16)))
         return
     if args.measure_ab:
-        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check, args.u16, args.lut)))
+        print(json.dumps(measure_ab(args.measure_ab.resolve(), args.check, args.u16, args.lut,
+                                    args.fold)))
         return
     if args.inspect:
         profile(args.inspect.resolve(), args.label, args.smi, args.u16)
@@ -913,11 +1164,19 @@ def main() -> None:
     if args.sass:
         sass(args.sass.resolve(), args.label, args.u16)
         return
+    if args.host_tree:
+        host_probe(args.host_tree.resolve(), args.label, args.smi)
+        return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    if args.ab or args.ab16 or args.ablut:
-        if args.ablut:
+    if args.ab or args.ab16 or args.ablut or args.abfold:
+        if args.abfold:
+            # the paths run the median and the conv too
+            keep = ("hist.cu", "clahe.cu", "conv.cu", "median.cu")
+            ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits, keep=keep), True)
+                                           for label, edits in FOLD_AB_VARIANTS.items()]
+        elif args.ablut:
             ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), True)
                                            for label, edits in LUT_AB_VARIANTS.items()]
         elif args.ab16:
@@ -933,19 +1192,28 @@ def main() -> None:
         builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
                                     "from imageenhancement_mp_tpu_torch.kernels import _build; "
                                     "_build.library()", str(root)]) for _, root, _ in ab]
-        if any(b.wait() for b in builds):
+        failed = [label for (label, _, _), b in zip(ab, builds) if b.wait()]
+        if failed and not args.abfold or "this" in failed or "parent" in failed:
             raise SystemExit("torch_hist_profile: a build of the A/B trees failed")
+        for label in failed:  # an A/B copy that does not build is reported, not timed
+            print(f"  {label}: did not build")
+        ab = [t for t in ab if t[0] not in failed]
         times: dict[str, list[dict]] = {}
         for label, root, keep in ab + ab[::-1]:
             child = subprocess.run([sys.executable, __file__, "--measure-ab", str(root)]
                                    + (["--check"] if keep else []) + ["--u16"] * args.ab16
-                                   + ["--lut"] * args.ablut,
-                                   check=True, capture_output=True, text=True)
+                                   + ["--lut"] * args.ablut + ["--fold"] * args.abfold,
+                                   capture_output=True, text=True)
+            if child.returncode:
+                if not args.abfold or label in ("this", "parent"):
+                    raise SystemExit(f"torch_hist_profile: {label} failed:\n{child.stderr[-3000:]}")
+                print(f"  {label}: failed: {child.stderr.strip().splitlines()[-1:]}")
+                continue
             times.setdefault(label, []).append(json.loads(child.stdout.strip().splitlines()[-1]))
         for label, rs in times.items():
             print(f"  {label}: " + "; ".join(f"{k} {' / '.join(f'{r[k]:.4f}' for r in rs)}"
                                            for k in rs[0]) + f" ms, device-paced  [{smi}]")
-        if not args.ablut:
+        if not (args.ablut or args.abfold):
             for label, root, _ in ab[:1] if args.ab16 else ab[:2]:
                 subprocess.run([sys.executable, __file__, "--sass", str(root), "--label", label]
                                + ["--u16"] * args.ab16, check=True)
@@ -953,11 +1221,16 @@ def main() -> None:
     trees = [("this", ROOT)]
     if args.parent:
         trees.insert(0, ("parent", args.parent.resolve()))
+    if args.host:
+        for label, root in trees + trees[::-1]:
+            subprocess.run([sys.executable, __file__, "--host-tree", str(root), "--label", label,
+                            "--smi", smi], check=True)
+        return
     for spec in args.tree:
         label, _, path = spec.partition("=")
         trees.insert(-1, (label, Path(path).resolve()))
     if len(trees) > 1:
-        trees = trees + trees[::-1]
+        trees = (trees + trees[::-1]) * max(args.turns, 1)
     runs: dict[str, list[dict]] = {}
     for label, root in trees:
         child = subprocess.run([sys.executable, __file__, "--measure", str(root)]
@@ -967,7 +1240,9 @@ def main() -> None:
     keys = dict.fromkeys(k for rs in runs.values() for r in rs for k in r)
     for key in keys:
         cells = {label: [r[key] for r in rs if key in r] for label, rs in runs.items()}
-        print(f"  {key}: " + "; ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+        unit = "us" if key.endswith("us per call") else "ms"
+        print(f"  {key}: " + "; ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} {unit} "
+                                       f"(median {statistics.median(ts):.4f})"
                                        for label, ts in cells.items() if ts) + f"  [{smi}]")
     for label, root in dict(trees).items():
         subprocess.run([sys.executable, __file__, "--inspect", str(root), "--label", label,
