@@ -166,7 +166,27 @@
    each against the plain path on the card and on the CPU; then times the
    paths and each kernel beside its bound, torch.gather (K5, K13) and the
    two-kernel chain (K14, with its median's issue floor).
-11. Prints a one-line JSON per-kernel summary (launches on the main paths,
+11. The filters and config 3: holds sep_conv_u8's wide instance (more than
+   31 taps on an axis, taps from a device buffer) against its plain version
+   at 0 LSB: 33 and 37 taps (sigma 6 on u8), 33x5, 3x37, 1x35, 37x3, 121
+   and 541 taps (a halo deeper than the block and than the small planes)
+   on fourteen shapes (the runtime instance's residues, tiny planes), each
+   epilogue, with and without a LUT, each also misaligned, 8x1080x1920,
+   [70000, 8, 8] and [1, 2_200_000, 8], and times it at 8x1080x1920 beside
+   its bytes bound and the k 5 instance; runs every function of
+   ops/filters.py (gaussian_blur and unsharp_mask on u16/i16/f32,
+   laplacian, laplacian_sharpen, sobel, scharr, box_blur, box_filter,
+   corner_harris, corner_min_eigen_val, spatial_gradient, sqr_box_filter,
+   stack_blur; 48 calls over their dtypes) on 2x2160x3840 card against CPU
+   at 0 (f32 too: the same torch ops in the same order, the min-eigenvalue
+   root rounded from f64), each with counters of its own (no kernel); then
+   drives config 3 (make_pipeline gaussian_blur(k) -> laplacian_sharpen ->
+   unsharp_mask(1.0, k), k 3 and 5) on 8x1080x1920 and 2x2160x3840 u8,
+   each with counters of its own (exactly two sep_conv_u8 launches), one
+   frame card against CPU at 0 LSB, timed back to back and device-paced
+   beside its 6 B/px floor, its device time split by kernel under
+   torch.profiler.
+12. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -444,9 +464,10 @@ def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[flo
     return q2, q3 - q1
 
 
-def busy_share(fn, calls: int = CALLS_PER_RUN) -> str:
-    """The device's busy share over ``calls`` back-to-back calls of ``fn``
-    under torch.profiler: kernel time on the device over the wall time."""
+def device_split(fn, calls: int = CALLS_PER_RUN) -> tuple[float, float, list]:
+    """Device time per call by kernel under torch.profiler over ``calls``
+    back-to-back calls of ``fn``: (busy us per call, wall us per call, [(us
+    per call, launches per call, kernel name)] largest first)."""
     from torch.autograd import DeviceType
     for _ in range(WARMUPS):
         fn()
@@ -459,10 +480,22 @@ def busy_share(fn, calls: int = CALLS_PER_RUN) -> str:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA)
-    return (f"under torch.profiler {busy_us / calls:.2f} us of device time per call in "
-            f"{wall_us / calls:.2f} us of wall, busy {100 * busy_us / wall_us:.1f} %")
+    kernels: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.time_range.elapsed_us()
+            k[1] += 1
+    rows = sorted(((t / calls, n / calls, name) for name, (t, n) in kernels.items()), reverse=True)
+    return sum(r[0] for r in rows), wall_us / calls, rows
+
+
+def busy_share(fn, calls: int = CALLS_PER_RUN) -> str:
+    """The device's busy share over ``calls`` back-to-back calls of ``fn``
+    under torch.profiler: kernel time on the device over the wall time."""
+    busy, wall, _ = device_split(fn, calls)
+    return (f"under torch.profiler {busy:.2f} us of device time per call in "
+            f"{wall:.2f} us of wall, busy {100 * busy / wall:.1f} %")
 
 
 def noisy(lead: tuple, H: int, W: int, trail: tuple, seed: int, sigma: float) -> np.ndarray:
@@ -1008,6 +1041,205 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
           f"its median's issue floor {issue_floor_ms(5, g4k.numel(), sm_clock_max_mhz()):.4f} ms "
           f"(the fused kernel computes its Gaussian halo's medians too)  [{smi}]")
     return path_launches
+
+
+# the config-3 chain: Gaussian blur -> Laplacian sharpen -> unsharp mask
+# (BASELINE.json:9), at ksize k for both blurs
+def config3_stages(k: int) -> list:
+    return [("gaussian_blur", {"ksize": k}), ("laplacian_sharpen", {}),
+            ("unsharp_mask", {"amount": 1.0, "ksize": k})]
+
+
+def paced_ms(fn, sleep_cycles: int, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> float:
+    """Median per-call time of ``fn`` with the device held by a sleep kernel
+    while the host enqueues the run, so the events see the device's work
+    alone (device-paced)."""
+    for _ in range(WARMUPS):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> dict:
+    """Phase 11: sep_conv_u8's wide instance (more than 31 taps on an axis)
+    against its plain version and timed beside its bytes bound; every filter
+    of ops/filters.py card against CPU at 2x2160x3840; config 3 through
+    make_pipeline at k 3 and 5 on 8x1080x1920 and 2x2160x3840 u8, with
+    counters of its own, card against CPU on one frame, timed back to back
+    and device-paced, and its device time split by kernel under
+    torch.profiler.  Returns sep_conv_u8's launches on config 3's paths."""
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    rng = np.random.default_rng(11)
+
+    def rand_u8(shape) -> torch.Tensor:
+        return on_card(rng.integers(0, 256, shape, dtype=np.uint8))
+
+    # -- the wide instance: 33 and 37 taps (sigma 6 on u8), rectangular
+    # pairs with one axis wide, 121 taps, and 541 taps (radius 270: the halo
+    # deeper than the block's 256 columns and than the small planes, which
+    # reflect again), on the runtime instance's residues, tiny planes,
+    # misaligned views, every epilogue, with and without a LUT
+    wide_taps = [q8_taps(33, 0.0), q8_taps(0, 6.0), q8_taps((33, 5), 0.0),
+                 q8_taps((3, 37), 0.0), q8_taps((1, 35), 0.0), q8_taps((0, 3), 6.0, 0.0),
+                 q8_taps(0, 20.0), q8_taps(0, 90.0)]
+    wide_shapes = [(2, 64, 256), (1, 37, 131), (1, 5, 9), (1, 1, 1), (1, 17, 257), (2, 15, 271),
+                   (1, 129, 1917), (1, 3, 1), (1, 2, 2), (2, 40, 3), (1, 1, 640), (1, 16, 255),
+                   (1, 33, 513), (1, 300, 700)]
+    routes, n_wide = set(), 0
+    for tv, th in wide_taps:
+        routes.add(kconv.conv_route(tv, th).describe())
+        for shape in wide_shapes:
+            x = rand_u8(shape)
+            for amount in (None, 1.0, 0.5, -1.0, 100.0):
+                for luts in (None, rand_u8((shape[0], 256))):
+                    for xx in (x, misaligned(x)):
+                        what = (f"{shape} {len(tv)}x{len(th)} taps amount={amount} "
+                                f"lut={luts is not None} offset {xx.storage_offset()}")
+                        check("sep_conv_u8", kconv.sep_conv_u8(xx, tv, th, amount, luts),
+                              kconv.sep_conv_u8_plain(xx, tv, th, amount, luts), what)
+                        n_wide += 1
+    tv37, th37 = q8_taps(0, 6.0)
+    tv33, th33 = q8_taps(33, 0.0)
+    x8 = rand_u8((8, 1080, 1920))
+    for tv, th in ((tv37, th37), (tv33, th33), q8_taps((33, 5), 0.0)):
+        for amount in (None, 1.0, 0.5):
+            check("sep_conv_u8", kconv.sep_conv_u8(x8, tv, th, amount),
+                  kconv.sep_conv_u8_plain(x8, tv, th, amount), f"8x1080x1920 {len(tv)}x{len(th)}")
+            n_wide += 1
+    # the row caps: more planes, and more row blocks, than a grid axis holds
+    many, tall = rand_u8((70000, 8, 8)), rand_u8((1, 2_200_000, 8))
+    lm = rand_u8((70000, 256))
+    check("sep_conv_u8", kconv.sep_conv_u8(many, tv37, th37, 1.0, lm),
+          kconv.sep_conv_u8_plain(many, tv37, th37, 1.0, lm), "70000x8x8, 37 taps")
+    check("sep_conv_u8", kconv.sep_conv_u8(tall, tv33, th33, 0.5),
+          kconv.sep_conv_u8_plain(tall, tv33, th33, 0.5), "1x2200000x8, 33 taps")
+    del many, tall, lm
+    print(f"sep_conv_u8 wide instance vs plain on the card: 0 LSB over {n_wide + 2} cases "
+          f"(tap counts {sorted({(len(tv), len(th)) for tv, th in wide_taps})}; routes "
+          f"{sorted(routes)}; [70000, 8, 8] and [1, 2_200_000, 8])")
+    n8 = x8.numel()
+    for label, (tv, th), amount in (("37 taps (sigma 6), blur", (tv37, th37), None),
+                                    ("37 taps (sigma 6), amount 1", (tv37, th37), 1.0),
+                                    ("33 taps, blur", (tv33, th33), None),
+                                    ("33x5 taps, blur", q8_taps((33, 5), 0.0), None)):
+        k_ms, k_iqr = time_ms(lambda: kconv.sep_conv_u8(x8, tv, th, amount))
+        p_ms, p_iqr = time_ms(lambda: kconv.sep_conv_u8_plain(x8, tv, th, amount), 3, 1)
+        print(f"  sep_conv_u8 wide instance at (8, 1080, 1920) {label}: kernel {k_ms:.4f} ms "
+              f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound "
+              f"{bound_ms(2 * n8)[0]:.4f} ms (bytes)  [{smi}]")
+    k5_ms = time_ms(lambda: kconv.sep_conv_u8(x8, *q8_taps(5, 0.0)))[0]
+    print(f"  sep_conv_u8 k5 instance at (8, 1080, 1920), blur, for comparison: {k5_ms:.4f} ms"
+          f"  [{smi}]")
+    # the public calls past 31 taps go through the kernel, once, no plain fallback
+    for label, fn, expect in (
+            ("gaussian_blur(x, 0, sigma=6.0)", lambda x: port.gaussian_blur(
+                x, 0, 6.0, channels_last=False), {"sep_conv_u8": 1}),
+            ("unsharp_mask(x, 1.0, 35)", lambda x: port.unsharp_mask(
+                x, 1.0, 35, channels_last=False), {"sep_conv_u8": 1}),
+            ("equalize_unsharp(x, 1.0, 33)", lambda x: port.equalize_unsharp(x, 1.0, 33),
+             {"hist256_lut": 1, "sep_conv_u8": 1})):
+        out, _ = drive(f"{label} 8x1080x1920", lambda: fn(x8), expect)
+        e = max_err(out[:1].cpu(), fn(x8[:1].cpu()))
+        print(f"{label} 8x1080x1920: one frame card vs the plain path on the CPU, max abs err {e}")
+        if e:
+            raise AssertionError(f"{label}: the card differs from the CPU")
+    del x8
+
+    # -- every filter card against CPU at 2x2160x3840
+    shape4 = (2, 2160, 3840)
+    host = {torch.uint8: rng.integers(0, 256, shape4, dtype=np.uint8),
+            torch.uint16: rng.integers(0, 65536, shape4).astype(np.uint16),
+            torch.int16: rng.integers(-32768, 32768, shape4).astype(np.int16),
+            torch.float32: (rng.random(shape4, dtype=np.float32) * 500 - 100).astype(np.float32)}
+    u8, u16, i16, f32 = torch.uint8, torch.uint16, torch.int16, torch.float32
+    calls = [(f"gaussian_blur {ks} sigma {sg}", dt, lambda x, ks=ks, sg=sg: port.gaussian_blur(
+                 x, ks, sg, channels_last=False))
+             for dt in (u16, i16, f32) for ks, sg in ((5, 0.0), (0, 2.0))]
+    calls += [(f"unsharp_mask amount {a}", dt, lambda x, a=a: port.unsharp_mask(
+                  x, a, 5, channels_last=False)) for dt in (u16, i16, f32) for a in (1.0, 1.5)]
+    calls += [(f"laplacian ksize {k}", dt, lambda x, k=k: port.laplacian(x, k, channels_last=False))
+              for dt in (u8, u16, i16, f32) for k in (1, 3)]
+    calls += [("laplacian ksize 5 delta 3", u8, lambda x: port.laplacian(x, 5, 3.0,
+                                                                        channels_last=False))]
+    calls += [("laplacian_sharpen", dt, lambda x: port.laplacian_sharpen(x, channels_last=False))
+              for dt in (u8, u16, i16, f32)]
+    calls += [(f"sobel {dx},{dy} ksize {k} scale {sc}", dt,
+               lambda x, dx=dx, dy=dy, k=k, sc=sc: port.sobel(x, dx, dy, k, sc, 7.0,
+                                                              channels_last=False))
+              for dt, dx, dy, k, sc in ((u8, 1, 0, 3, 1.0), (u16, 0, 1, 5, 1.0),
+                                        (i16, 1, 1, 3, 1.0), (f32, 1, 0, 3, 1.0),
+                                        (u8, 1, 0, 3, 0.37))]
+    calls += [(f"scharr {dx},{dy}", dt, lambda x, dx=dx, dy=dy: port.scharr(
+                  x, dx, dy, channels_last=False)) for dt, dx, dy in ((u8, 0, 1), (f32, 1, 0))]
+    calls += [(f"box_blur {k}", dt, lambda x, k=k: port.box_blur(x, k, channels_last=False))
+              for dt, k in ((u8, 5), (u16, 3), (i16, (3, 7)), (f32, 5))]
+    calls += [(f"box_filter {k} raw", dt, lambda x, k=k: port.box_filter(
+                  x, k, False, channels_last=False)) for dt, k in ((u8, 2), (u16, (4, 3)), (f32, 3))]
+    calls += [("corner_harris 2 3 0.04", u8, lambda x: port.corner_harris(x, channels_last=False)),
+              ("corner_min_eigen_val 3 3", u8, lambda x: port.corner_min_eigen_val(
+                  x, channels_last=False))]
+    calls += [(f"spatial_gradient {b}", u8, lambda x, b=b: torch.stack(port.spatial_gradient(
+                  x, b, channels_last=False))) for b in ("reflect101", "replicate")]
+    calls += [(f"sqr_box_filter {k} normalize {nm}", dt, lambda x, k=k, nm=nm: port.sqr_box_filter(
+                  x, k, nm, channels_last=False))
+              for dt, k, nm in ((u8, 3, True), (u16, (5, 2), False), (f32, 3, True))]
+    calls += [(f"stack_blur {k}", u8, lambda x, k=k: port.stack_blur(x, k, channels_last=False))
+              for k in (5, (3, 9))]
+    t0 = time.perf_counter()
+    for label, dt, fn in calls:
+        x = torch.from_numpy(host[dt])
+        got = drive(f"{label} {dt} 2x2160x3840", lambda: fn(x.to(dev)), {})[0].cpu()
+        want = fn(x)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label} {dt}: card {tuple(got.shape)} {got.dtype}, CPU "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        # the same torch ops in the same order on both devices, no FMA
+        # contraction across ops: f32 outputs too are held at 0
+        e = float((got.double() - want.double()).abs().max())
+        if e != 0 or not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"{label} {dt}: card vs CPU max abs err {e}")
+    print(f"the filters on the card vs the CPU at 2x2160x3840: 0 over {len(calls)} calls "
+          f"(every dtype; {time.perf_counter() - t0:.1f} s)")
+
+    # -- config 3 through make_pipeline
+    launches = 0
+    for shape in ((8, 1080, 1920), (2, 2160, 3840)):
+        xh = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+        g = on_card(xh)
+        gpix = g.numel() / 1e9
+        for k in (3, 5):
+            pipe = port.make_pipeline(config3_stages(k))
+            label = f"config 3 k={k} {'x'.join(map(str, shape))} u8"
+            out, counts = drive(label, lambda: pipe(g), {"sep_conv_u8": 2})
+            launches += counts["sep_conv_u8"]
+            if out.shape != g.shape or out.dtype != torch.uint8 or out.float().std() == 0:
+                raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype}")
+            e = max_err(out[:1].cpu(), pipe(torch.from_numpy(xh[:1])))
+            print(f"{label}: one frame card vs the plain path on the CPU, max abs err {e}")
+            if e:
+                raise AssertionError(f"{label}: the card differs from the CPU")
+            b_ms, b_iqr = time_ms(lambda: pipe(g))
+            d_ms = paced_ms(lambda: pipe(g), 40_000_000)
+            busy, wall, rows = device_split(lambda: pipe(g))
+            print(f"{label}: back to back {b_ms:.4f} ms (IQR {b_iqr:.4f}) = "
+                  f"{gpix / (b_ms / 1e3):.3f} GPix/s, device-paced {d_ms:.4f} ms, bytes floor "
+                  f"{bound_ms(6 * g.numel())[0]:.4f} ms (6 B/px: three passes); under "
+                  f"torch.profiler {busy:.2f} us of device time per call in {wall:.2f} us of "
+                  f"wall ({100 * busy / wall:.1f} % busy)  [{smi}]")
+            for us, n, name in rows[:12]:
+                print(f"    {us:9.2f} us per call  {100 * us / busy:5.1f} %  x{n:g}  {name[:100]}")
+    return {"sep_conv_u8": launches}
 
 
 def main() -> None:
@@ -2280,6 +2512,10 @@ def main() -> None:
     # -- 10. the LUT family, config 2 and the fused median -> unsharp ----------
     lut_launches = lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
                                         ms, bounds, library)
+
+    # -- 11. the filters, sep_conv_u8's wide instance and config 3 ------------
+    config3_launches = filters_and_config3(port, dev, smi, on_card, misaligned, check, drive)
+    print(f"config 3's four paths launched sep_conv_u8 {config3_launches['sep_conv_u8']} times")
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

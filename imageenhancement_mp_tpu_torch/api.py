@@ -20,7 +20,7 @@ from imageenhancement_mp_tpu_torch.kernels.hist import hist256
 from imageenhancement_mp_tpu_torch.ops import pointwise
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
-from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
+from imageenhancement_mp_tpu_torch.ops import filters
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes, histogram_256)
 from imageenhancement_mp_tpu_torch.ops import color
@@ -37,7 +37,10 @@ from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch",
-           "convert_scale_abs", "equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp", "clahe",
+           "convert_scale_abs", "equalize_hist", "gaussian_blur", "unsharp_mask", "equalize_unsharp",
+           "laplacian", "laplacian_sharpen", "sobel", "scharr", "box_blur", "box_filter",
+           "corner_harris", "corner_min_eigen_val", "spatial_gradient", "sqr_box_filter",
+           "stack_blur", "clahe",
            "median_blur", "bilateral_filter", "threshold", "adaptive_threshold", "warp_affine",
            "warp_perspective", "remap", "warp_polar", "undistort", "get_rotation_matrix_2d",
            "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map",
@@ -135,22 +138,126 @@ def equalize_hist(img: torch.Tensor, per_frame: bool = True, per_channel: bool =
 
 def gaussian_blur(img: torch.Tensor, ksize=5, sigma: float = 0.0, sigma_y: float = 0.0,
                   channels_last: bool = True) -> torch.Tensor:
-    """``cv2.GaussianBlur`` — bit-exact on u8 for any odd ksize ≤ 31 and any σ.
+    """``cv2.GaussianBlur`` on u8, u16, i16 or f32 — bit-exact on u8 and u16
+    for any odd ksize and any σ (u8 through the conv kernel on CUDA).
 
     ``ksize``: int (square) or (rows, cols) — cv2's Size argument is
     (cols, rows); a 0 dimension is derived from its σ like cv2.
-    ``sigma_y`` ≤ 0 follows ``sigma``."""
+    ``sigma_y`` ≤ 0 follows ``sigma``.  i16: the f32 separable conv,
+    rounded and saturated; f32: the f32 separable conv."""
+    _check_image_dtype(img, allow_i16=True)
     ks = int(ksize) if isinstance(ksize, (int, np.integer)) else (int(ksize[0]), int(ksize[1]))
     planes, restore = as_planes(img, channels_last=channels_last)
-    return restore(gaussian_blur_planes(planes, ks, float(sigma), float(sigma_y)))
+    return restore(filters.gaussian_blur_planes(planes, ks, float(sigma), float(sigma_y)))
 
 
 def unsharp_mask(img: torch.Tensor, amount: float = 1.0, ksize: int = 5, sigma: float = 0.0,
                  channels_last: bool = True) -> torch.Tensor:
-    """``cv2.addWeighted(src, 1+a, GaussianBlur(src), −a, 0)`` — exact on u8
-    for any ``amount`` and any σ."""
+    """``cv2.addWeighted(src, 1+a, GaussianBlur(src), −a, 0)`` on u8, u16,
+    i16 or f32 — exact on u8 and u16 for any ``amount`` and any σ (cv2's
+    two-FMA f32 chain; u8 through the conv kernel on CUDA)."""
+    _check_image_dtype(img, allow_i16=True)
     planes, restore = as_planes(img, channels_last=channels_last)
-    return restore(unsharp_mask_planes(planes, float(amount), int(ksize), float(sigma)))
+    return restore(filters.unsharp_mask_planes(planes, float(amount), int(ksize), float(sigma)))
+
+
+def laplacian(img: torch.Tensor, ksize: int = 1, delta: float = 0.0,
+              channels_last: bool = True) -> torch.Tensor:
+    """``cv2.Laplacian`` (exact; u8 → int16, u16/i16 → int32, f32 → f32).
+    ``ksize=1``: the 4-neighbour stencil; ``ksize≥3``: the Sobel-based form
+    with raw-sum single saturation."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.laplacian_planes(planes, int(ksize), float(delta)))
+
+
+def laplacian_sharpen(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """Sharpen = saturate(src − Laplacian(src)) (exact)."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.laplacian_sharpen_planes(planes))
+
+
+def sobel(img: torch.Tensor, dx: int = 1, dy: int = 0, ksize: int = 3, scale: float = 1.0,
+          delta: float = 0.0, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.Sobel`` (``ksize=-1`` = Scharr), REFLECT_101.  u8 → int16
+    (exact at scale 1, any delta); u16/i16 → int32 (exact); f32 → f32.
+    ``scale ≠ 1`` folds the scale into f32 taps.  Integer inputs: ksize
+    limited to the exact int32 range (u8 ≤ 11, 16-bit ≤ 7 for first
+    derivatives); convert to f32 for larger kernels."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.sobel_planes(planes, int(dx), int(dy), int(ksize), float(scale),
+                                        float(delta)))
+
+
+def scharr(img: torch.Tensor, dx: int = 1, dy: int = 0, scale: float = 1.0, delta: float = 0.0,
+           channels_last: bool = True) -> torch.Tensor:
+    """``cv2.Scharr`` — the 3×3 [3,10,3] derivative (see :func:`sobel`)."""
+    return sobel(img, dx, dy, -1, scale, delta, channels_last)
+
+
+def box_blur(img: torch.Tensor, ksize=3, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.blur(img, Size(kw, kh))`` — the normalized box (mean) filter,
+    REFLECT_101.  ``ksize``: int or (rows, cols), odd dims ≥ 1.  u8/u16/i16
+    exact; f32 f32 window sums times ``f32(1/area)``."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.box_blur_planes(planes, ksize))
+
+
+def box_filter(img: torch.Tensor, ksize=3, normalize: bool = True,
+               channels_last: bool = True) -> torch.Tensor:
+    """``cv2.boxFilter`` — normalized == :func:`box_blur`; raw window sums
+    otherwise (int32/f32, exact; even sizes with cv2's anchor)."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.box_filter_planes(planes, ksize, bool(normalize)))
+
+
+def corner_harris(img: torch.Tensor, block_size: int = 2, ksize: int = 3, k: float = 0.04,
+                  channels_last: bool = True) -> torch.Tensor:
+    """``cv2.cornerHarris`` — u8 in, f32 response."""
+    _check_u8(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.corner_harris_planes(planes, int(block_size), int(ksize), float(k)))
+
+
+def corner_min_eigen_val(img: torch.Tensor, block_size: int = 3, ksize: int = 3,
+                         channels_last: bool = True) -> torch.Tensor:
+    """``cv2.cornerMinEigenVal`` — u8 in, f32 response."""
+    _check_u8(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.corner_min_eigen_val_planes(planes, int(block_size), int(ksize)))
+
+
+def spatial_gradient(img: torch.Tensor, border: str = "reflect101",
+                     channels_last: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cv2.spatialGradient`` — the exact (dx, dy) Sobel-3 pair, u8 in,
+    int16 out; ``border`` reflect101 or replicate (cv2's only two)."""
+    _check_u8(img)
+    if border not in ("reflect101", "replicate"):
+        raise ValueError("border must be 'reflect101' or 'replicate'")
+    planes, restore = as_planes(img, channels_last=channels_last)
+    dx, dy = filters.spatial_gradient_planes(planes, str(border))
+    return restore(dx), restore(dy)
+
+
+def sqr_box_filter(img: torch.Tensor, ksize=3, normalize: bool = True,
+                   channels_last: bool = True) -> torch.Tensor:
+    """``cv2.sqrBoxFilter`` (ddepth → CV_32F) — REFLECT_101 window sums of
+    squares in int64 (f64 for f32 input), one f32 cast."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.sqr_box_filter_planes(planes, ksize, bool(normalize)))
+
+
+def stack_blur(img: torch.Tensor, ksize, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.stackBlur`` — u8, ``ksize`` int or (rows, cols), odd: two integer
+    running-sum passes per axis and the pinned fixed-point descale."""
+    _check_image_dtype(img)
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(filters.stack_blur_planes(planes, ksize))
 
 
 def clahe(img: torch.Tensor, clip_limit: float = 40.0, tile_grid: tuple[int, int] = (8, 8),

@@ -16,7 +16,7 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input",
-           "host_derived", "stream_workspace"]
+           "host_derived", "stream_handle", "stream_workspace"]
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -59,6 +59,13 @@ def host_derived(t: torch.Tensor, key: str, fn):
     return value
 
 
+def stream_handle(device: torch.device) -> int:
+    """The handle ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    without building a Stream object (4 us a call on the card's host); 0 off
+    CUDA."""
+    return torch._C._cuda_getCurrentRawStream(device.index) if device.type == "cuda" else 0
+
+
 # (device, stream, zeroed) -> the stream's int32 buffer: see stream_workspace
 _WORKSPACES: dict[tuple, torch.Tensor] = {}
 _WORKSPACE_KEYS = 128  # the most buffers kept: two a stream
@@ -73,10 +80,7 @@ def stream_workspace(device: torch.device, n: int, zeroed: bool) -> torch.Tensor
     launches and two streams never share one.  The least recently used
     beyond ``_WORKSPACE_KEYS`` is dropped (the caching allocator reuses its
     memory only on its own stream, after the launches queued there)."""
-    # the handle torch.cuda.current_stream(device).cuda_stream gives, without
-    # building a Stream object (4 us a call on the card's host)
-    stream = torch._C._cuda_getCurrentRawStream(device.index) if device.type == "cuda" else 0
-    key = (device, stream, zeroed)
+    key = (device, stream_handle(device), zeroed)
     t = _WORKSPACES.pop(key, None)
     if t is None or t.numel() < n:
         size = max(n, 1024, 0 if t is None else 2 * t.numel())

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "ie_hist256_lut": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P),
     "ie_equalize_lut256": (_P, _P, _I64, _I64, _P),
     "ie_apply_lut256": (_P, _P, _I64, _P, _I64, _I64, _P),
-    "ie_sep_conv_u8": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _I32, _I32, _I32,
-                       _I32, _F32, _F32, _P),
+    "ie_sep_conv_u8": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _P, _I32, _I32, _I32,
+                       _I32, _I32, _F32, _F32, _P),
     "ie_median": (_P, _P, _I64, _I64, _I64, _I32, _I32, _P),
     "ie_hist256_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
                          _P, _P, _P),

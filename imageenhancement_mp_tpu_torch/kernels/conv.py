@@ -4,16 +4,18 @@
 the JAX package's ``kernels/conv2.py::sep_conv5_wide`` (wide shapes,
 LUT prologue) and the JAX package's ``kernels/conv.py::_sep_conv_planes``
 (any shape), with one CUDA kernel (``csrc/conv.cu``) for every shape and
-every odd ksize ≤ 31 per axis.  :func:`sep_conv_u8_plain` is the same
+every odd ksize per axis.  :func:`sep_conv_u8_plain` is the same
 function in plain PyTorch.
 
 The host picks the kernel's instance and route (:func:`conv_route`): a
 compile-time instance for k 3, 5 or 7 on both axes, the runtime one for any
-other pair; the horizontal pass on packed 16-bit lanes where the taps reduced
-by their common power of two have scales ``qv·qh ≤ 256`` (the JAX package's
-``kernels/conv2.py::_reduce_taps`` rule), else in int32 on the Q8 taps; and
-the epilogue (:func:`epilogue_mode`): on lanes for an integral amount in
-[0, 127], where cv2's two FMAs are exact, else the FMAs themselves.
+other pair up to 31 taps, the wide one (:data:`WIDE`, its taps in a device
+buffer) where either axis has more; the horizontal pass on packed 16-bit
+lanes where the taps reduced by their common power of two have scales
+``qv·qh ≤ 256`` (the JAX package's ``kernels/conv2.py::_reduce_taps`` rule),
+else in int32 on the Q8 taps (always in the wide instance); and the epilogue
+(:func:`epilogue_mode`): on lanes for an integral amount in [0, 127], where
+cv2's two FMAs are exact, else the FMAs themselves.
 
 The law, pinned to ``ref/ops.py``: cv2's Q8 taps, REFLECT_101 borders
 (``numpy.pad(mode="reflect")``, reflecting again when the halo is deeper than
@@ -31,17 +33,18 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
+from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda, stream_handle
 from imageenhancement_mp_tpu_torch.kernels._build import launch
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256_plain
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 
-__all__ = ["COMPILED_K", "ConvRoute", "MAX_TAPS", "MAX_LANE_AMOUNT", "conv_route",
-           "epilogue_mode", "reduce_taps", "reflect101", "sep_conv_u8", "sep_conv_u8_plain",
-           "unsharp_weights"]
+__all__ = ["COMPILED_K", "ConvRoute", "RUNTIME_MAX_TAPS", "MAX_LANE_AMOUNT", "WIDE",
+           "conv_route", "epilogue_mode", "reduce_taps", "reflect101", "sep_conv_u8",
+           "sep_conv_u8_plain", "unsharp_weights"]
 
-MAX_TAPS = 31
-COMPILED_K = (3, 5, 7)   # kv = kh = k; every other pair runs the runtime instance
+RUNTIME_MAX_TAPS = 31    # the most taps an axis passes by value (the runtime instance)
+COMPILED_K = (3, 5, 7)   # kv = kh = k; every other pair runs the runtime or the wide instance
+WIDE = -1                # the wide instance: any odd tap count, taps in device memory
 MAX_LANE_AMOUNT = 127    # (1 + a)·255 + 256a ≤ 65535 keeps the epilogue's lanes apart
 
 
@@ -53,8 +56,8 @@ def unsharp_weights(amount: float) -> tuple[float, float]:
 
 def _check_taps(taps: Sequence[int], axis: str) -> tuple[int, ...]:
     t = tuple(int(v) for v in taps)
-    if len(t) % 2 == 0 or not 1 <= len(t) <= MAX_TAPS:
-        raise ValueError(f"{axis} taps: odd count 1..{MAX_TAPS} expected, got {len(t)}")
+    if len(t) % 2 == 0:
+        raise ValueError(f"{axis} taps: an odd count expected, got {len(t)}")
     # non-negative Q8 taps summing to at most 256 keep acc < 2^31 and blur ≤ 255
     if min(t) < 0 or sum(t) > 256:
         raise ValueError(f"{axis} taps must be >= 0 with a sum <= 256, got {t}")
@@ -73,14 +76,15 @@ def reduce_taps(taps: Sequence[int]) -> tuple[tuple[int, ...], int]:
 
 class ConvRoute(NamedTuple):
     """What the kernel runs for one tap pair."""
-    instance: int              # 3, 5 or 7: the compile-time instance; 0: the runtime one
+    instance: int              # 3, 5 or 7: the compile-time instance; 0: the runtime one;
+                               # WIDE: the wide one
     packed: bool               # horizontal pass on 16-bit lanes (else int32)
     taps_v: tuple[int, ...]    # the taps the kernel multiplies by: reduced when packed
     taps_h: tuple[int, ...]
     shift: int                 # blur = (acc + 2^(shift-1)) >> shift; 16 on the int32 route
 
     def describe(self) -> str:
-        inst = f"k{self.instance}" if self.instance else "runtime"
+        inst = {0: "runtime", WIDE: "wide"}.get(self.instance, f"k{self.instance}")
         return f"{inst}/{'packed' if self.packed else 'int32'}"
 
 
@@ -89,8 +93,11 @@ def conv_route(taps_v: Sequence[int], taps_h: Sequence[int]) -> ConvRoute:
     scales give ``qv·qh ≤ 256``: every vertical sum is then ≤ 255·qv and
     every horizontal one ≤ 255·qv·qh ≤ 65535, so neither pass carries across
     a lane, and ``(acc + q/2) >> log2 q`` is cv2's ``(acc8 + 2^15) >> 16``
-    (``acc8 = acc·65536/q``)."""
+    (``acc8 = acc·65536/q``).  More than :data:`RUNTIME_MAX_TAPS` taps on
+    either axis: the wide instance on the int32 route."""
     tv, th = tuple(taps_v), tuple(taps_h)
+    if max(len(tv), len(th)) > RUNTIME_MAX_TAPS:
+        return ConvRoute(WIDE, False, tv, th, 16)
     k = len(tv) if len(tv) == len(th) and len(tv) in COMPILED_K else 0
     (rv, lv), (rh, lh) = reduce_taps(tv), reduce_taps(th)
     if lv + lh <= 8:
@@ -104,6 +111,16 @@ def _launch_taps(tv: tuple[int, ...], th: tuple[int, ...]) -> tuple[ConvRoute, n
     wrapper's host time is the paths' pace once the kernels are fast."""
     route = conv_route(tv, th)
     return route, *(np.ascontiguousarray(t, np.int32) for t in (route.taps_v, route.taps_h))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_taps(tv: tuple[int, ...], th: tuple[int, ...], device: torch.device,
+                 stream: int) -> torch.Tensor:
+    """The wide instance's taps, ``tv`` then ``th``, as an int32 buffer on
+    ``device``, made once per tap pair, device and stream and never written
+    again.  Made on the stream whose launches read it, so the caching
+    allocator reuses it only after they ran, once the cache drops it."""
+    return torch.tensor(tv + th, dtype=torch.int32, device=device)
 
 
 def epilogue_mode(amount: float | None) -> tuple[int, int]:
@@ -156,7 +173,7 @@ def sep_conv_u8(planes: torch.Tensor, taps_v: Sequence[int], taps_h: Sequence[in
     """Separable Q8 conv over ``[B, H, W]`` u8 planes → ``[B, H, W]`` u8.
 
     ``taps_v``/``taps_h``: cv2's Q8 integer taps per axis
-    (``utils/taps.py::gaussian_kernel_fixed``), odd count ≤ 31.
+    (``utils/taps.py::gaussian_kernel_fixed``), any odd count.
     ``amount``: None writes the blur; a float writes the unsharp epilogue
     ``addWeighted(src, 1+amount, blur, −amount)``.  ``luts``: optional
     ``[B, 256]`` u8 per-plane table applied to the pixels before the conv;
@@ -182,9 +199,12 @@ def sep_conv_u8(planes: torch.Tensor, taps_v: Sequence[int], taps_h: Sequence[in
         return out
     alpha, beta = (1.0, 0.0) if amount is None else unsharp_weights(amount)
     route, c_tv, c_th = _launch_taps(tv, th)
+    dev_taps = (_device_taps(route.taps_v, route.taps_h, planes.device,
+                             stream_handle(planes.device)).data_ptr()
+                if route.instance == WIDE else None)
     mode, amount_i = epilogue_mode(amount)
     launch("sep_conv_u8", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
-           c_tv.ctypes.data, len(tv), c_th.ctypes.data, len(th),
+           c_tv.ctypes.data, len(tv), c_th.ctypes.data, len(th), dev_taps,
            None if luts is None else luts.data_ptr(),
            route.instance, int(route.packed), route.shift, mode, amount_i, alpha, beta)
     return out

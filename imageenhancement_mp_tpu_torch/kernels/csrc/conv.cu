@@ -6,7 +6,9 @@
 // pallas_call at conv2.py:326, function at :292: packed pixel pairs, banded
 // bf16 MXU pass, vreg-gather LUT) and kernels/conv.py::_sep_conv_planes (the
 // pallas_call at conv.py:194, function at :134: any shape, host pad) with
-// one kernel family for every shape and every odd ksize <= 31 per axis.
+// one kernel family for every shape and every odd ksize per axis: the
+// instances below take ksize <= 31 by value; the wide instance at the end
+// takes any odd ksize, its taps from a device buffer.
 //
 // What bounds it on this card: device memory, 2 B/px (one byte read, one
 // written), 0.0099 ms at 8x1080x1920.  Design, per warp: 32 lanes of 8
@@ -96,6 +98,7 @@ struct ConvArgs {
   int32_t H, W;
   // the route's taps (reduced on the packed route); th centred in the runtime instance
   int32_t tv[kMaxTaps], th[kMaxTaps];
+  const int32_t* wtaps;  // the wide instance's taps on the device: kv vertical, then kh horizontal
   int32_t kv, kh;
   int32_t shift, half;  // blur = (acc + half) >> shift
   uint32_t mul_s, mul_b, bias2, lo2, hi2;  // epilogue 1: 1 + a, a, 256a per lane, clamp bounds
@@ -388,6 +391,108 @@ sep_conv_u8_kernel(const ConvArgs a) {
   }
 }
 
+// The wide instance: any odd kv, kh (taken where either exceeds 31), the
+// int32 route on cv2's Q8 taps, read from a device buffer (a.wtaps) since
+// they no longer fit the argument struct.  A block of 256 threads writes 16
+// rows of 256 columns, one column a thread; the union of its columns'
+// horizontal windows, 256 + 2 rh columns, which may be many times the tile
+// when the radius exceeds it, goes through shared memory in chunks of 256:
+// each thread forms the vertical sums of one chunk column for the block's 16
+// rows (each of the 16 + kv - 1 input rows loaded once and added into the
+// rows it reaches), then every thread adds the chunk's columns that fall in
+// its window.  What bounds it: issue, about two instructions per tap and
+// pass per pixel (a uniform tap load or a shared-memory read beside each
+// IMAD), against 2 B/px of device memory; the compile-time instances'
+// register windows need a tap count known when compiling.  Both the row and
+// the column indices reflect as numpy.pad(mode="reflect") does, in 64 bits,
+// so a halo deeper than the plane, or than 2^31 pixels, reflects again.
+constexpr int kWideCols = 256;  // output columns per block, one a thread
+constexpr int kWideRows = 16;   // output rows per block
+
+__device__ __forceinline__ int reflect101_wide(int64_t i, int n) {
+  if (i >= 0 && i < n) return int(i);
+  if (n == 1) return 0;
+  const int64_t m = 2 * int64_t(n - 1);
+  i %= m;
+  if (i < 0) i += m;
+  return int(i >= n ? m - i : i);
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(kWideCols)
+sep_conv_u8_wide_kernel(const ConvArgs a) {
+  __shared__ uint8_t lut[256];
+  __shared__ int32_t vs[kWideRows][kWideCols];
+  const int t = threadIdx.x, t_first = t & ~31, t_last = t_first + 31;
+  const int H = a.H, W = a.W, kv = a.kv;
+  const int rv = kv >> 1, rh = a.kh >> 1, span = kWideCols + 2 * rh;  // kv, kh <= 2^30
+  const int64_t x0 = int64_t(blockIdx.x) * kWideCols;
+  const int32_t* __restrict__ tv = a.wtaps;
+  const int32_t* __restrict__ th = a.wtaps + kv;
+  const bool use_lut = a.luts != nullptr;
+  const int64_t nrb = (H + kWideRows - 1) / kWideRows;
+  for (int64_t item = blockIdx.y; item < a.B * nrb; item += gridDim.y) {
+    const int64_t b = item / nrb;
+    const int y0 = int(item - b * nrb) * kWideRows;
+    __syncthreads();  // the previous item's readers of lut and vs are done
+    if (use_lut)
+      for (int i = t; i < 256; i += kWideCols) lut[i] = a.luts[b * 256 + i];
+    __syncthreads();
+    const uint8_t* plane = a.x + b * int64_t(H) * W;
+    int32_t acc[kWideRows] = {};
+    for (int c0 = 0; c0 < span; c0 += kWideCols) {
+      // vertical sums of union column c0 + t (plane column x0 - rh + c0 + t)
+      int32_t v[kWideRows] = {};
+      if (c0 + t < span) {
+        const uint8_t* col = plane + reflect101_wide(x0 - rh + c0 + t, W);
+        const int kin = kWideRows + kv - 1;
+        for (int i = 0; i < kin; ++i) {
+          uint32_t px = col[int64_t(reflect101_wide(int64_t(y0) - rv + i, H)) * W];
+          if (use_lut) px = lut[px];
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r) {
+            const int j = i - r;  // input row i is tap i - r of output row r
+            if (unsigned(j) < unsigned(kv)) v[r] += __ldg(tv + j) * int32_t(px);
+          }
+        }
+      }
+      __syncthreads();  // the previous chunk's readers of vs are done
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) vs[r][t] = v[r];
+      __syncthreads();
+      // output column t takes union columns t + j, j in [0, 2 rh]; this chunk
+      // holds c0 .. c0 + 255.  The warp walks the taps any of its lanes needs.
+      const int jlo = max(c0 - t_last, 0), jhi = min(c0 + kWideCols - 1 - t_first, 2 * rh);
+      for (int j = jlo; j <= jhi; ++j) {
+        const int32_t tap = __ldg(th + j);
+        const int s = t + j - c0;
+        if (unsigned(s) >= unsigned(kWideCols)) continue;
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r) acc[r] += tap * vs[r][s];
+      }
+    }
+    if (x0 + t >= W) continue;
+    uint8_t* oplane = a.out + b * int64_t(H) * W;
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      if (y0 + r >= H) break;
+      const int64_t o = int64_t(y0 + r) * W + x0 + t;
+      uint32_t s = plane[o];
+      if (use_lut) s = lut[s];
+      const uint32_t bl = uint32_t(min((acc[r] + a.half) >> a.shift, 255));
+      oplane[o] = uint8_t(epilogue<EPI>(bl, s, a));  // the low lane: this pixel's byte
+    }
+  }
+}
+
+template <int EPI>
+void launch_wide(const ConvArgs& a, cudaStream_t stream) {
+  const int64_t items = a.B * ((a.H + kWideRows - 1) / kWideRows);
+  const dim3 grid(unsigned((a.W + kWideCols - 1) / kWideCols),
+                  unsigned(items < kMaxGridY ? items : kMaxGridY));
+  sep_conv_u8_wide_kernel<EPI><<<grid, kWideCols, 0, stream>>>(a);
+}
+
 template <int K, bool PACKED, int EPI>
 void launch_instance(const ConvArgs& a, cudaStream_t stream) {
   constexpr int OW = (32 - 2 * (K > 0 ? 1 : 2)) * kCols;
@@ -419,21 +524,27 @@ int64_t tap_sum(const int32_t* t, int k) {
 extern "C" {
 
 // x, out: [B, H, W] u8 contiguous.  taps_v/taps_h: host arrays of kv/kh taps
-// (odd, <= 31, >= 0): the route's, chosen by kernels/conv.py::conv_route.
-// instance: 3, 5 or 7 (then kv = kh = instance) or 0 (the runtime instance).
-// packed: 1 runs the horizontal pass on lanes (needs 255 * sum(tv) * sum(th)
-// <= 65535), 0 in int32 (needs 255 * sum(tv) <= 65535).  blur = (acc +
-// half) >> shift, half = 2^(shift-1) (0 at shift 0).  luts: [B, 256] u8
-// device table or null.  mode: 0 blur; 1 integral amount in [0, 127]; 2 the
-// two f32 FMAs with alpha, beta.
+// (odd, >= 0): the route's, chosen by kernels/conv.py::conv_route.
+// dev_taps: the same kv + kh taps in device memory for the wide instance
+// (null for the others).  instance: 3, 5 or 7 (then kv = kh = instance), 0
+// (the runtime instance, kv and kh <= 31) or -1 (the wide instance, int32
+// route, any kv and kh).  packed: 1 runs the horizontal pass on lanes (needs
+// 255 * sum(tv) * sum(th) <= 65535), 0 in int32 (needs 255 * sum(tv) <=
+// 65535).  blur = (acc + half) >> shift, half = 2^(shift-1) (0 at shift 0).
+// luts: [B, 256] u8 device table or null.  mode: 0 blur; 1 integral amount in
+// [0, 127]; 2 the two f32 FMAs with alpha, beta.
 int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t W,
                    const int32_t* taps_v, int32_t kv, const int32_t* taps_h, int32_t kh,
-                   const uint8_t* luts, int32_t instance, int32_t packed, int32_t shift,
-                   int32_t mode, int32_t amount_i, float alpha, float beta, cudaStream_t stream) {
+                   const int32_t* dev_taps, const uint8_t* luts, int32_t instance,
+                   int32_t packed, int32_t shift, int32_t mode, int32_t amount_i, float alpha,
+                   float beta, cudaStream_t stream) {
+  const bool wide = instance == -1;
   if (B < 1 || H < 1 || W < 1 || H > 0x7fffffffLL - kBlockRows || W > 0x7fffffffLL - 512 ||
-      kv < 1 || kv > kMaxTaps || kh < 1 || kh > kMaxTaps || kv % 2 == 0 || kh % 2 == 0 ||
-      !(instance == 0 || ((instance == 3 || instance == 5 || instance == 7) &&
-                          kv == instance && kh == instance)) ||
+      kv < 1 || kh < 1 || kv % 2 == 0 || kh % 2 == 0 ||
+      (!wide && (kv > kMaxTaps || kh > kMaxTaps)) || kv > (1 << 30) || kh > (1 << 30) ||
+      (wide && (packed || dev_taps == nullptr)) ||
+      !(wide || instance == 0 || ((instance == 3 || instance == 5 || instance == 7) &&
+                                  kv == instance && kh == instance)) ||
       shift < 0 || shift > 16 || mode < 0 || mode > 2 ||
       (mode == 1 && (amount_i < 0 || amount_i > 127)))
     return int(cudaErrorInvalidValue);
@@ -452,9 +563,12 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
   a.B = B;
   a.H = int32_t(H);
   a.W = int32_t(W);
-  for (int j = 0; j < kv; ++j) a.tv[j] = taps_v[j];
-  const int th0 = instance == 0 ? kMaxR - kh / 2 : 0;  // the runtime instance's centred taps
-  for (int j = 0; j < kh; ++j) a.th[th0 + j] = taps_h[j];
+  a.wtaps = dev_taps;
+  if (!wide) {
+    for (int j = 0; j < kv; ++j) a.tv[j] = taps_v[j];
+    const int th0 = instance == 0 ? kMaxR - kh / 2 : 0;  // the runtime instance's centred taps
+    for (int j = 0; j < kh; ++j) a.th[th0 + j] = taps_h[j];
+  }
   a.kv = kv;
   a.kh = kh;
   a.shift = shift;
@@ -469,6 +583,14 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
   a.beta = beta;
   a.vec_in = (reinterpret_cast<uintptr_t>(x) % 8 == 0) && (W % 8 == 0);
   a.vec_out = (reinterpret_cast<uintptr_t>(out) % 8 == 0) && (W % 8 == 0);
+  if (wide) {
+    switch (mode) {
+      case 0: launch_wide<0>(a, stream); break;
+      case 1: launch_wide<1>(a, stream); break;
+      default: launch_wide<2>(a, stream); break;
+    }
+    return int(cudaGetLastError());
+  }
   switch (instance * 2 + (packed ? 1 : 0)) {
     case 0: launch_route<0, false>(a, mode, stream); break;
     case 1: launch_route<0, true>(a, mode, stream); break;

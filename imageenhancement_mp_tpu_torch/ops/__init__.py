@@ -11,7 +11,12 @@ from __future__ import annotations
 
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
-from imageenhancement_mp_tpu_torch.ops.filters import gaussian_blur_planes, unsharp_mask_planes
+from imageenhancement_mp_tpu_torch.ops.filters import (box_blur_planes, box_filter_planes,
+                                                      corner_harris_planes,
+                                                      corner_min_eigen_val_planes,
+                                                      gaussian_blur_planes,
+                                                      laplacian_sharpen_planes, sobel_planes,
+                                                      stack_blur_planes, unsharp_mask_planes)
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes)
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
@@ -30,10 +35,8 @@ __all__ = ["OP_REGISTRY", "LATER"]
 LATER = {
     "calc_back_project": 6,
     **dict.fromkeys((
-        "box_blur", "erode", "dilate", "morphology", "sobel", "pyr_down",
-        "resize", "flip", "rotate", "transpose", "canny", "connected_components",
-        "match_template", "box_filter", "corner_harris", "corner_min_eigen_val",
-        "filter2d", "pyr_up", "laplacian_sharpen", "stack_blur"), 10),
+        "erode", "dilate", "morphology", "filter2d", "pyr_down", "pyr_up", "resize", "flip",
+        "rotate", "transpose", "canny", "connected_components", "match_template"), "10b"),
 }
 
 
@@ -54,6 +57,13 @@ OP_REGISTRY = _Registry(
     equalize_hist_global=equalize_hist_global_planes,
     gaussian_blur=gaussian_blur_planes,
     unsharp_mask=unsharp_mask_planes,
+    laplacian_sharpen=laplacian_sharpen_planes,
+    box_blur=box_blur_planes,
+    box_filter=box_filter_planes,
+    sobel=sobel_planes,
+    corner_harris=corner_harris_planes,
+    corner_min_eigen_val=corner_min_eigen_val_planes,
+    stack_blur=stack_blur_planes,
     median_blur=median_blur_planes,
     clahe=clahe_planes,
     bilateral=bilateral_planes,

@@ -149,7 +149,7 @@ def equalize_unsharp(img: torch.Tensor, amount: float = 1.0, ksize: int = 5,
     builds each plane's equalize LUT from its finished counts, then ONE conv
     pass that applies each plane's LUT as it loads the pixels, runs the
     Gaussian and writes the unsharp epilogue — two reads of the image and
-    one write.  Any odd ``ksize`` ≤ 31, including 1.
+    one write.  Any odd ``ksize``, including 1.
     """
     if img.dtype != torch.uint8:
         raise TypeError(f"expected uint8 image tensor, got {img.dtype}")

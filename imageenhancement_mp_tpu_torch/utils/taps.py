@@ -1,19 +1,22 @@
-"""cv2's Gaussian taps, as NumPy host tables: the u8 fixed-point ones and the
-f64 float kernel.
+"""The spatial filters' host tables, as NumPy: cv2's Gaussian taps (the u8 Q8
+and u16 Q16 fixed-point ones and the f64 float kernel), cv2's derivative
+kernels, and stackBlur's fixed-point descale tables.
 
 A verbatim copy of the tap functions in the JAX package's ``ref/ops.py``
 (``_BINOMIAL_FX``, ``_cdf_fixed_taps``, ``gaussian_kernel_fixed``,
-``_auto_sigma``, ``gaussian_kernel``, ``gaussian_axes``).  It is copied, not
-imported, because importing the JAX package's ``ref`` runs that package's
-``__init__`` and so imports JAX.  ``tests/test_torch_utils.py`` pins each
-copy to the original.
+``gaussian_taps_u16``, ``_auto_sigma``, ``gaussian_kernel``,
+``gaussian_axes``, ``deriv_kernels``) and of ``ref/stackblur.py``'s ``_MUL``
+and ``_SHR``.  It is copied, not imported, because importing the JAX
+package's ``ref`` runs that package's ``__init__`` and so imports JAX.
+``tests/test_torch_utils.py`` pins each copy to the original.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gaussian_kernel_fixed", "gaussian_kernel", "gaussian_axes"]
+__all__ = ["gaussian_kernel_fixed", "gaussian_taps_u16", "gaussian_kernel", "gaussian_axes",
+           "deriv_kernels", "STACK_MUL", "STACK_SHR"]
 
 _BINOMIAL_FX = {
     1: np.array([256], np.int64),  # k=1 is the identity (probe: any sigma)
@@ -58,6 +61,23 @@ def gaussian_kernel_fixed(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return _cdf_fixed_taps(ksize, sigma, 256)
 
 
+def gaussian_taps_u16(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """cv2's uint16-path Gaussian taps ·65536 (bit-exact, any σ).
+
+    σ≤0: k ≤ 9 the dyadic /256 tables ·256 (cv2 quirk — its 16U σ=0 k=9
+    filter reuses the 8-bit kernel, pinned by probe); k ≥ 11 cumulative-
+    quantized at Q16.  σ>0: cumulative-quantized at Q16.
+    Apply with int accumulation and a single final ``(h + 2^31) >> 32``.
+    """
+    if ksize % 2 == 0 or ksize < 1:
+        raise ValueError(f"ksize must be odd >= 1, got {ksize}")
+    if sigma <= 0:
+        if ksize in _BINOMIAL_FX:
+            return _BINOMIAL_FX[ksize] * 256
+        sigma = _auto_sigma(ksize)
+    return _cdf_fixed_taps(ksize, sigma, 65536)
+
+
 def _auto_sigma(ksize: int) -> float:
     """cv2's σ=0 fallback formula (used for k > 7)."""
     return 0.3 * ((ksize - 1) * 0.5 - 1.0) + 0.8
@@ -100,3 +120,57 @@ def gaussian_axes(ksize, sigma: float, sigma_y: float, depth_u8: bool):
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"ksize must be odd, got ({kh}, {kw})")
     return kh, kw, sy, sx
+
+
+def deriv_kernels(dx: int, dy: int, ksize: int = 3):
+    """``cv2.getDerivKernels(dx, dy, ksize)`` (normalize=False) — exact.
+
+    Pinned generation rule (verified against cv2 over the full grid in
+    tests): each axis kernel of order ``o`` is
+    ``[1] ⊛ [1,1]^(ksz−o−1) ⊛ [−1,1]^o`` with ``ksz = 3`` when
+    ``ksize == 1`` and ``o > 0`` (no smoothing), else ``ksize``.
+    ``ksize = -1`` selects the Scharr pair ([3,10,3] smoothing,
+    [−1,0,1] derivative; requires dx+dy == 1).  Returns (kx, ky) int
+    row vectors (x = columns axis, like cv2).
+    """
+    if ksize == -1:
+        if dx + dy != 1 or min(dx, dy) != 0:
+            raise ValueError("Scharr (ksize=-1) needs (dx,dy) in {(1,0),(0,1)}")
+        d = np.array([-1, 0, 1], np.int64)
+        s = np.array([3, 10, 3], np.int64)
+        return (d, s) if dx == 1 else (s, d)
+    if ksize % 2 == 0 or ksize < 1 or ksize > 27:
+        # cv2 allows up to 31 but returns FLOAT kernels whose binomials
+        # round in f32 beyond k=27 (C(28,14) > 2^24); we keep the exact
+        # integer domain
+        raise ValueError(f"ksize must be -1 or odd in [1, 27], got {ksize}")
+
+    def one(order):
+        ksz = 3 if (ksize == 1 and order > 0) else ksize
+        if order >= ksz:
+            raise ValueError(f"derivative order {order} needs ksize > {order}")
+        k = np.array([1], np.int64)
+        for _ in range(ksz - order - 1):
+            k = np.convolve(k, [1, 1])
+        for _ in range(order):
+            k = np.convolve(k, [-1, 1])
+        return k
+
+    return one(dx), one(dy)
+
+
+# Klingemann stackblur fixed-point tables (public-domain algorithm
+# constants; index = radius)
+STACK_MUL = [
+    512, 512, 456, 512, 328, 456, 335, 512, 405, 328, 271, 456, 388, 335,
+    292, 512, 454, 405, 364, 328, 298, 271, 496, 456, 420, 388, 360, 335,
+    312, 292, 273, 512, 482, 454, 428, 405, 383, 364, 345, 328, 312, 298,
+    284, 271, 259, 496, 475, 456, 437, 420, 404, 388, 374, 360, 347, 335,
+    323, 312, 302, 292, 282, 273, 265, 512,
+]
+STACK_SHR = [
+    9, 11, 12, 13, 13, 14, 14, 15, 15, 15, 15, 16, 16, 16, 16, 17, 17,
+    17, 17, 17, 17, 17, 18, 18, 18, 18, 18, 18, 18, 18, 18, 19, 19, 19,
+    19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 19, 20, 20, 20, 20, 20, 20,
+    20, 20, 20, 20, 20, 20, 20, 20, 20, 20, 20, 20, 21,
+]

@@ -151,8 +151,12 @@ def test_reflect_index_matches_numpy():
 def test_sep_conv_rejects_what_the_kernel_does_not_take():
     x = torch.zeros((1, 8, 8), dtype=torch.uint8)
     t5 = _taps(5)[0]
+    # 33 taps is a result (the wide instance), the plain version's
+    xr = torch.from_numpy(_planes((1, 8, 8), 5))
+    np.testing.assert_array_equal(kconv.sep_conv_u8(xr, _taps(33)[0], t5).numpy(),
+                                  kconv.sep_conv_u8_plain(xr, _taps(33)[0], t5).numpy())
     with pytest.raises(ValueError):
-        kconv.sep_conv_u8(x, _taps(33)[0], t5)
+        kconv.sep_conv_u8(x, (), t5)  # no taps
     with pytest.raises(ValueError):
         kconv.sep_conv_u8(x, (128, 128), t5)  # even tap count
     with pytest.raises(ValueError):
@@ -164,9 +168,17 @@ def test_sep_conv_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         kconv.sep_conv_u8(x[0], t5, t5)
     with pytest.raises(ValueError):
-        tfilters.gaussian_blur_planes(x, 33)
-    for dtype in (torch.uint16, torch.int16, torch.float32):
-        with pytest.raises(NotImplementedError):
-            tfilters.unsharp_mask_planes(x.to(dtype))
+        tfilters.gaussian_blur_planes(x, 32)
+    with pytest.raises(ValueError):
+        tfilters.gaussian_blur_planes(x, 0)
+    np.testing.assert_array_equal(tfilters.gaussian_blur_planes(xr, 33).numpy(),
+                                  ref.gaussian_blur(xr[0].numpy(), 33)[None])
+    # u16, i16 and f32 are ported: equal to ref/ (f32 at its unsharp bound)
+    for dtype in (np.uint16, np.int16, np.float32):
+        xd = torch.from_numpy(xr.numpy().astype(dtype) * dtype(100))
+        got = tfilters.unsharp_mask_planes(xd).numpy()
+        want = ref.unsharp_mask(xd[0].numpy())[None]
+        assert got.dtype == want.dtype
+        assert np.abs(got.astype(np.float64) - want).max() <= (1e-2 if dtype == np.float32 else 0)
     with pytest.raises(TypeError):
         tfilters.gaussian_blur_planes(x.to(torch.int32))

@@ -194,7 +194,9 @@ ROUTES = [((1, 0.0), "runtime/packed", 0), ((3, 0.0), "k3/packed", 4), ((5, 0.0)
           ((7, 0.0), "k7/int32", 16), (((3, 5), 0.0), "runtime/packed", 6),
           ((5, 1.5), "k5/int32", 16), ((3, 1.1), "k3/int32", 16), ((7, 2.3), "k7/int32", 16),
           ((9, 0.0), "runtime/int32", 16), ((31, 0.0), "runtime/int32", 16),
-          (((1, 31), 0.0), "runtime/packed", 8), (((5, 3), 0.0), "runtime/packed", 6)]
+          (((1, 31), 0.0), "runtime/packed", 8), (((5, 3), 0.0), "runtime/packed", 6),
+          ((33, 0.0), "wide/int32", 16), ((0, 6.0), "wide/int32", 16),
+          (((33, 1), 0.0), "wide/int32", 16), (((3, 35), 0.0), "wide/int32", 16)]
 
 
 @pytest.mark.parametrize("ks_sigma,route,shift", ROUTES, ids=[str(r[0]) for r in ROUTES])
@@ -221,13 +223,15 @@ def test_host_chooses_instance_and_route(monkeypatch, ks_sigma, route, shift):
 
 
 def test_every_gaussian_tap_set_fits_its_route():
-    for k in range(1, 32, 2):
+    for k in range(1, 46, 2):
         for sigma in (0.0, 0.3, 0.8, 1.1, 1.5, 2.3, 4.0, 9.0):
             tv, _ = q8_taps(k, sigma)
             r = kconv.conv_route(tv, tv)
             bound = 255 * sum(r.taps_v) * (sum(r.taps_h) if r.packed else 1)
             assert bound <= 65535, (k, sigma, r)
-            assert r.instance == (k if k in kconv.COMPILED_K else 0)
+            assert r.instance == (k if k in kconv.COMPILED_K else
+                                  0 if k <= kconv.RUNTIME_MAX_TAPS else kconv.WIDE)
+            assert r.packed or r.shift == 16
 
 
 # the kernel's residues: widths ≡ 0, 1, 15 mod 16 and tiny, heights around a tile

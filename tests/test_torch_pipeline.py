@@ -117,14 +117,22 @@ def test_public_functions_reject_what_the_port_does_not_take():
         tie.equalize_hist(x.to(torch.float32))
     with pytest.raises(TypeError):
         tie.equalize_unsharp(x.to(torch.uint16))
-    with pytest.raises(ValueError):
-        tie.equalize_unsharp(x, ksize=33)
+    # 33 taps is a result (sep_conv_u8's wide instance); even and zero sizes raise
+    x33 = torch.from_numpy(_img((2, 8, 8), 34))
+    np.testing.assert_array_equal(tie.equalize_unsharp(x33, ksize=33).numpy(),
+                                  _ref_planes(_ref_eq_unsharp(ksize=33), x33.numpy()))
     with pytest.raises(ValueError):
         tie.equalize_unsharp(x, ksize=4)
-    for dtype in (torch.uint16, torch.int16, torch.float32):
-        with pytest.raises(NotImplementedError):
-            tie.gaussian_blur(x.to(dtype))
-        with pytest.raises(NotImplementedError):
-            tie.unsharp_mask(x.to(dtype))
+    with pytest.raises(ValueError):
+        tie.equalize_unsharp(x, ksize=0)
+    # u16, i16 and f32 Gaussian and unsharp are ported: equal to ref/
+    for dtype in (np.uint16, np.int16, np.float32):
+        xd = torch.from_numpy(x33.numpy().astype(dtype) * dtype(100))
+        for fn, rfn in ((tie.gaussian_blur, ref.gaussian_blur), (tie.unsharp_mask, ref.unsharp_mask)):
+            got = fn(xd, channels_last=False).numpy()
+            want = _ref_planes(rfn, xd.numpy())
+            assert got.dtype == want.dtype
+            assert np.abs(got.astype(np.float64) - want).max() <= (
+                1e-2 if dtype == np.float32 else 0)
     with pytest.raises(ValueError):
         tie.equalize_unsharp(x.to("meta"))

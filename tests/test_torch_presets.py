@@ -87,11 +87,14 @@ def test_registry_names_and_errors():
                                 "adaptive_threshold", "warp_affine", "warp_perspective",
                                 "warp_polar", "remap", "undistort", "fast_nl_means",
                                 "gamma", "log_transform", "contrast_stretch",
-                                "convert_scale_abs", "equalize_hist_global"}
+                                "convert_scale_abs", "equalize_hist_global", "box_blur",
+                                "sobel", "box_filter", "corner_harris", "corner_min_eigen_val",
+                                "laplacian_sharpen", "stack_blur"}
+    assert len(LATER) == 14
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         OP_REGISTRY["calc_back_project"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        OP_REGISTRY["box_blur"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+        OP_REGISTRY["erode"]
     with pytest.raises(KeyError):
         OP_REGISTRY["no_such_op"]
     from imageenhancement_mp_tpu.ops import OP_REGISTRY as JAX_REGISTRY
@@ -102,8 +105,8 @@ def test_registry_names_and_errors():
 def test_what_the_port_does_not_take_raises():
     with pytest.raises(TypeError, match="backend"):
         tie.make_pipeline([("median_blur", {"ksize": 5, "backend": "xla"})])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tie.make_pipeline(["gamma", "box_blur"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+        tie.make_pipeline(["gamma", "erode"])
     with pytest.raises(KeyError):
         tie.get_preset("no_such_preset")
     with pytest.raises(KeyError):

@@ -46,6 +46,37 @@ def test_tap_tables_and_axes_match_ref():
         taps.gaussian_kernel_fixed(4)
 
 
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11, 31, 41])
+def test_u16_taps_match_ref(k):
+    for sigma in (0.0, -1.0, 0.6, 1.5, 2.3, 5.0, 8.0):
+        np.testing.assert_array_equal(taps.gaussian_taps_u16(k, sigma),
+                                      ref_ops.gaussian_taps_u16(k, sigma))
+    with pytest.raises(ValueError):
+        taps.gaussian_taps_u16(k + 1)
+
+
+def test_deriv_kernels_match_ref():
+    for ksize in (-1, 1, 3, 5, 7, 9, 15, 27, 29, 4, 0):
+        for dx in range(4):
+            for dy in range(4):
+                try:
+                    want = ref_ops.deriv_kernels(dx, dy, ksize)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        taps.deriv_kernels(dx, dy, ksize)
+                    continue
+                got = taps.deriv_kernels(dx, dy, ksize)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype
+                    np.testing.assert_array_equal(g, w)
+
+
+def test_stack_blur_tables_match_ref():
+    from imageenhancement_mp_tpu.ref import stackblur as ref_stackblur
+    assert taps.STACK_MUL == ref_stackblur._MUL and len(taps.STACK_MUL) == 64
+    assert taps.STACK_SHR == ref_stackblur._SHR and len(taps.STACK_SHR) == 64
+
+
 @pytest.mark.parametrize("shape,channels_last", [
     ((5, 7), True), ((5, 7, 3), True), ((2, 5, 7), True), ((2, 5, 7, 3), True),
     ((2, 5, 3), True), ((2, 5, 3), False), ((2, 5, 7, 1), True),

@@ -158,9 +158,11 @@ def routes(torch, np, _build, kconv, x, luts, tv, th, time_ms) -> dict:
         for mode in EPILOGUES:
             c_tv, c_th = (np.ascontiguousarray(t, np.int32) for t in (taps_v, taps_h))
             keep += [c_tv, c_th]
+            # trees with the wide instance take its device taps (null here) after th
+            wide = (None,) if len(sig) == 19 else ()
             args = (x.data_ptr(), out_t.data_ptr(), *x.shape, c_tv.ctypes.data, len(tv),
-                    c_th.ctypes.data, len(th), luts.data_ptr(), 5, int(route == "packed"), shift,
-                    *EPILOGUES[mode], 2.0, -1.0)
+                    c_th.ctypes.data, len(th), *wide, luts.data_ptr(), 5, int(route == "packed"),
+                    shift, *EPILOGUES[mode], 2.0, -1.0)
             assert len(args) + 1 == len(sig)
             stream = torch.cuda.current_stream().cuda_stream
             fn = lambda args=args: lib.ie_sep_conv_u8(*args, stream)
