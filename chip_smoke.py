@@ -186,7 +186,32 @@
    frame card against CPU at 0 LSB, timed back to back and device-paced
    beside its 6 B/px floor, its device time split by kernel under
    torch.profiler.
-12. Prints a one-line JSON per-kernel summary (launches on the main paths,
+12. The rest of the registry and median_unsharp past 31 taps: holds
+   median_unsharp at ksize 33, 37 and 101 (km 3 and 5; the median ->
+   sep_conv_u8 chain) against its plain version at 0 LSB on phase 10's
+   shapes, each also misaligned, and at 2x2160x3840 (exactly one median and
+   one sep_conv_u8 launch) and times it beside the fused kernel at ksize
+   31; runs every function of this slice (morphology_ex's seven ops at rect
+   3 and 15 and ellipse 15, erode/dilate with iterations 2, filter2d with an
+   integer 3x3, a float 5x5 and a float 15x15 kernel, pyr_down, pyr_up,
+   resize with every interpolation down to 1080x1920 and up to 4320x7680,
+   the general area downscale to 1000x1800, flip, rotate, transpose, Canny
+   at apertures 3/5/7 L1 and L2, connected components at connectivity 4
+   and 8 on a thresholded plane, match_template with a 32x32 template and
+   every method, add_weighted, integral with sq off and on,
+   apply_color_map, calc_back_project; u8, and u16/i16/f32 where they take
+   them; 121 calls) on 2x2160x3840 with counters of its own
+   (calc_back_project exactly one apply_lut256, the rest none), holds the
+   first plane, or a 1080x1920 corner on both devices where the CPU is
+   slow, against the plain path on the CPU (0, except match_template at
+   3e-6 of the largest value and f32 integrals at one f32 ulp: the f64
+   scans sum in another order on each device) and times each back to back;
+   then drives the inspection chain (make_pipeline resize area 1080x1920 ->
+   morphology tophat 15 -> canny 50/150, then connected_components 8) on
+   2x2160x3840 u8 with counters of its own (no kernel), the first plane
+   card against CPU at 0, prints the hysteresis steps, times it back to
+   back and splits its device time by torch kernel under torch.profiler.
+13. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -1240,6 +1265,239 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
             for us, n, name in rows[:12]:
                 print(f"    {us:9.2f} us per call  {100 * us / busy:5.1f} %  x{n:g}  {name[:100]}")
     return {"sep_conv_u8": launches}
+
+
+# the inspection chain of phase 12: an area downscale to 1080p, a white
+# top-hat of 15x15 (bright defects on a dark background), Canny, then the
+# edges' connected components
+def inspection_stages(oh: int, ow: int) -> list:
+    return [("resize", {"dsize": (oh, ow), "interpolation": "area"}),
+            ("morphology", {"op": "tophat", "ksize": 15}),
+            ("canny", {"threshold1": 50.0, "threshold2": 150.0})]
+
+
+def geometry_and_inspection(port, dev, smi, on_card, misaligned, check, drive) -> None:
+    """Phase 12: median_unsharp past 31 taps (the median -> sep_conv_u8
+    chain) against its plain version; every function of this slice on
+    2x2160x3840 (u8, and u16/i16/f32 where it takes them) card against CPU,
+    each with counters of its own (calc_back_project: one apply_lut256;
+    the rest: no kernel), timed; the inspection chain through make_pipeline
+    and connected_components, card against CPU, timed back to back and split
+    by torch kernel under torch.profiler."""
+    from imageenhancement_mp_tpu_torch.kernels import fused as kfused
+    from imageenhancement_mp_tpu_torch.ops import canny as tcanny
+    from imageenhancement_mp_tpu_torch.ops.morphology import MORPH_OPS
+    from imageenhancement_mp_tpu_torch.ops.resize import INTERPOLATIONS
+    from imageenhancement_mp_tpu_torch.ops.template import METHODS
+
+    rng = np.random.default_rng(12)
+    shape4 = (2, 2160, 3840)
+    crop = (1080, 1920)  # where the CPU is slow: both devices run this corner
+
+    # -- median_unsharp past 31 taps: the chain route, against the plain version
+    n_p6 = 0
+    fused_shapes = [(2, 64, 131), (1, 37, 131), (1, 1, 1), (1, 2, 3), (2, 4, 131), (3, 5, 9),
+                    (1, 70, 3), (1, 1079, 1917)]
+    for shape in fused_shapes:
+        x = on_card(rng.integers(0, 256, shape, dtype=np.uint8))
+        for xx in (x, misaligned(x)):
+            for km in (3, 5):
+                for ksize, amount in ((33, 1.0), (37, -0.5), (101, 1.5)):
+                    check("median_unsharp", kfused.median_unsharp(xx, km, amount, ksize),
+                          kfused.median_unsharp_plain(xx, km, amount, ksize),
+                          f"{tuple(xx.shape)} offset {xx.storage_offset()} km={km} ksize={ksize}")
+                    n_p6 += 1
+    g4 = on_card(rng.integers(0, 256, shape4, dtype=np.uint8))
+    for km in (3, 5):
+        for ksize in (33, 37, 101):
+            label = f"median_unsharp({km}, 1.0, {ksize}) {'x'.join(map(str, shape4))} u8"
+            out, _ = drive(label, lambda: kfused.median_unsharp(g4, km, 1.0, ksize),
+                           {"median": 1, "sep_conv_u8": 1})
+            check("median_unsharp", out, kfused.median_unsharp_plain(g4, km, 1.0, ksize), label)
+            n_p6 += 1
+    print(f"median_unsharp past 31 taps (median -> sep_conv_u8) vs plain on the card: 0 LSB over "
+          f"{n_p6} cases (ksize 33, 37, 101; km 3 and 5; phase 10's shapes, offset 0 and 1, "
+          f"{shape4})")
+    for km, ksize in ((5, 31), (5, 33), (5, 101)):
+        k_ms, k_iqr = time_ms(lambda: kfused.median_unsharp(g4, km, 1.0, ksize))
+        route = "fused kernel" if ksize <= kfused.FUSED_MAX_TAPS else "median -> sep_conv_u8"
+        print(f"  median_unsharp({km}, 1.0, {ksize}) at {shape4} ({route}): {k_ms:.4f} ms "
+              f"(IQR {k_iqr:.4f})  [{smi}]")
+    del g4
+
+    # -- every function of this slice, card against CPU
+    u8, u16, i16, f32 = torch.uint8, torch.uint16, torch.int16, torch.float32
+    smooth = noisy((shape4[0],), shape4[1], shape4[2], (), 120, 10.0)
+    host = {u8: rng.integers(0, 256, shape4, dtype=np.uint8),
+            u16: rng.integers(0, 65536, shape4).astype(np.uint16),
+            i16: rng.integers(-32768, 32768, shape4).astype(np.int16),
+            f32: (rng.random(shape4, dtype=np.float32) * 500 - 100).astype(np.float32),
+            "smooth": smooth, "mask": (smooth > 128).astype(np.uint8)}
+    templ = smooth[0, 700:732, 1200:1232].copy()
+    ell15 = port.get_structuring_element("ellipse", 15)
+    sharpen = np.array([[0, -1, 0], [-1, 5, -1], [0, -1, 0]], np.float64)
+    float5 = rng.normal(size=(5, 5))
+    float15 = rng.normal(size=(15, 15)) * 0.05
+    hist = rng.random(32) * 400
+
+    def rs(interp, fy, fx):
+        """resize to a size relative to the input's, so a crop keeps the route"""
+        return lambda x: port.resize(x, (x.shape[-2] * fy[0] // fy[1],
+                                         x.shape[-1] * fx[0] // fx[1]), interp, channels_last=False)
+
+    # (label, input, call, launches, CPU part: "plane" or "crop", limit); the
+    # limit is 0 except for match_template (relative) and the f32 integrals
+    calls = []
+    for op in MORPH_OPS:
+        calls += [(f"morphology_ex {op} rect 3", u8, lambda x, op=op: port.morphology_ex(
+                       x, op, 3, channels_last=False), "plane"),
+                  (f"morphology_ex {op} rect 15", u8, lambda x, op=op: port.morphology_ex(
+                       x, op, 15, channels_last=False), "crop"),
+                  (f"morphology_ex {op} ellipse 15", u8, lambda x, op=op: port.morphology_ex(
+                       x, op, kernel=ell15, channels_last=False), "crop")]
+    calls += [("erode rect 3 iterations 2", dt, lambda x: port.erode(x, 3, 2, channels_last=False),
+               "plane") for dt in (u8, u16, i16, f32)]
+    calls += [("dilate (4, 7) iterations 2", u8,
+               lambda x: port.dilate(x, (4, 7), 2, channels_last=False), "plane"),
+              ("morphology_ex tophat rect 15", u16, lambda x: port.morphology_ex(
+                  x, "tophat", 15, channels_last=False), "crop"),
+              ("morphology_ex blackhat ellipse 15", i16, lambda x: port.morphology_ex(
+                  x, "blackhat", kernel=ell15, channels_last=False), "crop"),
+              ("morphology_ex gradient rect 3", f32, lambda x: port.morphology_ex(
+                  x, "gradient", 3, channels_last=False), "plane")]
+    for dt in (u8, u16, i16, f32):
+        calls += [("filter2d integer 3x3 delta 2.5", dt, lambda x: port.filter2d(
+                       x, sharpen, 2.5, channels_last=False), "plane"),
+                  ("filter2d float 5x5", dt, lambda x: port.filter2d(x, float5, -1.5,
+                                                                     channels_last=False), "crop"),
+                  ("pyr_down", dt, lambda x: port.pyr_down(x, channels_last=False), "plane"),
+                  ("pyr_up", dt, lambda x: port.pyr_up(x, channels_last=False), "crop"),
+                  ("flip 0", dt, lambda x: port.flip(x, 0, channels_last=False), "plane"),
+                  ("flip -1", dt, lambda x: port.flip(x, -1, channels_last=False), "plane"),
+                  ("rotate 90cw", dt, lambda x: port.rotate(x, "90cw", channels_last=False),
+                   "plane"),
+                  ("rotate 180", dt, lambda x: port.rotate(x, "180", channels_last=False), "plane"),
+                  ("transpose", dt, lambda x: port.transpose(x, channels_last=False), "plane"),
+                  ("resize area general (1000/2160, 1800/3840)", dt, rs("area", (25, 54), (15, 32)),
+                   "crop"),
+                  ("add_weighted 0.7, -0.35, 9.5", dt, lambda x: port.add_weighted(
+                      x, 0.7, torch.cat([x[..., 1:], x[..., :1]], -1), -0.35, 9.5), "plane"),
+                  ("integral", dt, lambda x: port.integral(x, channels_last=False), "plane"),
+                  ("integral sq", dt, lambda x: port.integral(x, True, channels_last=False)[1],
+                   "plane")]
+        for interp in ("linear", "cubic", "lanczos4"):
+            if dt != u8:
+                calls.append((f"resize {interp} down 1/2", dt, rs(interp, (1, 2), (1, 2)), "crop"))
+    calls += [("filter2d float 15x15", dt, lambda x: port.filter2d(x, float15, 0.0,
+                                                                   channels_last=False), "crop")
+              for dt in (u8, f32)]
+    for interp in INTERPOLATIONS:
+        calls += [(f"resize {interp} down to 1080x1920", u8, rs(interp, (1, 2), (1, 2)), "crop"),
+                  (f"resize {interp} up to 4320x7680", u8, rs(interp, (2, 1), (2, 1)), "crop")]
+    for ap in (3, 5, 7):
+        for l2 in (False, True):
+            calls.append((f"canny aperture {ap} {'L2' if l2 else 'L1'}", "smooth",
+                          lambda x, ap=ap, l2=l2: port.canny(x, 50.0, 150.0, ap, l2,
+                                                             channels_last=False), "crop"))
+    calls += [(f"connected_components connectivity {c}", "mask",
+               lambda x, c=c: port.connected_components(x, c, channels_last=False), "crop")
+              for c in (4, 8)]
+    calls += [(f"match_template 32x32 {m}", "smooth", lambda x, m=m: port.match_template(
+                  x, templ, m, channels_last=False), "crop") for m in METHODS]
+    calls += [(f"match_template 32x32 ccoeff_normed", dt, lambda x: port.match_template(
+                  x, templ, "ccoeff_normed", channels_last=False), "crop") for dt in (u16, f32)]
+    calls += [(f"apply_color_map {c}", u8, lambda x, c=c: port.apply_color_map(
+                  x, c, channels_last=False), "plane") for c in ("jet", "turbo")]
+    calls += [("calc_back_project 32 bins scale 0.6", u8, lambda x: port.calc_back_project(
+                  x, hist, 0.6, channels_last=False), "plane")]
+
+    t0, rows = time.perf_counter(), []
+    for label, key, fn, part in calls:
+        x = torch.from_numpy(host[key])
+        dname = key if isinstance(key, str) else str(key).replace("torch.", "")
+        name = f"{label} {dname} {'x'.join(map(str, shape4))}"
+        expect = {"apply_lut256": 1} if label.startswith("calc_back_project") else {}
+        g = x.to(dev)
+        out = drive(name, lambda: fn(g), expect)[0]
+        if out.device != dev or out.numel() == 0:
+            raise AssertionError(f"{name}: output on {out.device}, {tuple(out.shape)}")
+        cpu_in = x[:1] if part == "plane" else x[:1, :crop[0], :crop[1]].contiguous()
+        got = (out[:1] if part == "plane" else fn(cpu_in.to(dev))).cpu()
+        want = fn(cpu_in)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: card {tuple(got.shape)} {got.dtype}, CPU "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        diff = (got.double() - want.double()).abs()
+        e, scale = float(diff.max()), float(want.double().abs().max())
+        ndiff = int((diff > 0).sum())
+        if label.startswith("match_template"):
+            ok, limit = e <= 3e-6 * max(scale, 1e-30), f"3e-6 of {scale:.4g}"
+        elif label.startswith("integral") and want.dtype == torch.float32:
+            # f64 sums in another order (torch's scans differ by device),
+            # each cast once: at most one f32 ulp apart
+            ulp = torch.finfo(torch.float32).eps * want.double().abs()
+            ok, limit = bool((diff <= ulp).all()), "1 f32 ulp"
+        else:
+            ok, limit = e == 0, "0"
+        if not ok:
+            raise AssertionError(f"{name}: card vs CPU max abs err {e} ({ndiff} values) over "
+                                 f"the limit {limit}")
+        ms_, _ = time_ms(lambda: fn(g), 5, 2)
+        rows.append((name, ms_, e, ndiff, limit, part))
+        del out, got, want, g
+    print(f"phase 12's functions on the card vs the CPU: within their limits over {len(calls)} "
+          f"calls ({time.perf_counter() - t0:.1f} s)")
+    for name, ms_, e, ndiff, limit, part in rows:
+        where = "first plane" if part == "plane" else f"{crop[0]}x{crop[1]} crop"
+        print(f"  {name}: {ms_:.4f} ms back to back; vs CPU ({where}) max abs err {e:g} "
+              f"({ndiff} values, limit {limit})  [{smi}]")
+
+    # -- the inspection chain through make_pipeline, then connected components
+    oh, ow = shape4[1] // 2, shape4[2] // 2
+    pipe = port.make_pipeline(inspection_stages(oh, ow))
+    xh = noisy((shape4[0],), shape4[1], shape4[2], (), 121, 10.0)
+    g = on_card(xh)
+
+    def chain(x):
+        return port.connected_components(pipe(x), 8, channels_last=False)
+
+    label = (f"inspection chain (resize area {oh}x{ow} -> tophat 15 -> canny 50/150 -> "
+             f"connected_components 8) {'x'.join(map(str, shape4))} u8")
+    labels, _ = drive(label, lambda: chain(g), {})
+    edges = pipe(g)
+    if labels.shape != (shape4[0], oh, ow) or labels.dtype != torch.int32 or not bool(edges.any()):
+        raise AssertionError(f"{label}: {tuple(labels.shape)} {labels.dtype}, or no edges")
+    cpu_labels = chain(torch.from_numpy(xh[:1]))
+    e = max_err(labels[:1].cpu(), cpu_labels)
+    tophat = port.morphology_ex(port.resize(g, (oh, ow), "area", channels_last=False),
+                                "tophat", 15, channels_last=False)
+    _, steps = tcanny.hysteresis(*tcanny.canny_candidates(tophat, 50.0, 150.0))
+    print(f"{label}: first plane card vs the plain path on the CPU, max abs err {e}; "
+          f"{int(edges.sum()) // 255} edge pixels, {int(labels[0].amax())} components in "
+          f"plane 0 and {int(labels[1:].amax())} in plane 1; Canny's hysteresis ran {steps} "
+          f"steps (checked every {tcanny.CHECK_EVERY})")
+    if e:
+        raise AssertionError(f"{label}: the card differs from the CPU")
+    b_ms, b_iqr = time_ms(lambda: chain(g))
+    busy, wall, krows = device_split(lambda: chain(g))
+    gpix = g.numel() / 1e9
+    print(f"{label}: back to back {b_ms:.4f} ms (IQR {b_iqr:.4f}) = {gpix / (b_ms / 1e3):.3f} "
+          f"GPix/s of input; under torch.profiler {busy:.2f} us of device time per call in "
+          f"{wall:.2f} us of wall ({100 * busy / wall:.1f} % busy)  [{smi}]")
+    for us, n, name in krows[:15]:
+        print(f"    {us:9.2f} us per call  {100 * us / busy:5.1f} %  x{n:g}  {name[:100]}")
+    small = port.resize(g, (oh, ow), "area", channels_last=False)
+    for stage, fn in (("resize area", lambda: port.resize(g, (oh, ow), "area",
+                                                          channels_last=False)),
+                      ("morphology tophat 15", lambda: port.morphology_ex(
+                          small, "tophat", 15, channels_last=False)),
+                      ("canny 50/150", lambda: port.canny(tophat, 50.0, 150.0,
+                                                          channels_last=False)),
+                      ("connected_components 8", lambda: port.connected_components(
+                          edges, 8, channels_last=False))):
+        s_ms, s_iqr = time_ms(fn, 10, 2)
+        print(f"  inspection chain stage {stage}: {s_ms:.4f} ms back to back (IQR {s_iqr:.4f})"
+              f"  [{smi}]")
 
 
 def main() -> None:
@@ -2516,6 +2774,10 @@ def main() -> None:
     # -- 11. the filters, sep_conv_u8's wide instance and config 3 ------------
     config3_launches = filters_and_config3(port, dev, smi, on_card, misaligned, check, drive)
     print(f"config 3's four paths launched sep_conv_u8 {config3_launches['sep_conv_u8']} times")
+
+    # -- 12. morphology, filter2D, pyramids, resize, Canny, matching, the
+    # point functions; median_unsharp past 31 taps; the inspection chain
+    geometry_and_inspection(port, dev, smi, on_card, misaligned, check, drive)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -19,14 +19,20 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels.hist import hist256
 from imageenhancement_mp_tpu_torch.ops import pointwise
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
+from imageenhancement_mp_tpu_torch.ops.canny import canny_planes, connected_components_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
 from imageenhancement_mp_tpu_torch.ops import filters
+from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes, histogram_256)
 from imageenhancement_mp_tpu_torch.ops import color
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops import morphology
 from imageenhancement_mp_tpu_torch.ops.nlmeans import (fast_nl_means_multi_vec,
                                                        fast_nl_means_u16_vec, fast_nl_means_vec)
+from imageenhancement_mp_tpu_torch.ops.pyramid import pyr_down_planes, pyr_up_planes
+from imageenhancement_mp_tpu_torch.ops import resize as rs
+from imageenhancement_mp_tpu_torch.ops.template import match_template_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
@@ -34,6 +40,8 @@ from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_plan
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
 from imageenhancement_mp_tpu_torch.utils import warp_coords
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
+from imageenhancement_mp_tpu_torch.utils.structuring import (get_structuring_element as
+                                                             _structuring_element)
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch",
@@ -46,7 +54,10 @@ __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch
            "get_affine_transform", "get_perspective_transform", "init_undistort_rectify_map",
            "cvt_color", "cvt_gray", "equalize_luma", "clahe_lab", "fast_nl_means_denoising",
            "fast_nl_means_denoising_colored", "fast_nl_means_denoising_multi",
-           "fast_nl_means_denoising_colored_multi"]
+           "fast_nl_means_denoising_colored_multi", "add_weighted", "integral", "apply_color_map",
+           "calc_back_project", "filter2d", "sep_filter2d", "pyr_down", "pyr_up", "resize",
+           "flip", "rotate", "transpose", "canny", "connected_components", "erode", "dilate",
+           "morphology_ex", "get_structuring_element", "match_template"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -633,3 +644,176 @@ def fast_nl_means_denoising_colored_multi(frames, img_to_denoise_index: int,
     L = fast_nl_means_multi_vec(lab[..., :1], float(h), t, s)
     ab = fast_nl_means_multi_vec(lab[..., 1:3], float(h_color), t, s)
     return color.lab_to_rgb_nhwc(torch.cat([L, ab], dim=-1)[0], order, srgb=False)
+
+
+# -- point ops, geometry, edges, morphology and matching (the rest of the JAX
+# package's OP_REGISTRY and its four point functions): plain PyTorch on the
+# input's device, calc_back_project through apply_lut256
+
+def _run(fn, img: torch.Tensor, channels_last: bool, **kwargs) -> torch.Tensor:
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(fn(planes, **kwargs))
+
+
+def add_weighted(src1: torch.Tensor, alpha: float, src2: torch.Tensor, beta: float,
+                 gamma: float = 0.0) -> torch.Tensor:
+    """``cv2.addWeighted(src1, α, src2, β, γ)`` — exact for u8/u16/i16
+    (cvRound + saturate) and bit-identical f32 (cv2's two-FMA chain).
+    Elementwise: both inputs share any accepted shape."""
+    _check_image_dtype(src1, allow_i16=True)
+    return pointwise.add_weighted_arrays(src1, float(alpha), src2, float(beta), float(gamma))
+
+
+def integral(img: torch.Tensor, sq: bool = False, channels_last: bool = True):
+    """``cv2.integral`` / ``cv2.integral2`` per plane — ``[B, H+1, W+1]`` in
+    canonical plane order.  u8 exact int32; u16/i16/f32 f32 sums, summed in
+    f64 and cast once (u16/i16 equal the f64 oracle's f32 value)."""
+    _check_image_dtype(img, allow_i16=True)
+    planes, _ = as_planes(img, channels_last=channels_last)
+    return pointwise.integral_planes(planes, bool(sq))
+
+
+def apply_color_map(img: torch.Tensor, colormap: str = "jet",
+                    channels_last: bool = True) -> torch.Tensor:
+    """``cv2.applyColorMap`` — u8 gray → ``[B, H, W, 3]`` RGB through cv2's
+    tables (``utils/colormaps.py`` lists the 22 names).  Returns RGB (cv2
+    returns BGR)."""
+    _check_u8(img)
+    planes, _ = as_planes(img, channels_last=channels_last)
+    return pointwise.apply_color_map_planes(planes, str(colormap))
+
+
+def calc_back_project(img: torch.Tensor, hist, scale: float = 1.0,
+                      channels_last: bool = True) -> torch.Tensor:
+    """``cv2.calcBackProject([img],[0],hist,[0,256],scale)`` — exact folded
+    LUT gather (u8; any bin count), one ``apply_lut256`` on CUDA."""
+    _check_u8(img)
+    return _run(pointwise.calc_back_project_planes, img, channels_last, hist=hist,
+                scale=float(scale))
+
+
+def filter2d(img: torch.Tensor, kernel, delta: float = 0.0,
+             channels_last: bool = True) -> torch.Tensor:
+    """``cv2.filter2D(img, -1, kernel, delta=δ)`` — custom-kernel correlation
+    (anchor kh//2, REFLECT_101), kernels ≤ 15×15.  Integer-valued kernels
+    are exact on every dtype; float kernels on integer images sum in f64,
+    exact against the f64 oracle; f32 images sum in f32."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(filter2d_planes, img, channels_last, kernel=kernel, delta=float(delta))
+
+
+def sep_filter2d(img: torch.Tensor, kernel_x, kernel_y, delta: float = 0.0,
+                 channels_last: bool = True) -> torch.Tensor:
+    """``cv2.sepFilter2D(img, -1, kx, ky, delta)`` — ``filter2d`` with the
+    outer product ``ky ⊗ kx``, as the JAX package composes it."""
+    kx = np.asarray(kernel_x, np.float64).ravel()
+    ky = np.asarray(kernel_y, np.float64).ravel()
+    return filter2d(img, np.outer(ky, kx), delta, channels_last)
+
+
+def pyr_down(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.pyrDown``: REFLECT_101 [1,4,6,4,1] blur + 2× decimation →
+    ``ceil(H/2) × ceil(W/2)`` (exact u8/u16/i16; f32 in f32)."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(pyr_down_planes, img, channels_last)
+
+
+def pyr_up(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.pyrUp``: 2× zero-stuff + [1,4,6,4,1] blur → ``2H × 2W`` (exact
+    u8/u16/i16; f32 in f32)."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(pyr_up_planes, img, channels_last)
+
+
+def resize(img: torch.Tensor, dsize, interpolation: str = "linear",
+           channels_last: bool = True) -> torch.Tensor:
+    """``cv2.resize(img, (ow, oh), interpolation)`` — ``dsize`` is
+    ``(oh, ow)``, row-major.  ``interpolation``: nearest, linear (u8
+    bit-exact fixed point; u16/i16/f32 cv2's f32 path), cubic, lanczos4
+    (u8 exact integer sums) or area (integer factors exact, the 2×2 half-up
+    path included; the general downscale in f64)."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(rs.resize_planes, img, channels_last, dsize=(int(dsize[0]), int(dsize[1])),
+                interpolation=str(interpolation))
+
+
+def flip(img: torch.Tensor, code: int = 0, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.flip``: 0 = vertical (rows), positive = horizontal (cols),
+    negative = both — exact, any dtype."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(rs.flip_planes, img, channels_last, code=int(code))
+
+
+def rotate(img: torch.Tensor, code: str = "90cw", channels_last: bool = True) -> torch.Tensor:
+    """``cv2.rotate``: ``90cw`` | ``180`` | ``90ccw`` — exact."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(rs.rotate_planes, img, channels_last, code=str(code))
+
+
+def transpose(img: torch.Tensor, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.transpose`` — exact."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(rs.transpose_planes, img, channels_last)
+
+
+def canny(img: torch.Tensor, threshold1: float, threshold2: float, aperture_size: int = 3,
+          l2_gradient: bool = False, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.Canny`` — bit-exact, L1/L2 × aperture 3/5/7; uint8 input only,
+    like cv2; 0/255 uint8 edges.  Replicate-border Sobel, cv2's fixed-point
+    NMS, 8-connected hysteresis (a fixpoint on the device)."""
+    _check_u8(img)
+    return _run(canny_planes, img, channels_last, threshold1=float(threshold1),
+                threshold2=float(threshold2), aperture_size=int(aperture_size),
+                l2_gradient=bool(l2_gradient))
+
+
+def connected_components(img: torch.Tensor, connectivity: int = 8,
+                         channels_last: bool = True) -> torch.Tensor:
+    """``cv2.connectedComponents`` — int32 labels (0 = background), numbered
+    as cv2 numbers them for both connectivities (4: first-pixel raster
+    order; 8: cv2's BBDT first-2×2-block order)."""
+    _check_u8(img)
+    return _run(connected_components_planes, img, channels_last,
+                connectivity=int(connectivity))
+
+
+def erode(img: torch.Tensor, ksize=3, iterations: int = 1, kernel=None,
+          channels_last: bool = True) -> torch.Tensor:
+    """``cv2.erode`` — exact min filter; rect ``ksize`` (int or (rows,
+    cols), even allowed) or an arbitrary 0/1 ``kernel`` mask (see
+    ``get_structuring_element``).  u8/u16/i16/f32."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(morphology.erode_planes, img, channels_last, ksize=ksize,
+                iterations=int(iterations), kernel=kernel)
+
+
+def dilate(img: torch.Tensor, ksize=3, iterations: int = 1, kernel=None,
+           channels_last: bool = True) -> torch.Tensor:
+    """``cv2.dilate`` — exact max filter (see ``erode``)."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(morphology.dilate_planes, img, channels_last, ksize=ksize,
+                iterations=int(iterations), kernel=kernel)
+
+
+def morphology_ex(img: torch.Tensor, op: str = "open", ksize=3, iterations: int = 1,
+                  kernel=None, channels_last: bool = True) -> torch.Tensor:
+    """``cv2.morphologyEx`` — exact: erode | dilate | open | close |
+    gradient | tophat | blackhat; rect or arbitrary 0/1 kernels."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(morphology.morphology_planes, img, channels_last, op=str(op), ksize=ksize,
+                iterations=int(iterations), kernel=kernel)
+
+
+def get_structuring_element(shape: str, ksize) -> np.ndarray:
+    """``cv2.getStructuringElement`` (host helper, bit-exact): rect |
+    ellipse | cross; ``ksize`` = (rows, cols)."""
+    return _structuring_element(shape, ksize)
+
+
+def match_template(img: torch.Tensor, templ, method: str = "ccoeff_normed",
+                   channels_last: bool = True) -> torch.Tensor:
+    """``cv2.matchTemplate`` — f32 result ``(H-th+1, W-tw+1)`` per plane, the
+    six methods in f64 and cast once (within 3e-6 relative of cv2; the
+    SQDIFF_NORMED [0, 1] clamp)."""
+    _check_image_dtype(img, allow_i16=True)
+    return _run(match_template_planes, img, channels_last, templ=templ, method=str(method))

@@ -10,6 +10,14 @@ median stage runs the schedules of
 :func:`median_unsharp_plain` is the same function in plain PyTorch: the
 median's and the conv's plain versions one after the other.
 
+The route is chosen by ksize, as ``kernels/conv.py::conv_route`` chooses
+one: up to :data:`FUSED_MAX_TAPS` taps the fused kernel, which takes its
+taps by value; past them the chain of two hand kernels, ``median`` then
+``sep_conv_u8``'s wide instance, which is exactly what the plain version
+computes (a halo of ``ksize//2 + 2`` rows, 270 at 541 taps, fits no tile of
+the fused kernel).  Nothing is caught: a failed launch raises on either
+route.
+
 The law (the JAX kernel's, ``kernels/fused.py:1-20``): the median takes a
 replicate border; the Q8 Gaussian runs over the *median values* with a
 REFLECT_101 border; the epilogue is ``sep_conv_u8``'s two single-rounded
@@ -24,17 +32,20 @@ import torch
 
 from imageenhancement_mp_tpu_torch.kernels import check_kernel_input, on_cuda
 from imageenhancement_mp_tpu_torch.kernels._build import launch
-from imageenhancement_mp_tpu_torch.kernels.conv import sep_conv_u8_plain, unsharp_weights
-from imageenhancement_mp_tpu_torch.kernels.median import median_blur_plain
+from imageenhancement_mp_tpu_torch.kernels.conv import (sep_conv_u8, sep_conv_u8_plain,
+                                                       unsharp_weights)
+from imageenhancement_mp_tpu_torch.kernels.median import median_blur, median_blur_plain
 from imageenhancement_mp_tpu_torch.utils.taps import gaussian_kernel_fixed
 
-__all__ = ["median_unsharp", "median_unsharp_plain", "fused_taps"]
+__all__ = ["FUSED_MAX_TAPS", "median_unsharp", "median_unsharp_plain", "fused_taps"]
+
+FUSED_MAX_TAPS = 31  # the most taps csrc/fused.cu takes (by value); more run the chain
 
 
 def fused_taps(ksize: int) -> tuple[int, ...]:
-    """cv2's Q8 taps of an odd ``ksize`` ≤ 31 at σ = 0, on both axes."""
-    if ksize % 2 == 0 or not 1 <= ksize <= 31:
-        raise ValueError(f"median_unsharp: odd ksize 1..31 expected, got {ksize}")
+    """cv2's Q8 taps of an odd ``ksize`` ≥ 1 at σ = 0, on both axes."""
+    if ksize % 2 == 0 or ksize < 1:
+        raise ValueError(f"median_unsharp: odd ksize >= 1 expected, got {ksize}")
     return tuple(int(t) for t in gaussian_kernel_fixed(ksize))
 
 
@@ -57,12 +68,15 @@ def median_unsharp_plain(planes: torch.Tensor, median_ksize: int = 5, amount: fl
 def median_unsharp(planes: torch.Tensor, median_ksize: int = 5, amount: float = 1.0,
                    ksize: int = 5) -> torch.Tensor:
     """``unsharp_mask(median_blur(planes, median_ksize), amount, ksize)`` on
-    ``[B, H, W]`` u8 planes at σ = 0, exact, in one pass over the planes."""
+    ``[B, H, W]`` u8 planes at σ = 0, exact, any odd ksize: in one pass over
+    the planes up to :data:`FUSED_MAX_TAPS` taps, in two past them."""
     median_ksize, ksize = int(median_ksize), int(ksize)
     _check(planes, median_ksize)
     taps = fused_taps(ksize)
     if not on_cuda(planes, "median_unsharp"):
         return median_unsharp_plain(planes, median_ksize, amount, ksize)
+    if len(taps) > FUSED_MAX_TAPS:
+        return sep_conv_u8(median_blur(planes, median_ksize), taps, taps, float(amount))
     check_kernel_input("median_unsharp", planes)
     B, H, W = planes.shape
     out = torch.empty_like(planes)

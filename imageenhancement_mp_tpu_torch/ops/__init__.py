@@ -1,16 +1,16 @@
 """Planes-level ops ``[B, H, W]``: the port's counterparts of
-the JAX package's ``ops`` for the ported slices.
+the JAX package's ``ops``.
 
-``OP_REGISTRY`` maps the JAX registry's names (ops/__init__.py:53-94) to the
-ported ops.  Looking up a name the JAX registry has but the port does not
-yet raises ``NotImplementedError`` naming its ROADMAP Queue 1 item; an
-unknown name raises ``KeyError``.
+``OP_REGISTRY`` maps every name of the JAX registry (ops/__init__.py:53-94)
+to its ported op; an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
 
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_planes
+from imageenhancement_mp_tpu_torch.ops.canny import canny_planes, connected_components_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
+from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.filters import (box_blur_planes, box_filter_planes,
                                                       corner_harris_planes,
                                                       corner_min_eigen_val_planes,
@@ -20,35 +20,25 @@ from imageenhancement_mp_tpu_torch.ops.filters import (box_blur_planes, box_filt
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes)
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
+from imageenhancement_mp_tpu_torch.ops.morphology import (dilate_planes, erode_planes,
+                                                          morphology_planes)
 from imageenhancement_mp_tpu_torch.ops.nlmeans import fast_nl_means_planes
-from imageenhancement_mp_tpu_torch.ops.pointwise import (contrast_stretch_planes,
+from imageenhancement_mp_tpu_torch.ops.pointwise import (calc_back_project_planes,
+                                                         contrast_stretch_planes,
                                                          convert_scale_abs_planes, gamma_planes,
                                                          log_planes)
+from imageenhancement_mp_tpu_torch.ops.pyramid import pyr_down_planes, pyr_up_planes
+from imageenhancement_mp_tpu_torch.ops.resize import (flip_planes, resize_planes, rotate_planes,
+                                                      transpose_planes)
+from imageenhancement_mp_tpu_torch.ops.template import match_template_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
                                                     warp_polar_planes)
 
-__all__ = ["OP_REGISTRY", "LATER"]
+__all__ = ["OP_REGISTRY"]
 
-# the JAX registry's names not ported yet -> their ROADMAP Queue 1 item
-LATER = {
-    "calc_back_project": 6,
-    **dict.fromkeys((
-        "erode", "dilate", "morphology", "filter2d", "pyr_down", "pyr_up", "resize", "flip",
-        "rotate", "transpose", "canny", "connected_components", "match_template"), "10b"),
-}
-
-
-class _Registry(dict):
-    def __missing__(self, name):
-        if name in LATER:
-            raise NotImplementedError(
-                f"op {name!r} is not ported yet: ROADMAP Queue 1 item {LATER[name]}")
-        raise KeyError(f"unknown op {name!r}; available: {sorted(self)}")
-
-
-OP_REGISTRY = _Registry(
+OP_REGISTRY = dict(
     gamma=gamma_planes,
     log_transform=log_planes,
     contrast_stretch=contrast_stretch_planes,
@@ -75,4 +65,18 @@ OP_REGISTRY = _Registry(
     remap=remap_planes,
     undistort=undistort_planes,
     fast_nl_means=fast_nl_means_planes,
+    calc_back_project=calc_back_project_planes,
+    erode=erode_planes,
+    dilate=dilate_planes,
+    morphology=morphology_planes,
+    filter2d=filter2d_planes,
+    pyr_down=pyr_down_planes,
+    pyr_up=pyr_up_planes,
+    resize=resize_planes,
+    flip=flip_planes,
+    rotate=rotate_planes,
+    transpose=transpose_planes,
+    canny=canny_planes,
+    connected_components=connected_components_planes,
+    match_template=match_template_planes,
 )

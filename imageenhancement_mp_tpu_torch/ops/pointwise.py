@@ -1,7 +1,8 @@
-"""Point ops: ``cv2.LUT``, gamma and log transforms, ``cv2.normalize(MINMAX)``
-and ``cv2.convertScaleAbs``.
+"""Point ops: ``cv2.LUT``, gamma and log transforms, ``cv2.normalize(MINMAX)``,
+``cv2.convertScaleAbs``, ``cv2.addWeighted``, ``cv2.integral``/``integral2``,
+``cv2.applyColorMap`` and ``cv2.calcBackProject``.
 
-The counterpart of the JAX package's ``ops/pointwise.py`` (:34-241).  u8
+The counterpart of the JAX package's ``ops/pointwise.py``, whole.  u8
 planes with a 256-entry table, of any table dtype, go through
 ``kernels/hist.py::apply_lut256``; u16 planes with 65536-entry tables and
 i16 planes are a plain torch gather on both devices, as the JAX package
@@ -9,7 +10,11 @@ keeps them in XLA.  The host tables (``utils/lut_tables.py``) are copied to
 a device once and kept there.  The stretch builds its tables on the device
 from each plane's minimum and maximum, with cv2's f64 scale and shift in
 native f64: the JAX package emulates that f64 with double-float tables
-(:155-166, :219-239) only because the TPU has none.
+(:155-166, :219-239) only because the TPU has none.  The integral images
+sum in f64 on the device for the same reason and cast once: the JAX
+package's f32 sums are its stand-in for cv2's f64.  ``calc_back_project``
+folds its bins, scale and rounding into one host f64 → u8 table and runs
+``apply_lut256``; ``apply_color_map`` is a ``[256, 3]`` table gather.
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ import torch
 
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256, take_rows
 from imageenhancement_mp_tpu_torch.utils import lut_tables
+from imageenhancement_mp_tpu_torch.utils.colormaps import colormap_table
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
+from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
 
 __all__ = ["apply_lut_planes", "gamma_planes", "log_planes", "convert_scale_abs_planes",
-           "contrast_stretch_planes", "stretch_luts_from_minmax"]
+           "contrast_stretch_planes", "stretch_luts_from_minmax", "add_weighted_arrays",
+           "integral_planes", "apply_color_map_planes", "calc_back_project_planes"]
 
 F32, F64 = torch.float32, torch.float64
 
@@ -161,3 +169,93 @@ def stretch_luts_from_minmax(lo: torch.Tensor, hi: torch.Tensor, a: float, b: fl
     lut = torch.round(val).clamp(minv, maxv).to(torch.int32)
     fill = int(round(max(min(a, float(maxv)), float(minv))))
     return torch.where((d == 0)[:, None], fill, lut).to(dtype)
+
+
+_DTYPES = (torch.uint8, torch.uint16, torch.int16, F32)
+
+
+def _check_dtype(x: torch.Tensor) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"expected uint8/uint16/int16/float32, got {x.dtype}")
+
+
+def add_weighted_arrays(src1: torch.Tensor, alpha: float, src2: torch.Tensor, beta: float,
+                        gamma: float = 0.0) -> torch.Tensor:
+    """``cv2.addWeighted(src1, α, src2, β, γ)`` — exact, all dtypes,
+    elementwise over any matching shapes.  cv2's two single-rounded f32 FMAs
+    ``f32(src1·f32(α) + f32(src2·f32(β) + f32(γ)))`` (``fma32``), then
+    cvRound (half to even) and saturation for integer dtypes; float32
+    returns the f32 accumulator unrounded."""
+    if src2.dtype != src1.dtype:
+        raise TypeError(f"src dtypes differ: {src1.dtype} vs {src2.dtype}")
+    if src2.shape != src1.shape:
+        raise ValueError(f"src shapes differ: {tuple(src1.shape)} vs {tuple(src2.shape)}")
+    if src2.device != src1.device:
+        raise ValueError(f"src devices differ: {src1.device} vs {src2.device}")
+    _check_dtype(src1)
+    al, be, ga = (torch.full((), float(np.float32(v)), dtype=F32, device=src1.device)
+                  for v in (alpha, beta, gamma))
+    acc = fma32(src1.to(F32), al, fma32(src2.to(F32), be, ga))
+    if src1.dtype == F32:
+        return acc
+    minv, maxv = int_bounds(src1.dtype)
+    return torch.round(acc).clamp(minv, maxv).to(torch.int32).to(src1.dtype)
+
+
+def _integral(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zero-padded ``[B, H+1, W+1]`` cumulative sums of ``x`` (int64 or f64)
+    cast once to ``dtype``."""
+    s = torch.nn.functional.pad(x.cumsum(-2).cumsum(-1), (1, 0, 1, 0))
+    return s.to(dtype)
+
+
+def integral_planes(planes: torch.Tensor, sq: bool = False):
+    """``cv2.integral``/``integral2`` per plane: ``[B, H+1, W+1]``
+    zero-padded cumulative sums.  u8 → int32, exact (int32 wraps as the JAX
+    package's int32 sums do past 2^31 − 1); u16/i16/f32 → f32, as the JAX
+    package returns them, summed in f64 on the device and cast once, so
+    u16/i16 equal ``f32(ref)``.  ``sq=True`` also returns the squared sums,
+    f32 for every dtype, made the same way."""
+    _check_dtype(planes)
+    if planes.dtype == torch.uint8:
+        s = _integral(planes.to(torch.int64), torch.int32)
+    else:
+        s = _integral(planes.to(F64), F32)
+    if not sq:
+        return s
+    p = planes.to(F64)
+    return s, _integral(p * p, F32)
+
+
+@functools.lru_cache(maxsize=64)
+def _colormap_device(name: str, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(colormap_table(name)).to(device)
+
+
+def apply_color_map_planes(planes: torch.Tensor, colormap: str = "jet") -> torch.Tensor:
+    """``cv2.applyColorMap`` per plane: ``[B, H, W]`` u8 → ``[B, H, W, 3]``
+    RGB through cv2's 256-entry table (bitwise)."""
+    if planes.dtype != torch.uint8:
+        raise TypeError("applyColorMap requires uint8 input")
+    tab = _colormap_device(str(colormap), planes.device)
+    return tab.index_select(0, planes.reshape(-1).to(torch.int64)).reshape(*planes.shape, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def _back_project_lut(hist: tuple, scale: float, device: torch.device) -> torch.Tensor:
+    """The 256-entry u8 table ``saturate(round(hist[v·bins/256]·scale))``,
+    built on the host in f64 and copied to ``device`` once."""
+    h = np.asarray(hist, np.float64)
+    idx = (np.arange(256, dtype=np.int64) * len(h)) // 256
+    lut = np.clip(np.round(h[idx] * scale), 0, 255).astype(np.uint8)
+    return torch.from_numpy(lut).to(device)
+
+
+def calc_back_project_planes(planes: torch.Tensor, hist, scale: float = 1.0) -> torch.Tensor:
+    """``cv2.calcBackProject`` per plane (u8, range [0, 256)) — exact: one
+    ``apply_lut256`` with the folded table (bin = v·bins/256, out =
+    saturate(round(hist[bin]·scale)))."""
+    if planes.dtype != torch.uint8:
+        raise TypeError("calcBackProject requires uint8 input")
+    h = tuple(float(v) for v in np.asarray(hist, np.float64).ravel())
+    return apply_lut256(planes.contiguous(), _back_project_lut(h, float(scale), planes.device))

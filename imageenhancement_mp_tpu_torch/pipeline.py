@@ -27,7 +27,7 @@ def _normalize_stages(stages: Sequence[Stage | str]) -> tuple:
     norm = []
     for s in stages:
         name, kwargs = (s, {}) if isinstance(s, str) else s
-        fn = OP_REGISTRY[name]  # KeyError, or NotImplementedError for a later item
+        fn = OP_REGISTRY[name]  # KeyError for an unknown name
         kwargs = dict(kwargs)
         if "backend" in kwargs:
             raise TypeError(f"stage {name!r}: the port's ops take no 'backend' argument")

@@ -1,8 +1,9 @@
 """K14: the fused median → Gaussian → unsharp (kernels/fused.py) — its plain
 version held to the JAX package's ``median_unsharp_pallas`` in interpret
 mode and to the ref/ chain at 0 LSB, planes smaller than the halos
-included; and its CUDA branch, driven on a CPU tensor with ``on_cuda`` and
-``launch`` stubbed."""
+included, ksize past 31 too; and its CUDA branch, driven on a CPU tensor
+with ``on_cuda`` and ``launch`` stubbed: the fused kernel up to 31 taps, the
+median → sep_conv_u8 chain past them."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,9 @@ import torch
 
 from imageenhancement_mp_tpu import ref
 from imageenhancement_mp_tpu.kernels.fused import median_unsharp_pallas
+from imageenhancement_mp_tpu_torch.kernels import conv as kconv
 from imageenhancement_mp_tpu_torch.kernels import fused as kfused
+from imageenhancement_mp_tpu_torch.kernels import median as kmedian
 from imageenhancement_mp_tpu_torch.ops.filters import unsharp_mask_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 
@@ -53,6 +56,19 @@ def test_median_unsharp_ksize_31_matches_ref_chain():
                                   _ref_chain(x, 5, 1.5, 31))
 
 
+@pytest.mark.parametrize("ksize", [33, 37])
+@pytest.mark.parametrize("km", [3, 5])
+def test_median_unsharp_past_31_taps_matches_pallas(km, ksize):
+    """A plane tall and wide enough for the JAX kernel's halos, so JAX takes
+    its Pallas path: H, W >= 2 (ksize//2 + km//2) + 2."""
+    x = _planes((1, 48, 80), 44)
+    amount = 1.0 if km == 5 else -0.5  # the interpret run takes 15-30 s a call
+    got = kfused.median_unsharp(torch.from_numpy(x), km, amount, ksize).numpy()
+    np.testing.assert_array_equal(got, np.asarray(median_unsharp_pallas(
+        x, km, amount, ksize, interpret=True)))
+    np.testing.assert_array_equal(got, _ref_chain(x, km, amount, ksize))
+
+
 def test_median_unsharp_rejects_what_it_does_not_take():
     x = torch.zeros((1, 8, 8), dtype=torch.uint8)
     with pytest.raises(TypeError):
@@ -61,9 +77,13 @@ def test_median_unsharp_rejects_what_it_does_not_take():
         kfused.median_unsharp(x[0])
     with pytest.raises(ValueError):
         kfused.median_unsharp(x, 7)
-    for ksize in (4, 33, -1):
+    for ksize in (4, -1):
         with pytest.raises(ValueError):
             kfused.median_unsharp(x, 5, 1.0, ksize)
+    # past 31 taps a result, equal to the ref/ chain
+    y = _planes((1, 8, 8), 45)
+    np.testing.assert_array_equal(kfused.median_unsharp(torch.from_numpy(y), 5, 1.0, 33).numpy(),
+                                  _ref_chain(y, 5, 1.0, 33))
     with pytest.raises(ValueError):
         kfused.median_unsharp(x.to("meta"))
 
@@ -90,3 +110,27 @@ def test_median_unsharp_cuda_branch(monkeypatch, km, amount, ksize):
     calls.clear()
     assert kfused.median_unsharp(torch.zeros((2, 0, 9), dtype=torch.uint8)).shape == (2, 0, 9)
     assert calls == []
+
+
+@pytest.mark.parametrize("km,ksize", [(5, 33), (3, 101)])
+def test_median_unsharp_past_31_taps_launches_the_chain(monkeypatch, km, ksize):
+    """Past FUSED_MAX_TAPS: one median launch, then one sep_conv_u8 launch
+    (its wide instance, cv2's taps on both axes, the unsharp epilogue), and
+    no median_unsharp launch."""
+    calls = []
+    for mod in (kfused, kmedian, kconv):
+        monkeypatch.setattr(mod, "on_cuda", lambda t, what: True)
+        monkeypatch.setattr(mod, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(kconv, "stream_handle", lambda device: 0)
+    x = torch.zeros((2, 40, 50), dtype=torch.uint8)
+    out = kfused.median_unsharp(x, km, 1.5, ksize)
+    assert out.shape == x.shape and out.dtype == torch.uint8
+    assert [c[0] for c in calls] == ["median", "sep_conv_u8"]
+    (_, med), (_, conv) = calls
+    assert med[-1] == km
+    taps = kfused.fused_taps(ksize)
+    assert (conv[7], conv[9]) == (len(taps), len(taps)) and conv[12] == kconv.WIDE
+    assert taps == tuple(int(t) for t in ref.gaussian_kernel_fixed(ksize))
+    calls.clear()
+    kfused.median_unsharp(x, km, 1.5, kfused.FUSED_MAX_TAPS)
+    assert [c[0] for c in calls] == ["median_unsharp"]

@@ -1,5 +1,6 @@
 """Config 2 and the point ops (ops/pointwise.py, ops/histogram.py, the api
-and the gamma_stretch preset) held to the JAX package and to ref/ — and,
+and the gamma_stretch preset; addWeighted, integral, applyColorMap and
+calcBackProject) held to the JAX package and to ref/ — and,
 where the JAX package is off cv2 (ROADMAP R3: its i16 stretch), to cv2 —
 at 0 LSB on every integer path; f32 paths within the JAX package's own
 tolerances (tests/test_ops_vs_ref.py:202-211).  The copied host tables bit
@@ -18,10 +19,12 @@ from imageenhancement_mp_tpu import ref
 from imageenhancement_mp_tpu.models.presets import get_preset as jax_get_preset
 from imageenhancement_mp_tpu.ops import pointwise as jpoint
 from imageenhancement_mp_tpu.ops.histogram import equalize_hist_global_planes as jax_eq_global
+from imageenhancement_mp_tpu.ref import colormaps as ref_colormaps
 from imageenhancement_mp_tpu.ref import ops as ref_ops
 from imageenhancement_mp_tpu_torch.kernels import hist as khist
 from imageenhancement_mp_tpu_torch.ops import histogram as thist
 from imageenhancement_mp_tpu_torch.ops import pointwise as tpoint
+from imageenhancement_mp_tpu_torch.utils import colormaps as tcolormaps
 from imageenhancement_mp_tpu_torch.utils import lut_tables
 
 cv2.setNumThreads(1)
@@ -274,3 +277,125 @@ def test_launches_of_each_path(monkeypatch):
         assert launches(lambda: tie.convert_scale_abs(planes.to(dtype))) == []
     assert launches(lambda: tie.gamma(planes.to(torch.uint16), 2.2)) == []
     assert launches(lambda: tie.histogram(planes.to(torch.uint16))) == []
+
+
+# -- addWeighted, integral, applyColorMap, calcBackProject -------------------------
+
+FOUR = [np.uint8, np.uint16, np.int16, np.float32]
+FOUR_IDS = ["u8", "u16", "i16", "f32"]
+
+
+@pytest.mark.parametrize("weights", [(0.7, -0.33, 12.5), (1.0, 1.0, 0.0), (0.5, 0.5, 0.5),
+                                     (-1.25, 2.0, -100.0), (1e-3, 3e4, 7.0)])
+@pytest.mark.parametrize("dtype", FOUR, ids=FOUR_IDS)
+def test_add_weighted_matches_jax_and_ref(dtype, weights):
+    """0 against both for every dtype: two single-rounded f32 FMAs."""
+    a, b = _img((2, 37, 41), dtype, 71), _img((2, 37, 41), dtype, 72)
+    al, be, ga = weights
+    got = tpoint.add_weighted_arrays(torch.from_numpy(a), al, torch.from_numpy(b), be, ga).numpy()
+    assert got.dtype == a.dtype
+    np.testing.assert_array_equal(got, np.asarray(jpoint.add_weighted_arrays(
+        jnp.asarray(a), al, jnp.asarray(b), be, ga)))
+    np.testing.assert_array_equal(got, ref.add_weighted(a, al, b, be, ga))
+    np.testing.assert_array_equal(tie.add_weighted(torch.from_numpy(a), al, torch.from_numpy(b),
+                                                   be, ga).numpy(), got)
+
+
+def test_add_weighted_rejects_like_jax():
+    a = torch.zeros((4, 5), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        tie.add_weighted(a, 1.0, a.to(torch.uint16), 1.0)
+    with pytest.raises(ValueError):
+        tie.add_weighted(a, 1.0, a[:3], 1.0)
+    with pytest.raises(TypeError):
+        tie.add_weighted(a.to(torch.int32), 1.0, a.to(torch.int32), 1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 41), (1, 1, 1), (1, 3, 5)])
+@pytest.mark.parametrize("dtype", FOUR, ids=FOUR_IDS)
+def test_integral_matches_ref_and_jax(dtype, shape):
+    """u8: int32, 0 against ref/ and JAX.  u16/i16/f32: f32 sums equal to
+    f32(ref/'s f64 sums); JAX's f32 sums within 1e-6 of them, relative to
+    the largest magnitude (docs/PARITY.md: ~1e-7)."""
+    x = _img(shape, dtype, 73)
+    s, s2 = tpoint.integral_planes(torch.from_numpy(x), sq=True)
+    want = [ref.integral(p, sq=True) for p in x]
+    js, js2 = jpoint.integral_planes(jnp.asarray(x), sq=True)
+    assert s.dtype == (torch.int32 if dtype == np.uint8 else torch.float32)
+    assert s2.dtype == torch.float32 and s.shape == (shape[0], shape[1] + 1, shape[2] + 1)
+    np.testing.assert_array_equal(s.numpy(), np.stack([w[0] for w in want]).astype(s.numpy().dtype))
+    np.testing.assert_array_equal(s2.numpy(), np.stack([w[1] for w in want]).astype(np.float32))
+    for got, jax_out in ((s.numpy(), js), (s2.numpy(), js2)):
+        scale = max(float(np.abs(got).max()), 1.0)
+        assert np.abs(got.astype(np.float64) - np.asarray(jax_out)).max() <= 1e-6 * scale
+    np.testing.assert_array_equal(tpoint.integral_planes(torch.from_numpy(x)).numpy(), s.numpy())
+
+
+def test_integral_api_matches_jax():
+    x = _img((2, 20, 30, 3), np.uint8, 74)
+    got = tie.integral(torch.from_numpy(x))
+    assert got.shape == (6, 21, 31)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jie.integral(x)))
+    with pytest.raises(TypeError):
+        tie.integral(torch.from_numpy(x).to(torch.int32))
+
+
+def test_colormaps_are_refs():
+    assert tcolormaps.COLORMAPS == tuple(ref_colormaps._TABLES)
+    for name in tcolormaps.COLORMAPS:
+        t = tcolormaps.colormap_table(name)
+        assert t.dtype == np.uint8 and t.shape == (256, 3)
+        np.testing.assert_array_equal(t, ref_colormaps.colormap_table(name))
+    with pytest.raises(ValueError):
+        tcolormaps.colormap_table("nope")
+
+
+@pytest.mark.parametrize("name", ["jet", "turbo", "viridis", "twilight_shifted", "deepgreen"])
+def test_apply_color_map_matches_jax_and_ref(name):
+    x = _img((2, 37, 41), np.uint8, 75)
+    got = tpoint.apply_color_map_planes(torch.from_numpy(x), name).numpy()
+    assert got.shape == (2, 37, 41, 3)
+    np.testing.assert_array_equal(got, np.asarray(jpoint.apply_color_map_planes(jnp.asarray(x),
+                                                                                name)))
+    np.testing.assert_array_equal(got, _per_plane(lambda p: ref.apply_color_map(p, name), x))
+    api = tie.apply_color_map(torch.from_numpy(x[0]), name).numpy()
+    np.testing.assert_array_equal(api, np.asarray(jie.apply_color_map(x[0], name)))
+    with pytest.raises(TypeError):
+        tie.apply_color_map(torch.from_numpy(x).to(torch.uint16), name)
+
+
+@pytest.mark.parametrize("bins,scale", [(256, 1.0), (30, 0.9), (7, 300.0), (1, 2.5), (1000, 0.5)])
+def test_calc_back_project_matches_jax_and_ref(bins, scale):
+    x = _img((2, 37, 41), np.uint8, 76)
+    hist = np.random.default_rng(bins).random(bins) * 300
+    got = tpoint.calc_back_project_planes(torch.from_numpy(x), hist, scale).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jpoint.calc_back_project_planes(
+        jnp.asarray(x), hist, scale)))
+    np.testing.assert_array_equal(got, _per_plane(
+        lambda p: ref.calc_back_project(p, hist, scale), x))
+    api = tie.calc_back_project(torch.from_numpy(x[0]), hist, scale).numpy()
+    np.testing.assert_array_equal(api, np.asarray(jie.calc_back_project(x[0], hist, scale)))
+    with pytest.raises(TypeError):
+        tie.calc_back_project(torch.from_numpy(x).to(torch.int16), hist)
+
+
+def test_calc_back_project_launches_apply_lut256_once(monkeypatch):
+    """On CUDA (on_cuda forced, launch stubbed): one apply_lut256 with the
+    folded u8 table, nothing else; the other point ops of this slice launch
+    no kernel."""
+    calls = []
+    monkeypatch.setattr(khist, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(khist, "launch", lambda name, *args: calls.append((name, args)))
+    x = torch.from_numpy(_img((3, 20, 30), np.uint8, 77))
+    hist = np.arange(16, dtype=np.float64) * 20
+    tie.calc_back_project(x, hist, 0.75, channels_last=False)
+    assert [c[0] for c in calls] == ["apply_lut256"]
+    table = tpoint._back_project_lut(tuple(hist), 0.75, x.device)
+    assert calls[0][1][2] == table.data_ptr()      # device, planes, the cached table
+    np.testing.assert_array_equal(table.numpy(), ref.calc_back_project(
+        np.arange(256, dtype=np.uint8)[None], hist, 0.75)[0])
+    calls.clear()
+    tie.add_weighted(x, 0.5, x, 0.5, 1.0)
+    tie.integral(x, sq=True, channels_last=False)
+    tie.apply_color_map(x, "hot", channels_last=False)
+    assert calls == []
