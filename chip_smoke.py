@@ -211,7 +211,31 @@
    2x2160x3840 u8 with counters of its own (no kernel), the first plane
    card against CPU at 0, prints the hysteresis steps, times it back to
    back and splits its device time by torch kernel under torch.profiler.
-13. Prints a one-line JSON per-kernel summary (launches on the main paths,
+13. Arithmetic, statistics and the video-tracking family (plain torch on the
+   card; no kernel of their own): every per-element op (add, subtract,
+   absdiff, min, max, multiply and divide at scales 1, 0.37 and 255, compare
+   gt and eq, the bitwise ops) on 2x2160x3840 u8/u16/i16/f32 with zero
+   divisors and 0/0, the four accumulators (u8/u16/f32 into f32, masked and
+   not) and blend_linear (u8 and f32 4K, u8 4K RGB), each card against CPU
+   at 0 (NaN and infinities at the same places; the 2x2160x3840 calls on
+   their first plane on the CPU) with counters of its own (no kernel); psnr(frames, equalize_unsharp(frames)) at 8x1080x1920 (one
+   hist256_lut and one sep_conv_u8), norm l1/l2/inf of the frames and of
+   the difference, mean_std_dev, min_max_loc of a 32x32 match_template
+   response on a 2160x3840 plane, moments_device of a u8 and an f32
+   2160x3840 plane (integer inputs equal, f32 within 1 ulp); the tracking
+   chain on a textured 1080p frame and the same scene moved by (2.35, -1.6)
+   px with fresh noise: good_features_to_track(500, 0.01, 10),
+   corner_sub_pix((5, 5)) and calc_optical_flow_pyr_lk at cv2's defaults
+   (21x21, level 3, 30 iterations), exact bitwise card against CPU, the
+   median tracked shift within 0.05 px of the true one, exact=False within
+   0.1 px; the CamShift chain over 30 frames of 1080p RGB with a moving red
+   disc (rgb2hsv, the hue's back projection: exactly 30 apply_lut256
+   launches, cam_shift), its windows equal to the CPU's and on the disc;
+   pyr_mean_shift_filtering(10, 20, 1) at 480x640 card against CPU at 0,
+   timed at 480x640 and 720x1280.  Each family prints its ms per call back
+   to back, its device launches per call and busy share under
+   torch.profiler.
+14. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -470,11 +494,12 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64).to(a.device)).abs().max())
 
 
-def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[float, float]:
+def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN,
+            warmups: int = WARMUPS) -> tuple[float, float]:
     """Median and interquartile range over ``runs`` runs of the per-call time
     of ``fn`` (ms), each run timing ``calls`` back-to-back calls with two
     CUDA events."""
-    for _ in range(WARMUPS):
+    for _ in range(warmups):
         fn()
     times = []
     for _ in range(runs):
@@ -489,12 +514,13 @@ def time_ms(fn, runs: int = TIMED_RUNS, calls: int = CALLS_PER_RUN) -> tuple[flo
     return q2, q3 - q1
 
 
-def device_split(fn, calls: int = CALLS_PER_RUN) -> tuple[float, float, list]:
+def device_split(fn, calls: int = CALLS_PER_RUN,
+                 warmups: int = WARMUPS) -> tuple[float, float, list]:
     """Device time per call by kernel under torch.profiler over ``calls``
     back-to-back calls of ``fn``: (busy us per call, wall us per call, [(us
     per call, launches per call, kernel name)] largest first)."""
     from torch.autograd import DeviceType
-    for _ in range(WARMUPS):
+    for _ in range(warmups):
         fn()
     torch.cuda.synchronize()
     acts = [a for a in (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
@@ -1498,6 +1524,366 @@ def geometry_and_inspection(port, dev, smi, on_card, misaligned, check, drive) -
         s_ms, s_iqr = time_ms(fn, 10, 2)
         print(f"  inspection chain stage {stage}: {s_ms:.4f} ms back to back (IQR {s_iqr:.4f})"
               f"  [{smi}]")
+
+
+# phase 13's sizes: the ones its users run (4K planes for the per-element
+# ops, a 1080p burst for the statistics and the trackers, VGA and 720p
+# frames for the segmentation); the CPU comparison runs at the same sizes
+P13 = {"arith": (2, 2160, 3840), "blend": (2160, 3840), "stats": (8, 1080, 1920),
+       "plane": (2160, 3840), "track": (1080, 1920), "corners": 500, "camshift": (30, 1080, 1920),
+       "segment": (480, 640), "segment_timed": ((480, 640), (720, 1280))}
+TRUE_SHIFT = (2.35, -1.6)
+
+
+def tracking_frames(H: int, W: int, shift: tuple, seed: int) -> tuple:
+    """A textured gray frame (saddles of two crossed sines, an oblique wave,
+    a fine ripple, noise of sigma 2) and the same scene moved by ``shift``
+    (dx, dy) in sub-pixel steps with its own noise, u8."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+
+    def scene(x, y):
+        return (128 + 45 * np.sin(x / 7.3) * np.sin(y / 9.1) + 25 * np.sin(x / 23.0 + y / 17.0)
+                + 15 * np.sin(x / 3.1 - y / 4.7))
+
+    a = scene(xx, yy) + rng.normal(0, 2, (H, W))
+    b = scene(xx - shift[0], yy - shift[1]) + rng.normal(0, 2, (H, W))
+    return tuple(np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in (a, b))
+
+
+def camshift_frames(T: int, H: int, W: int, seed: int) -> tuple:
+    """RGB frames of a red disc of radius H/9 crossing a green-blue noisy
+    background, and the window around the disc in the first frame."""
+    rng = np.random.default_rng(seed)
+    r = H // 9
+    frames = np.empty((T, H, W, 3), np.uint8)
+    yy, xx = np.ogrid[0:H, 0:W]
+    for t in range(T):
+        frames[t, ..., 0] = rng.integers(0, 60, (H, W), dtype=np.uint8)
+        frames[t, ..., 1] = rng.integers(80, 200, (H, W), dtype=np.uint8)
+        frames[t, ..., 2] = rng.integers(60, 220, (H, W), dtype=np.uint8)
+        cx, cy = W * 0.25 + t * W * 0.015, H * 0.3 + t * H * 0.012
+        disc = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+        frames[t][disc] = rng.integers(0, 40, (int(disc.sum()), 3), dtype=np.uint8) + \
+            np.array([200, 0, 0], np.uint8)
+    win = (int(W * 0.25) - r // 2, int(H * 0.3) - r // 2, r, r)
+    return frames, win, (W * 0.25 + (T - 1) * W * 0.015, H * 0.3 + (T - 1) * H * 0.012)
+
+
+def segmentation_image(H: int, W: int, seed: int) -> np.ndarray:
+    """A colour scene for mean-shift segmentation: a gradient, a few dozen
+    flat rectangles and discs of random colours, noise of sigma 6."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = np.stack([60 + 100 * xx / W, 80 + 90 * yy / H, 150 - 60 * xx / W], -1)
+    for _ in range(40):
+        c = rng.uniform(0, 255, 3)
+        y0, x0 = rng.integers(0, H), rng.integers(0, W)
+        if rng.random() < 0.5:
+            img[y0:y0 + rng.integers(H // 20, H // 4), x0:x0 + rng.integers(W // 20, W // 4)] = c
+        else:
+            img[(yy - y0) ** 2 + (xx - x0) ** 2 < rng.integers(H // 30, H // 8) ** 2] = c
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+
+def family_line(label: str, fn, smi: str, runs: int = 5, calls: int = 2,
+                warmups: int = WARMUPS) -> float:
+    """Print one family's ms per call back to back (CUDA events), its device
+    launches per call and busy share under torch.profiler (one call after
+    the usual warm-ups; late in this script the profiler keeps fewer
+    kernel events than tools/torch_phase13.py, which runs this phase
+    alone); return the ms.  Calls of a second or more take one warm-up
+    before ``runs`` runs of one call."""
+    ms_, iqr = time_ms(fn, runs, calls, warmups)
+    busy, wall, rows = device_split(fn, 1)
+    launches = sum(n for _, n, _ in rows)
+    print(f"  {label}: {ms_:.4f} ms per call back to back (IQR {iqr:.4f}); {launches:g} device "
+          f"launches per call, {busy:.2f} us of device time in {wall:.2f} us of wall under "
+          f"torch.profiler (busy {100 * busy / wall:.1f} %)  [{smi}]")
+    return ms_
+
+
+def _same(got, want, what: str, ulps: int = 0) -> None:
+    """Card against CPU: equal dtype and shape, NaN at the same places, and
+    the values equal (``ulps`` > 0: within that many f32 spacings)."""
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: card {tuple(got.shape)} {got.dtype}, CPU "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype.is_floating_point:
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        if not torch.equal(gn, wn):
+            raise AssertionError(f"{what}: NaN at other places")
+        g, w = got[~gn].double(), want[~wn].double()
+        inf = torch.isinf(w)
+        if not torch.equal(g[inf], w[inf]):
+            raise AssertionError(f"{what}: infinities differ")
+        d = (g[~inf] - w[~inf]).abs()
+        lim = ulps * torch.finfo(torch.float32).eps * w[~inf].abs() if ulps else 0.0
+        if d.numel() and bool((d > lim).any()):
+            raise AssertionError(f"{what}: card vs CPU max abs err {float(d.max())} "
+                                 f"(limit {ulps} ulp)")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{what}: card vs CPU max abs err {max_err(got, want)}")
+
+
+def _flat(out) -> list:
+    """The tensors of a (nested) tuple of outputs, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _on(dev, out) -> None:
+    for t in _flat(out):
+        if t.device != dev:
+            raise AssertionError(f"output on {t.device}, not {dev}")
+
+
+def arith_stats_and_tracking(port, dev, smi, on_card, drive, sizes: dict = P13) -> None:
+    """Phase 13: per-element arithmetic, the accumulators and blendLinear in
+    every dtype each takes, the device statistics, the detect -> refine ->
+    track chain, the CamShift chain and mean-shift segmentation, each with
+    counters of its own, card against CPU, timed back to back with its
+    launches and busy share."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    u8, u16, i16, f32 = torch.uint8, torch.uint16, torch.int16, torch.float32
+
+    def run(label, fn, args, timed=True, planes=None):
+        """Drive ``fn(*args)`` on the card with counters of its own, hold it
+        against the same call on the CPU (an elementwise ``fn`` on the
+        first ``planes`` planes only, where given), return the card's
+        output."""
+        g = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+        out, _ = drive(label, lambda: fn(*g), {})
+        _on(dev, out)
+        cpu = [a[:planes] if isinstance(a, torch.Tensor) and planes else a for a in args]
+        for o, w in zip(_flat(out), _flat(fn(*cpu)), strict=True):
+            _same(o[:planes] if planes else o, w, label)
+        if timed:
+            ms_, _ = time_ms(lambda: fn(*g), 5, 2)
+            print(f"  {label}: card vs CPU equal; {ms_:.4f} ms back to back  [{smi}]")
+        return out
+
+    # -- per-element arithmetic, the accumulators and blendLinear
+    shape = sizes["arith"]
+    pairs = {}
+    for dt, npdt in ((u8, np.uint8), (u16, np.uint16), (i16, np.int16)):
+        info = np.iinfo(npdt)
+        a = rng.integers(info.min, info.max + 1, shape).astype(npdt)
+        b = rng.integers(info.min, info.max + 1, shape).astype(npdt)
+        b[:, 0, :64] = 0
+        pairs[dt] = (torch.from_numpy(a), torch.from_numpy(b))
+    a = (rng.random(shape, dtype=np.float32) * 500 - 100).astype(np.float32)
+    b = (rng.random(shape, dtype=np.float32) * 500 - 100).astype(np.float32)
+    b[:, 0, :64] = 0
+    a[:, 0, :8] = 0  # 0/0: NaN
+    pairs[f32] = (torch.from_numpy(a), torch.from_numpy(b))
+    sname = "x".join(map(str, shape))
+    n_arith = 0
+    t0 = time.perf_counter()
+    for dt, (x, y) in pairs.items():
+        d = str(dt).replace("torch.", "")
+        ops = [("add", ()), ("subtract", ()), ("absdiff", ()), ("minimum", ()), ("maximum", ()),
+               ("multiply", (1.0,)), ("multiply", (0.37,)), ("divide", (1.0,)),
+               ("divide", (255.0,)), ("compare", ("gt",)), ("compare", ("eq",))]
+        if dt != f32:
+            ops += [("bitwise_and", ()), ("bitwise_or", ()), ("bitwise_xor", ())]
+        for op, extra in ops:
+            run(f"{op}{extra} {d} {sname}", lambda p, q, op=op, extra=extra: getattr(port, op)(
+                p, q, *extra), (x, y), planes=1)
+            n_arith += 1
+        if dt != f32:
+            run(f"bitwise_not {d} {sname}", port.bitwise_not, (x,), planes=1)
+            n_arith += 1
+    acc = torch.from_numpy((rng.random(shape, dtype=np.float32) * 1000).astype(np.float32))
+    mask = torch.from_numpy(rng.integers(0, 2, shape, dtype=np.uint8))
+    for dt in (u8, u16, f32):
+        s1, s2 = pairs[dt][0], pairs[dt][1]
+        if dt == f32:
+            s1, s2 = s1.abs(), s2.abs()
+        d = str(dt).replace("torch.", "")
+        for name, fn, args in (
+                ("accumulate", port.accumulate, (s1, acc)),
+                ("accumulate masked", port.accumulate, (s1, acc, mask)),
+                ("accumulate_square", port.accumulate_square, (s1, acc)),
+                ("accumulate_product", port.accumulate_product, (s1, s2, acc)),
+                ("accumulate_weighted 0.05", lambda s, c: port.accumulate_weighted(s, c, 0.05),
+                 (s1, acc)),
+                ("accumulate_weighted 0.05 masked",
+                 lambda s, c, m: port.accumulate_weighted(s, c, 0.05, m), (s1, acc, mask))):
+            run(f"{name} {d} into f32 {sname}", fn, args, planes=1)
+            n_arith += 1
+    bh, bw = sizes["blend"]
+    w1 = torch.from_numpy(rng.random((bh, bw), dtype=np.float32))
+    w2 = torch.from_numpy(rng.random((bh, bw), dtype=np.float32))
+    blends = [(f"blend_linear u8 {bh}x{bw}", pairs[u8][0][0, :bh, :bw], pairs[u8][1][0, :bh, :bw]),
+              (f"blend_linear u8 {bh}x{bw}x3", *(torch.from_numpy(rng.integers(
+                  0, 256, (bh, bw, 3), dtype=np.uint8)) for _ in range(2))),
+              (f"blend_linear f32 {bh}x{bw}", pairs[f32][0][0, :bh, :bw].abs(),
+               pairs[f32][1][0, :bh, :bw].abs())]
+    for label, s1, s2 in blends:
+        run(label, port.blend_linear, (s1.contiguous(), s2.contiguous(), w1, w2))
+        n_arith += 1
+    print(f"phase 13 arithmetic, accumulate and blendLinear: card vs CPU at 0 over {n_arith} "
+          f"calls (the {sname} calls on their first plane on the CPU), no kernel launched "
+          f"({time.perf_counter() - t0:.1f} s)")
+    gx, gy = pairs[u8][0].to(dev), pairs[u8][1].to(dev)
+    family_line(f"family arithmetic: add u8 {sname}", lambda: port.add(gx, gy), smi)
+    gx, gy = pairs[u16][0].to(dev), pairs[u16][1].to(dev)
+    family_line(f"family arithmetic: multiply u16 scale 0.37 {sname}",
+                lambda: port.multiply(gx, gy, 0.37), smi)
+    gs, gacc = pairs[u8][0].to(dev), acc.to(dev)
+    family_line(f"family accumulate: accumulate_weighted u8 into f32 {sname}",
+                lambda: port.accumulate_weighted(gs, gacc, 0.05), smi)
+    g1, g2, gw1, gw2 = blends[1][1].to(dev), blends[1][2].to(dev), w1.to(dev), w2.to(dev)
+    family_line(f"family blendLinear: u8 {bh}x{bw}x3", lambda: port.blend_linear(g1, g2, gw1, gw2),
+                smi)
+    del pairs, acc, mask, gx, gy, gs, gacc, g1, g2
+
+    # -- statistics: the PSNR of the main path, norms, meanStdDev, minMaxLoc
+    # on a match_template response, moments of a 4K plane
+    t0 = time.perf_counter()
+    N, H, W = sizes["stats"]
+    frames = torch.from_numpy(noisy((N,), H, W, (), 131, 10.0))
+    gf = frames.to(dev)
+    label = f"psnr(frames, equalize_unsharp(frames)) {N}x{H}x{W} u8"
+    got, _ = drive(label, lambda: port.psnr(gf, port.equalize_unsharp(gf)),
+                   {"hist256_lut": 1, "sep_conv_u8": 1})
+    _on(dev, got)
+    eq_cpu = port.equalize_unsharp(frames)
+    _same(got, port.psnr(frames, eq_cpu), label)
+    print(f"{label}: {float(got):.6f} dB, card vs CPU equal")
+    for nt in ("l1", "l2", "inf"):
+        run(f"norm {nt} {N}x{H}x{W} u8", port.norm, (frames, nt))
+        run(f"norm {nt} of the difference {N}x{H}x{W} u8", port.norm, (frames, nt, eq_cpu))
+    run(f"mean_std_dev {N}x{H}x{W} u8", port.mean_std_dev, (frames,))
+    ph, pw = sizes["plane"]
+    smooth = noisy((1,), ph, pw, (), 120, 10.0)
+    templ = smooth[0, ph // 3:ph // 3 + 32, pw // 3:pw // 3 + 32].copy()
+    resp = port.match_template(on_card(smooth), templ, "ccoeff_normed", channels_last=False)[0]
+    label = f"min_max_loc of match_template ccoeff_normed 32x32 on {ph}x{pw}"
+    mml = run(label, port.min_max_loc, (resp.cpu(),))
+    print(f"  {label}: max {float(mml[1]):.6f} at ({int(mml[3][0])}, {int(mml[3][1])}), the "
+          f"template cut at ({pw // 3}, {ph // 3})")
+    plane = torch.from_numpy(smooth[0])
+    planef = torch.from_numpy(rng.random((ph, pw), dtype=np.float32))
+    label = f"moments_device u8 {ph}x{pw}"
+    got, _ = drive(label, lambda: port.moments_device(plane.to(dev)), {})
+    want = port.moments_device(plane)
+    for k in want:
+        _on(dev, got[k])
+        _same(got[k], want[k], f"{label} {k}")
+    label = f"moments_device f32 {ph}x{pw}"
+    gotf = port.moments_device(planef.to(dev))
+    wantf = port.moments_device(planef)
+    for k in wantf:
+        _same(gotf[k], wantf[k], f"{label} {k}", ulps=1)
+    print(f"  moments_device: u8 card vs CPU equal on 24 entries, f32 within 1 ulp "
+          f"(m00 {float(got['m00']):.6g}, nu11 {float(got['nu11']):.6g})")
+    print(f"phase 13 statistics: card vs CPU within their limits ({time.perf_counter() - t0:.1f} s)")
+    family_line(f"family statistics: psnr(frames, equalize_unsharp(frames)) {N}x{H}x{W}",
+                lambda: port.psnr(gf, port.equalize_unsharp(gf)), smi)
+    family_line(f"family statistics: norm l2 and mean_std_dev {N}x{H}x{W}",
+                lambda: (port.norm(gf, "l2"), port.mean_std_dev(gf)), smi)
+    gplane = plane.to(dev)
+    family_line(f"family statistics: moments_device u8 {ph}x{pw}",
+                lambda: port.moments_device(gplane), smi)
+    del frames, gf, eq_cpu, resp
+
+    # -- the detect -> refine -> track chain
+    t0 = time.perf_counter()
+    H, W = sizes["track"]
+    f0, f1 = tracking_frames(H, W, TRUE_SHIFT, 1313)
+    c0, c1 = torch.from_numpy(f0), torch.from_numpy(f1)
+    g0, g1 = c0.to(dev), c1.to(dev)
+    n_c = sizes["corners"]
+    pts = run(f"good_features_to_track({n_c}, 0.01, 10) {H}x{W}",
+              lambda im: port.good_features_to_track(im, n_c, 0.01, 10.0), (c0,), timed=False)
+    ref_pts = run(f"corner_sub_pix(win (5, 5)) of {pts.shape[0]} corners",
+                  lambda im, p: port.corner_sub_pix(im, p, (5, 5)), (c0, pts.cpu()), timed=False)
+    label = f"calc_optical_flow_pyr_lk(21x21, max_level 3, 30 iterations) {pts.shape[0]} points"
+    nxt, st, err_ = run(label, lambda a, b, p: port.calc_optical_flow_pyr_lk(a, b, p), (c0, c1,
+                                                                                   ref_pts.cpu()),
+                        timed=False)
+    ok = st == 1
+    flow = (nxt[ok] - ref_pts[ok]).cpu().double()
+    med = flow.median(0).values
+    print(f"{label}: bitwise card vs CPU (points, status, err); {int(ok.sum())} of "
+          f"{pts.shape[0]} tracked, median shift ({float(med[0]):.4f}, {float(med[1]):.4f}) px "
+          f"against the true {TRUE_SHIFT}")
+    if (med - torch.tensor(TRUE_SHIFT, dtype=torch.float64)).abs().max() > 0.05:
+        raise AssertionError(f"{label}: median shift {med.tolist()} off the true {TRUE_SHIFT}")
+    fast = port.calc_optical_flow_pyr_lk(g0, g1, ref_pts, exact=False)
+    both = ok & (fast[1] == 1)
+    dfast = float((fast[0][both] - nxt[both]).abs().max())
+    print(f"  exact=False: {int((fast[1] == 1).sum())} tracked, within {dfast:.6f} px of exact")
+    if dfast >= 0.1:
+        raise AssertionError(f"exact=False is {dfast} px off exact")
+    print(f"phase 13 tracking chain: card vs CPU equal ({time.perf_counter() - t0:.1f} s)")
+    gref = ref_pts.to(dev)
+    family_line(f"family tracking: good_features_to_track {H}x{W}",
+                lambda: port.good_features_to_track(g0, n_c, 0.01, 10.0), smi, 3, 1, 1)
+    t0 = time.perf_counter()
+    port.corner_sub_pix(g0, pts, (5, 5))
+    print(f"  family tracking: corner_sub_pix {pts.shape[0]} corners: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the host clock (a host helper: no "
+          f"device launch)  [{smi}]")
+    family_line(f"family tracking: calc_optical_flow_pyr_lk exact {pts.shape[0]} points",
+                lambda: port.calc_optical_flow_pyr_lk(g0, g1, gref), smi, 3, 1, 1)
+    family_line(f"family tracking: calc_optical_flow_pyr_lk exact=False {pts.shape[0]} points",
+                lambda: port.calc_optical_flow_pyr_lk(g0, g1, gref, exact=False), smi, 3, 1, 1)
+    del g0, g1, gref
+
+    # -- the CamShift chain: rgb2hsv, the hue's back projection, cam_shift
+    t0 = time.perf_counter()
+    T, H, W = sizes["camshift"]
+    frames, win0, end = camshift_frames(T, H, W, 1314)
+    hue0 = port.cvt_color(torch.from_numpy(frames[0]), "rgb2hsv")[..., 0].numpy()
+    x, y, w, h = win0
+    hist = np.bincount(hue0[y:y + h, x:x + w].astype(np.int64).ravel() * 32 // 256, minlength=32)
+    hist = hist * (255.0 / hist.max())
+
+    def camshift_chain(fr):
+        win, out = win0, []
+        for t in range(fr.shape[0]):
+            hue = port.cvt_color(fr[t], "rgb2hsv")[..., 0].contiguous()
+            box, win = port.cam_shift(port.calc_back_project(hue, hist), win, 10, 1.0)
+            out.append((box, win))
+        return out
+
+    gfr = torch.from_numpy(frames).to(dev)
+    label = f"CamShift chain (rgb2hsv -> calc_back_project -> cam_shift) {T}x{H}x{W}x3"
+    got, _ = drive(label, lambda: camshift_chain(gfr), {"apply_lut256": T})
+    want = camshift_chain(torch.from_numpy(frames))
+    if got != want:
+        raise AssertionError(f"{label}: card windows {got[-1]}, CPU {want[-1]}")
+    x, y, w, h = got[-1][1]
+    print(f"{label}: windows and boxes equal card vs CPU over {T} frames; last window "
+          f"{got[-1][1]} centred ({x + w / 2:.1f}, {y + h / 2:.1f}), the disc at "
+          f"({end[0]:.1f}, {end[1]:.1f}) ({time.perf_counter() - t0:.1f} s)")
+    if abs(x + w / 2 - end[0]) > 8 or abs(y + h / 2 - end[1]) > 8:
+        raise AssertionError(f"{label}: the window lost the disc")
+    ms_ = family_line(f"family CamShift: {T} frames {H}x{W}x3", lambda: camshift_chain(gfr), smi,
+                      3, 1, 1)
+    print(f"  CamShift chain: {ms_ / T:.4f} ms a frame  [{smi}]")
+    del gfr, frames
+
+    # -- mean-shift segmentation, the OpenCV sample's settings
+    t0 = time.perf_counter()
+    H, W = sizes["segment"]
+    img = torch.from_numpy(segmentation_image(H, W, 1315))
+    label = f"pyr_mean_shift_filtering(sp 10, sr 20, max_level 1) {H}x{W}x3"
+    out = run(label, lambda im: port.pyr_mean_shift_filtering(im, 10, 20, 1), (img,), timed=False)
+    print(f"{label}: card vs CPU at 0 LSB, {int(torch.unique(out.reshape(-1, 3), dim=0).shape[0])} "
+          f"colours from {int(torch.unique(img.reshape(-1, 3), dim=0).shape[0])} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for H, W in sizes["segment_timed"]:
+        g = on_card(segmentation_image(H, W, 1316))
+        family_line(f"family segmentation: pyr_mean_shift_filtering(10, 20, 1) {H}x{W}x3",
+                    lambda: port.pyr_mean_shift_filtering(g, 10, 20, 1), smi, 3, 1, 1)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2778,6 +3164,10 @@ def main() -> None:
     # -- 12. morphology, filter2D, pyramids, resize, Canny, matching, the
     # point functions; median_unsharp past 31 taps; the inspection chain
     geometry_and_inspection(port, dev, smi, on_card, misaligned, check, drive)
+
+    # -- 13. arithmetic, statistics, corners, optical flow, CamShift and
+    # mean-shift segmentation
+    arith_stats_and_tracking(port, dev, smi, on_card, drive)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels.hist import hist256
-from imageenhancement_mp_tpu_torch.ops import pointwise
+from imageenhancement_mp_tpu_torch.ops import arith, pointwise, stats
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.canny import canny_planes, connected_components_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
@@ -26,22 +26,26 @@ from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes, histogram_256)
 from imageenhancement_mp_tpu_torch.ops import color
+from imageenhancement_mp_tpu_torch.ops.lk import calc_optical_flow_pyr_lk_planes
+from imageenhancement_mp_tpu_torch.ops.meanshift import pyr_mean_shift_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops import morphology
 from imageenhancement_mp_tpu_torch.ops.nlmeans import (fast_nl_means_multi_vec,
                                                        fast_nl_means_u16_vec, fast_nl_means_vec)
 from imageenhancement_mp_tpu_torch.ops.pyramid import pyr_down_planes, pyr_up_planes
 from imageenhancement_mp_tpu_torch.ops import resize as rs
+from imageenhancement_mp_tpu_torch.ops.subpix import get_rect_sub_pix_planes
 from imageenhancement_mp_tpu_torch.ops.template import match_template_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
 from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_planes,
                                                     warp_affine_planes, warp_perspective_planes,
                                                     warp_polar_planes)
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
-from imageenhancement_mp_tpu_torch.utils import warp_coords
+from imageenhancement_mp_tpu_torch.utils import tracking, warp_coords
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.structuring import (get_structuring_element as
                                                              _structuring_element)
+from imageenhancement_mp_tpu_torch.utils.taps import deriv_kernels, gaussian_kernel
 from imageenhancement_mp_tpu_torch.utils.thresholds import otsu_threshold, triangle_threshold
 
 __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch",
@@ -57,7 +61,14 @@ __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch
            "fast_nl_means_denoising_colored_multi", "add_weighted", "integral", "apply_color_map",
            "calc_back_project", "filter2d", "sep_filter2d", "pyr_down", "pyr_up", "resize",
            "flip", "rotate", "transpose", "canny", "connected_components", "erode", "dilate",
-           "morphology_ex", "get_structuring_element", "match_template"]
+           "morphology_ex", "get_structuring_element", "match_template",
+           "add", "subtract", "absdiff", "multiply", "divide", "bitwise_and", "bitwise_or",
+           "bitwise_xor", "bitwise_not", "minimum", "maximum", "compare", "accumulate",
+           "accumulate_square", "accumulate_product", "accumulate_weighted", "blend_linear",
+           "psnr", "norm", "mean_std_dev", "min_max_loc", "moments_device", "compare_hist",
+           "get_gaussian_kernel", "get_deriv_kernels", "get_rect_sub_pix", "corner_sub_pix",
+           "good_features_to_track", "calc_optical_flow_pyr_lk", "mean_shift", "cam_shift",
+           "pyr_mean_shift_filtering"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -817,3 +828,298 @@ def match_template(img: torch.Tensor, templ, method: str = "ccoeff_normed",
     SQDIFF_NORMED [0, 1] clamp)."""
     _check_image_dtype(img, allow_i16=True)
     return _run(match_template_planes, img, channels_last, templ=templ, method=str(method))
+
+
+# -- arithmetic, accumulate and blendLinear: plain PyTorch on the input's device
+
+def _arith(op: str, a: torch.Tensor, b: torch.Tensor = None, scale: float = 1.0) -> torch.Tensor:
+    _check_image_dtype(a, allow_i16=True)
+    return arith.arith_arrays(op, a, b, float(scale))
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.add`` — saturating elementwise sum (exact)."""
+    return _arith("add", a, b)
+
+
+def subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.subtract`` — saturating difference (exact)."""
+    return _arith("subtract", a, b)
+
+
+def absdiff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.absdiff`` — |a−b| saturated (exact)."""
+    return _arith("absdiff", a, b)
+
+
+def multiply(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """``cv2.multiply(a, b, scale)`` — the f64 product, exact, with cv2's
+    INT_MIN rule (a product past int32 saturates to the dtype's minimum);
+    f32 ``(a·b)·scale`` in f32."""
+    return _arith("multiply", a, b, scale)
+
+
+def divide(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """``cv2.divide(a, b, scale)`` — the f64 quotient rounded half to even,
+    ``b == 0`` → 0 for integer dtypes (exact); f32 ``(a·scale)/b`` with IEEE
+    ±inf/nan."""
+    return _arith("divide", a, b, scale)
+
+
+def bitwise_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.bitwise_and`` — exact (integer dtypes)."""
+    return _arith("bitwise_and", a, b)
+
+
+def bitwise_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.bitwise_or`` — exact."""
+    return _arith("bitwise_or", a, b)
+
+
+def bitwise_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.bitwise_xor`` — exact."""
+    return _arith("bitwise_xor", a, b)
+
+
+def bitwise_not(a: torch.Tensor) -> torch.Tensor:
+    """``cv2.bitwise_not`` — exact."""
+    return _arith("bitwise_not", a)
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.min`` — exact."""
+    return _arith("minimum", a, b)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``cv2.max`` — exact."""
+    return _arith("maximum", a, b)
+
+
+def compare(a: torch.Tensor, b: torch.Tensor, op: str = "gt") -> torch.Tensor:
+    """``cv2.compare`` — uint8 0/255 mask; op: eq/gt/ge/lt/le/ne."""
+    if op not in arith.COMPARE_OPS:
+        raise ValueError(f"unknown compare op {op!r}")
+    return _arith(op, a, b)
+
+
+def accumulate(src: torch.Tensor, acc: torch.Tensor, mask=None) -> torch.Tensor:
+    """``cv2.accumulate`` — the new f32 accumulator ``acc + f32(src)``
+    (pixels where ``mask`` is 0 keep ``acc``), exact."""
+    return arith.accumulate_arrays("acc", src, acc, mask=mask)
+
+
+def accumulate_square(src: torch.Tensor, acc: torch.Tensor, mask=None) -> torch.Tensor:
+    """``cv2.accumulateSquare`` — ``acc + f32(src)²``, exact."""
+    return arith.accumulate_arrays("sq", src, acc, mask=mask)
+
+
+def accumulate_product(src1: torch.Tensor, src2: torch.Tensor, acc: torch.Tensor,
+                       mask=None) -> torch.Tensor:
+    """``cv2.accumulateProduct`` — ``acc + f32(src1)·f32(src2)``, exact."""
+    return arith.accumulate_arrays("product", src1, acc, src2, mask=mask)
+
+
+def accumulate_weighted(src: torch.Tensor, acc: torch.Tensor, alpha: float,
+                        mask=None) -> torch.Tensor:
+    """``cv2.accumulateWeighted`` — the running average ``acc·f32(1−α) +
+    src·f32(α)`` with each product rounded on its own (cv2's native path),
+    exact."""
+    return arith.accumulate_arrays("weighted", src, acc, alpha=float(alpha), mask=mask)
+
+
+def blend_linear(src1: torch.Tensor, src2: torch.Tensor, weights1, weights2) -> torch.Tensor:
+    """``cv2.blendLinear`` — ``(src1·w1 + src2·w2) / (w1 + w2 + 1e-5)`` in
+    f32, each product rounded on its own; u8 rounds half to even and
+    saturates.  ``weights*`` are ``[H, W]`` f32 shared across channels."""
+    return arith.blend_linear_arrays(src1, src2, weights1, weights2)
+
+
+# -- statistics: 0-d tensors on the input's device; compare_hist on the host
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 255.0) -> torch.Tensor:
+    """``cv2.PSNR`` — a 0-d f32 tensor (``inf`` on identical inputs): the
+    squared-error sum exact in int64 for integer inputs, ``10·log10`` in
+    f64, one f32 rounding.  No host sync."""
+    return stats.psnr_arrays(a, b, float(max_val))
+
+
+def norm(a: torch.Tensor, norm_type: str = "l2", b=None) -> torch.Tensor:
+    """``cv2.norm(a[, b])`` — l1 | l2 | inf as a 0-d f32 tensor: exact int64
+    sums for integer inputs (f64 otherwise), one f32 rounding."""
+    return stats.norm_arrays(a, str(norm_type), b)
+
+
+def mean_std_dev(img: torch.Tensor):
+    """``cv2.meanStdDev`` — (mean, population std) 0-d f32 tensors: exact
+    int64 sums for integer inputs, one f32 rounding each."""
+    return stats.mean_std_dev_arrays(img)
+
+
+def min_max_loc(arr: torch.Tensor):
+    """``cv2.minMaxLoc`` on a 2-D map — ``(min_val, max_val, (min_x, min_y),
+    (max_x, max_y))``, every entry a 0-d tensor (f32 values, int32
+    coordinates), cv2's first-occurrence rule and (x, y) order."""
+    mn, mx, ix, iy, ax, ay = stats.min_max_loc_plane(arr)
+    return mn, mx, (ix, iy), (ax, ay)
+
+
+def moments_device(img: torch.Tensor, binary_image: bool = False) -> dict:
+    """``cv2.moments`` of a 2-D image — a dict of 24 0-d f32 tensors (the
+    keys of ``MOMENT_KEYS``): raw moments exact in int64 for integer
+    images, cv2's completion in f64, one f32 rounding per entry."""
+    v = stats.moments_plane(img, bool(binary_image))
+    return {k: v[i] for i, k in enumerate(stats.MOMENT_KEYS)}
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def compare_hist(h1, h2, method: str = "correl") -> float:
+    """``cv2.compareHist`` (host helper, f64): correl | chisqr | intersect |
+    bhattacharyya."""
+    return tracking.compare_hist(_host(h1), _host(h2), method)
+
+
+def get_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """``cv2.getGaussianKernel`` — the ``[ksize, 1]`` f64 column kernel,
+    bit-exact to the oracle (the fixed tables for σ ≤ 0, k ≤ 9)."""
+    return gaussian_kernel(int(ksize), float(sigma), per_tap=True).reshape(-1, 1)
+
+
+def get_deriv_kernels(dx: int, dy: int, ksize: int, normalize: bool = False):
+    """``cv2.getDerivKernels`` — the (kx, ky) Sobel (ksize 1–31) or Scharr
+    (ksize −1) taps as ``[n, 1]`` f32 columns, bit-exact."""
+    kx, ky = deriv_kernels(int(dx), int(dy), int(ksize), bool(normalize), max_ksize=31)
+    return (np.asarray(kx, np.float32).reshape(-1, 1), np.asarray(ky, np.float32).reshape(-1, 1))
+
+
+# -- sub-pixel patches, corners, optical flow, mean shift
+
+def get_rect_sub_pix(img: torch.Tensor, patch_size, centers, patch_type: str = None):
+    """``cv2.getRectSubPix``, batched over centres — one ``(w, h)`` patch per
+    row of ``centers`` ``[N, 2]`` (x, y) from one ``[H, W]`` / ``[H, W, C]``
+    u8 or f32 image → ``[N, h, w(, C)]`` (a single ``(cx, cy)`` pair returns
+    one patch).  cv2's three summation laws and its Q16 u8 kernel, exact.
+    Centres must lie inside the image (as cv2 requires)."""
+    if img.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"getRectSubPix supports u8/f32, got {img.dtype}")
+    if img.dim() not in (2, 3):
+        raise ValueError("get_rect_sub_pix expects one [H,W] or [H,W,C] image")
+    if patch_type is None:
+        patch_type = "f32" if img.dtype == torch.float32 else "u8"
+    if patch_type not in ("u8", "f32"):
+        raise ValueError(f"patch_type must be 'u8' or 'f32', got {patch_type!r}")
+    if img.dtype == torch.float32 and patch_type == "u8":
+        raise ValueError("f32 source only extracts f32 patches (as cv2)")
+    c = centers if isinstance(centers, torch.Tensor) else torch.as_tensor(
+        np.asarray(centers, np.float32))
+    single = c.dim() == 1
+    out = get_rect_sub_pix_planes(img, c.reshape(-1, 2), int(patch_size[0]),
+                                  int(patch_size[1]), patch_type == "f32")
+    return out[0] if single else out
+
+
+def corner_sub_pix(img: torch.Tensor, corners, win_size, zero_zone=(-1, -1),
+                   max_count: int = 100, epsilon: float = 0.0) -> torch.Tensor:
+    """``cv2.cornerSubPix`` — sub-pixel corner refinement on the host (a
+    handful of corners, each a tiny iterative 2×2 solve), the oracle's law;
+    returns the refined f32 corners on ``img``'s device."""
+    out = tracking.corner_sub_pix(_host(img), _host(corners).astype(np.float32), win_size,
+                                  zero_zone, max_count, epsilon)
+    return torch.from_numpy(out).to(img.device)
+
+
+def good_features_to_track(img: torch.Tensor, max_corners: int = 0, quality_level: float = 0.01,
+                           min_distance: float = 10.0, mask=None, block_size: int = 3,
+                           gradient_size: int = 3, use_harris: bool = False,
+                           k: float = 0.04) -> torch.Tensor:
+    """``cv2.goodFeaturesToTrack`` — ``[N, 2]`` f32 (x, y) corners on
+    ``img``'s device.  The response map (minEigenVal or Harris) runs on the
+    device; the selection chain (threshold, 3×3 NMS, stable sort, grid
+    min-distance) on the host over the fetched map, as the oracle's."""
+    _check_u8(img)
+    if img.dim() != 2:
+        raise ValueError("goodFeaturesToTrack expects a single [H,W] image")
+    resp = (corner_harris(img, block_size, gradient_size, k) if use_harris
+            else corner_min_eigen_val(img, block_size, gradient_size))
+    pts = tracking.select_features(_host(resp), int(max_corners), float(quality_level),
+                                   float(min_distance), None if mask is None else _host(mask))
+    return torch.from_numpy(pts).to(img.device)
+
+
+def _lk_levels(shape, ww: int, wh: int, max_level: int) -> int:
+    """buildOpticalFlowPyramid's clamp: stop when the next level's width or
+    height would be at most the window's."""
+    h, w = shape
+    n = 0
+    for _ in range(max_level):
+        nw, nh = (w + 1) // 2, (h + 1) // 2
+        if nw <= ww or nh <= wh:
+            break
+        h, w, n = nh, nw, n + 1
+    return n
+
+
+def calc_optical_flow_pyr_lk(prev_img: torch.Tensor, next_img: torch.Tensor, prev_pts,
+                             win_size=(21, 21), max_level: int = 3, max_count: int = 30,
+                             epsilon: float = 0.01, min_eig_threshold: float = 1e-4,
+                             exact: bool = True):
+    """``cv2.calcOpticalFlowPyrLK`` — pyramidal Lucas-Kanade tracking of N
+    points between two u8 ``[H, W]`` frames → ``(next_pts f32 [N, 2], status
+    u8 [N], err f32 [N])`` on the frames' device.  ``exact=True`` sums in
+    cv2's SIMD lane order and equals the oracle bit for bit;
+    ``exact=False`` sums each window in one free-order reduction (within
+    0.1 px of it on tracked points)."""
+    _check_u8(prev_img)
+    _check_u8(next_img)
+    if prev_img.dim() != 2 or next_img.dim() != 2:
+        raise ValueError("calc_optical_flow_pyr_lk expects [H,W] grayscale")
+    ww, wh = int(win_size[0]), int(win_size[1])
+    pts = prev_pts if isinstance(prev_pts, torch.Tensor) else torch.as_tensor(
+        np.asarray(prev_pts, np.float32))
+    pts = pts.to(prev_img.device, torch.float32).reshape(-1, 2)
+    ml = min(int(max_level), _lk_levels(tuple(prev_img.shape), ww, wh, int(max_level)),
+             _lk_levels(tuple(next_img.shape), ww, wh, int(max_level)))
+
+    def pyramid(img):
+        levels = [img]
+        for _ in range(ml):
+            levels.append(pyr_down_planes(levels[-1][None])[0])
+        return levels
+
+    return calc_optical_flow_pyr_lk_planes(pyramid(prev_img), pyramid(next_img), pts,
+                                           (ww, wh), ml, int(max_count), float(epsilon),
+                                           float(min_eig_threshold), bool(exact))
+
+
+def mean_shift(prob_image, window, max_count: int = 100, epsilon: float = 1.0):
+    """``cv2.meanShift`` on a back-projection map (host helper, integer
+    dynamics, exact) → ``(iterations, (x, y, w, h))``; pairs with
+    ``calc_back_project``."""
+    return tracking.mean_shift(_host(prob_image), window, max_count, epsilon)
+
+
+def cam_shift(prob_image, window, max_count: int = 100, epsilon: float = 1.0):
+    """``cv2.CamShift`` — ``mean_shift`` and the oriented box from the
+    grown window's moments (host helper) → ``((center, size, angle),
+    (x, y, w, h))``."""
+    return tracking.cam_shift(_host(prob_image), window, max_count, epsilon)
+
+
+def pyr_mean_shift_filtering(img: torch.Tensor, sp: float, sr: float, max_level: int = 1,
+                             max_count: int = 5, epsilon: float = 1.0) -> torch.Tensor:
+    """``cv2.pyrMeanShiftFiltering`` — colour mean-shift segmentation, exact
+    (dense masked iteration, ``cvRound(n·fl64(1/count))`` in f64).  ``img``
+    is u8 ``[H, W, 3]`` or ``[N, H, W, 3]``; termcrit as cv2's (COUNT+EPS,
+    5, 1.0)."""
+    _check_u8(img)
+    if img.dim() not in (3, 4) or img.shape[-1] != 3:
+        raise ValueError("pyr_mean_shift_filtering expects [H,W,3] or [N,H,W,3] uint8")
+    if not 0 <= int(max_level) <= 8:
+        raise ValueError("max_level must be in [0, 8]")
+    batch = img if img.dim() == 4 else img[None]
+    out = pyr_mean_shift_planes(batch, float(sp), float(sr), int(max_level), int(max_count),
+                                float(epsilon))
+    return out if img.dim() == 4 else out[0]

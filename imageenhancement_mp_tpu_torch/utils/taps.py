@@ -8,10 +8,16 @@ A verbatim copy of the tap functions in the JAX package's ``ref/ops.py``
 ``gaussian_axes``, ``deriv_kernels``) and of ``ref/stackblur.py``'s ``_MUL``
 and ``_SHR``.  It is copied, not imported, because importing the JAX
 package's ``ref`` runs that package's ``__init__`` and so imports JAX.
-``tests/test_torch_utils.py`` pins each copy to the original.
+``tests/test_torch_utils.py`` pins each copy to the original.  Two
+options serve ``cv2.getGaussianKernel``/``cv2.getDerivKernels`` as the
+oracle's ``get_gaussian_kernel``/``get_deriv_kernels`` compute them:
+``gaussian_kernel(per_tap=True)`` and ``deriv_kernels(normalize=...,
+max_ksize=31)`` (``tests/test_torch_tracking.py`` pins them).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -83,12 +89,25 @@ def _auto_sigma(ksize: int) -> float:
     return 0.3 * ((ksize - 1) * 0.5 - 1.0) + 0.8
 
 
-def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
-    """``cv2.getGaussianKernel(ksize, sigma)`` as float64 taps."""
+def gaussian_kernel(ksize: int, sigma: float, per_tap: bool = False) -> np.ndarray:
+    """``cv2.getGaussianKernel(ksize, sigma)`` as float64 taps: the
+    oracle's vectorised form, or with ``per_tap`` cv2's own arithmetic as
+    ``ref/ops.py::get_gaussian_kernel`` pins it (libm ``exp`` of
+    ``−0.5/σ²·x²`` per tap, a sequential sum, then a multiplication by its
+    reciprocal).  The two differ by an ulp on some taps; the fixed tables
+    (σ ≤ 0, k ≤ 9) are the same."""
     if sigma <= 0:
         if ksize in _BINOMIAL_FX:
             return _BINOMIAL_FX[ksize] / 256.0
         sigma = _auto_sigma(ksize)
+    if per_tap:
+        scale2x = -0.5 / (sigma * sigma)
+        k = np.asarray([math.exp(scale2x * (i - (ksize - 1) * 0.5) ** 2)
+                        for i in range(ksize)], np.float64)
+        s = 0.0
+        for v in k:
+            s += v
+        return k * (1.0 / s)
     i = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
     g = np.exp(-(i * i) / (2.0 * sigma * sigma))
     return g / g.sum()
@@ -122,8 +141,9 @@ def gaussian_axes(ksize, sigma: float, sigma_y: float, depth_u8: bool):
     return kh, kw, sy, sx
 
 
-def deriv_kernels(dx: int, dy: int, ksize: int = 3):
-    """``cv2.getDerivKernels(dx, dy, ksize)`` (normalize=False) — exact.
+def deriv_kernels(dx: int, dy: int, ksize: int = 3, normalize: bool = False,
+                  max_ksize: int = 27):
+    """``cv2.getDerivKernels(dx, dy, ksize, normalize)`` — exact.
 
     Pinned generation rule (verified against cv2 over the full grid in
     tests): each axis kernel of order ``o`` is
@@ -131,19 +151,24 @@ def deriv_kernels(dx: int, dy: int, ksize: int = 3):
     ``ksize == 1`` and ``o > 0`` (no smoothing), else ``ksize``.
     ``ksize = -1`` selects the Scharr pair ([3,10,3] smoothing,
     [−1,0,1] derivative; requires dx+dy == 1).  Returns (kx, ky) int
-    row vectors (x = columns axis, like cv2).
+    row vectors (x = columns axis, like cv2); with ``normalize`` float64
+    ones, each Sobel axis scaled by ``1/2^(ksz−order−1)`` and the Scharr
+    smoothing by 1/32.  ``max_ksize``: 27 keeps the filters' exact
+    integer domain; cv2 itself takes up to 31.
     """
     if ksize == -1:
         if dx + dy != 1 or min(dx, dy) != 0:
             raise ValueError("Scharr (ksize=-1) needs (dx,dy) in {(1,0),(0,1)}")
         d = np.array([-1, 0, 1], np.int64)
         s = np.array([3, 10, 3], np.int64)
+        if normalize:
+            d, s = d.astype(np.float64), s * (1.0 / 32.0)
         return (d, s) if dx == 1 else (s, d)
-    if ksize % 2 == 0 or ksize < 1 or ksize > 27:
+    if ksize % 2 == 0 or ksize < 1 or ksize > max_ksize:
         # cv2 allows up to 31 but returns FLOAT kernels whose binomials
-        # round in f32 beyond k=27 (C(28,14) > 2^24); we keep the exact
-        # integer domain
-        raise ValueError(f"ksize must be -1 or odd in [1, 27], got {ksize}")
+        # round in f32 beyond k=27 (C(28,14) > 2^24); the filters keep the
+        # exact integer domain
+        raise ValueError(f"ksize must be -1 or odd in [1, {max_ksize}], got {ksize}")
 
     def one(order):
         ksz = 3 if (ksize == 1 and order > 0) else ksize
@@ -154,7 +179,7 @@ def deriv_kernels(dx: int, dy: int, ksize: int = 3):
             k = np.convolve(k, [1, 1])
         for _ in range(order):
             k = np.convolve(k, [-1, 1])
-        return k
+        return k * (1.0 / (1 << (ksz - order - 1))) if normalize else k
 
     return one(dx), one(dy)
 

@@ -2,8 +2,9 @@
 registry names, each callable through make_pipeline on a small u8 plane;
 the inspection chain (resize area → tophat 15 → Canny, then connected
 components) through make_pipeline at 0 LSB against JAX's make_pipeline and
-the ref/ chain; the 19 api functions of this slice with JAX's parameter
-names and defaults; the 62 names of the port's api.__all__."""
+the ref/ chain; the 19 api functions of the registry's slice and the 32
+of the arithmetic, statistics and tracking slice with JAX's parameter
+names and defaults; the 94 names of the port's api.__all__."""
 
 import inspect
 
@@ -25,6 +26,13 @@ NEW_API = ("add_weighted", "integral", "apply_color_map", "calc_back_project", "
            "sep_filter2d", "pyr_down", "pyr_up", "resize", "flip", "rotate", "transpose", "canny",
            "connected_components", "erode", "dilate", "morphology_ex", "get_structuring_element",
            "match_template")
+SLICE18_API = ("add", "subtract", "absdiff", "multiply", "divide", "bitwise_and", "bitwise_or",
+               "bitwise_xor", "bitwise_not", "minimum", "maximum", "compare", "accumulate",
+               "accumulate_square", "accumulate_product", "accumulate_weighted", "blend_linear",
+               "psnr", "norm", "mean_std_dev", "min_max_loc", "moments_device", "compare_hist",
+               "get_gaussian_kernel", "get_deriv_kernels", "get_rect_sub_pix", "corner_sub_pix",
+               "good_features_to_track", "calc_optical_flow_pyr_lk", "mean_shift", "cam_shift",
+               "pyr_mean_shift_filtering")
 
 
 def _chain(oh, ow):
@@ -38,9 +46,10 @@ def test_registry_equals_jax():
 
 
 def test_api_names_and_signatures():
-    assert len(port_api.__all__) == len(set(port_api.__all__)) == 62
-    assert set(NEW_API) <= set(port_api.__all__)
-    for name in NEW_API:
+    assert len(port_api.__all__) == len(set(port_api.__all__)) == 94
+    assert len(SLICE18_API) == len(set(SLICE18_API)) == 32
+    assert set(NEW_API + SLICE18_API) <= set(port_api.__all__)
+    for name in NEW_API + SLICE18_API:
         mine = inspect.signature(getattr(port_api, name)).parameters
         theirs = inspect.signature(getattr(jax_api, name)).parameters
         assert list(mine) == list(theirs), name
