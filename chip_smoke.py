@@ -235,7 +235,27 @@
    timed at 480x640 and 720x1280.  Each family prints its ms per call back
    to back, its device launches per call and busy share under
    torch.profiler.
-14. Prints a one-line JSON per-kernel summary (launches on the main paths,
+14. OpenCV's photo module and its companions (plain torch on the card;
+   merge_debevec's two f32 tables through apply_lut256_wide, decolor's u8
+   Lab legs through take_table): edgePreservingFilter (recursive and
+   normconv), detailEnhance, stylization and pencilSketch at cv2's defaults
+   on one 1080x1920x3 u8 frame; a three-exposure 2160x3840x3 bracket with
+   known shifts through align_mtb (the shifts found equal the true ones) ->
+   merge_mertens and merge_debevec (times 1/30, 1/8, 1/2: exactly 2
+   apply_lut256_wide launches) -> tonemap (gamma 2.2), Reinhard, Drago and
+   Mantiuk; decolor at 1080x1920x3 (exactly 15 take_table launches);
+   denoise_tvl1 on 3 observations of 1080x1920, 30 iterations;
+   phase_correlate of a 1080x1920 f32 pair under a Hanning window (within
+   0.05 px of the true shift); seamless_clone of a 400x600 RGB region into a
+   1080x1920 frame; inpaint (Telea, radius 3) of a 480x640 gray image with
+   strokes over 1 % of it.  Each with counters of its own, card against CPU
+   (pencil, align_mtb and inpaint at 0; the filters and TV-L1 +-1 with the
+   differing pixels counted; Mertens 1e-4, Debevec 1e-4 relative, tonemap
+   6e-8, the other tonemaps 5e-5 on values finite on both with more than
+   99.9 % finite; decolor gray +-1 and boost 8; seamless max 2, mean 0.05;
+   the phase shift 0.05 px), each printed with its ms per call, device
+   launches per call and busy share under torch.profiler.
+15. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -1886,6 +1906,261 @@ def arith_stats_and_tracking(port, dev, smi, on_card, drive, sizes: dict = P13) 
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 14's sizes: a 1080p photo for the photo editor's filters, decolor,
+# TV-L1 and phase correlation, a 4K bracket of three exposures for the HDR
+# chain, a 400x600 region cloned into a 1080p frame, the OpenCV inpaint
+# sample's 480x640 scale
+P14 = {"photo": (1080, 1920), "bracket": (2160, 3840), "tvl1": (3, 1080, 1920),
+       "clone": ((400, 600), (1080, 1920)), "inpaint": (480, 640)}
+BRACKET_SHIFTS = ((3, -5), (0, 0), (-2, 4))      # (dy, dx) of each exposure's crop
+BRACKET_TIMES = (1 / 30, 1 / 8, 1 / 2)
+PHASE_SHIFT = (-5, 3)                             # (dy, dx) of the second frame
+
+
+def photo_scene(H: int, W: int, seed: int) -> np.ndarray:
+    """An RGB photo, u8: crossed sines and an oblique wave over a few flat
+    discs (edges for the edge-preserving filters), noise of sigma 4."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    g = 120 + 40 * np.sin(xx / 37.0) * np.sin(yy / 29.0) + 25 * np.sin((xx + yy) / 61.0)
+    img = np.stack([g, g * 0.8 + 30, 200 - g * 0.6], -1)
+    for _ in range(12):
+        cy, cx, r = rng.uniform(0, H), rng.uniform(0, W), rng.uniform(H / 20, H / 6)
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.uniform(20, 235, 3)
+    return np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+
+
+def smooth_field(H: int, W: int, cell: int, rng) -> np.ndarray:
+    """Normal noise on a grid of ``cell`` pixels, bilinearly upsampled to
+    H x W (f32)."""
+    g = rng.normal(0, 1, (H // cell + 2, W // cell + 2)).astype(np.float32)
+    y, x = np.arange(H, dtype=np.float32) / cell, np.arange(W, dtype=np.float32) / cell
+    y0, x0 = y.astype(np.int64), x.astype(np.int64)
+    fy, fx = (y - y0)[:, None], (x - x0)[None, :]
+    top = g[y0][:, x0] * (1 - fx) + g[y0][:, x0 + 1] * fx
+    bot = g[y0 + 1][:, x0] * (1 - fx) + g[y0 + 1][:, x0 + 1] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def exposure_bracket(H: int, W: int, seed: int) -> list:
+    """Three u8 exposures (BRACKET_TIMES) of a radiance field of about 4
+    stops with random texture at 1, 6 and 24 pixels, each cut from the scene at
+    its BRACKET_SHIFTS offset, with noise of sigma 1 (medians near 9, 36
+    and 144)."""
+    rng = np.random.default_rng(seed)
+    h, w = H + 16, W + 16
+    lum = 400 * np.exp(0.6 * smooth_field(h, w, max(h // 4, 8), rng)
+                       + 0.5 * smooth_field(h, w, 24, rng) + 0.3 * smooth_field(h, w, 6, rng))
+    lum *= rng.uniform(0.7, 1.3, (h, w)).astype(np.float32)
+    rad = np.stack([lum, lum * 0.85, lum * 0.7], -1)
+    frames = []
+    for t, (dy, dx) in zip(BRACKET_TIMES, BRACKET_SHIFTS):
+        crop = rad[8 + dy:8 + dy + H, 8 + dx:8 + dx + W] * t
+        frames.append(np.clip(crop + rng.normal(0, 1, crop.shape), 0, 255).astype(np.uint8))
+    return frames
+
+
+def stroke_mask(H: int, W: int, seed: int, share: float = 0.01) -> np.ndarray:
+    """Random 3-pixel strokes (scratches) over about ``share`` of an H x W
+    image, u8 0/255."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((H, W), np.uint8)
+    while (m > 0).mean() < share:
+        y0, x0 = rng.uniform(8, H - 8), rng.uniform(8, W - 8)
+        ang, n = rng.uniform(0, np.pi), int(rng.uniform(20, 90))
+        ys = np.clip(np.round(y0 + np.sin(ang) * np.arange(n)), 2, H - 3).astype(int)
+        xs = np.clip(np.round(x0 + np.cos(ang) * np.arange(n)), 2, W - 3).astype(int)
+        for d in (-1, 0, 1):
+            m[ys + d, xs] = 255
+    return m
+
+
+def _near(got, want, what: str, lsb: int = None, tol: float = None, rel: bool = False,
+          finite: float = None) -> None:
+    """Card against CPU within a tolerance: integer outputs within ``lsb``
+    (the differing values counted), float outputs within ``tol`` (absolute,
+    or relative to max(|want|, 1e-4)) on the values finite on both, at
+    least ``finite`` of them finite (else finite at the same places)."""
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: card {tuple(got.shape)} {got.dtype}, CPU "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if lsb is not None:
+        d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        m = int(d.max()) if d.numel() else 0
+        print(f"  {what}: card vs CPU max {m} LSB, {int((d > 0).sum())} of {d.numel()} differ")
+        if m > lsb:
+            raise AssertionError(f"{what}: card vs CPU {m} LSB (limit {lsb})")
+        return
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    share = float(fin.float().mean())
+    if finite is None and not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"{what}: non-finite values at other places")
+    if finite is not None and share <= finite:
+        raise AssertionError(f"{what}: {share:.6f} finite on both (limit {finite})")
+    g, w = got[fin].double(), want[fin].double()
+    d = (g - w).abs() / (w.abs().clamp_min(1e-4) if rel else 1.0)
+    m = float(d.max()) if d.numel() else 0.0
+    print(f"  {what}: card vs CPU max {'relative' if rel else 'abs'} err {m:.3g} "
+          f"(limit {tol}), {share:.6f} finite")
+    if m > tol:
+        raise AssertionError(f"{what}: card vs CPU {m} (limit {tol})")
+
+
+def photo_and_hdr(port, dev, smi, on_card, drive, sizes: dict = P14) -> None:
+    """Phase 14: the photo module's filters, the HDR bracket chain, decolor,
+    TV-L1, phase correlation, seamless cloning and inpainting at the sizes
+    their users run, each with counters of its own, card against CPU, timed
+    with its launches and busy share."""
+    from imageenhancement_mp_tpu_torch.utils.photo_host import create_hanning_window, mtb_shifts
+
+    t_phase = time.perf_counter()
+
+    def run(label, fn, args, expect=None, **tol):
+        """Drive ``fn(*args)`` on the card with counters of its own, hold
+        each output against the same call on the CPU, return the card's."""
+        g = [on_card(a) if isinstance(a, np.ndarray) else a for a in args]
+        out, _ = drive(label, lambda: fn(*g), expect or {})
+        _on(dev, out)
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+               for a in args]
+        for i, (o, w) in enumerate(zip(_flat(out), _flat(fn(*cpu)), strict=True)):
+            _near(o, w, f"{label} [{i}]", **tol) if tol else _same(o, w, f"{label} [{i}]")
+        return out, g
+
+    # -- the photo editor's filters on one 1080p frame, cv2's defaults
+    t0 = time.perf_counter()
+    H, W = sizes["photo"]
+    photo = photo_scene(H, W, 1401)
+    filters = [("edge_preserving_filter recursive (60, 0.4)", port.edge_preserving_filter, {}),
+               ("edge_preserving_filter normconv (60, 0.4)",
+                lambda im: port.edge_preserving_filter(im, "normconv"), {}),
+               ("detail_enhance (10, 0.15)", port.detail_enhance, {}),
+               ("stylization (60, 0.45)", port.stylization, {}),
+               ("pencil_sketch (60, 0.07, 0.02)", port.pencil_sketch, None)]
+    for name, fn, tol in filters:
+        label = f"{name} {H}x{W}x3"
+        _, g = run(label, fn, (photo,), **({} if tol is None else {"lsb": 1}))
+        family_line(f"family photo: {label}", lambda: fn(g[0]), smi, 2, 1, 1)
+    print(f"phase 14 domain-transform filters: card vs CPU within their limits "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- the HDR bracket: align, merge both ways, tonemap
+    t0 = time.perf_counter()
+    H, W = sizes["bracket"]
+    frames = exposure_bracket(H, W, 1402)
+    stack = np.stack(frames)
+    label = f"align_mtb 3x{H}x{W}x3"
+    aligned, g = run(label, port.align_mtb, (stack,))
+    shifts = mtb_shifts([port.cvt_gray(torch.from_numpy(f)).numpy() for f in frames])
+    want = [(dx, dy) for dy, dx in BRACKET_SHIFTS]
+    print(f"{label}: shifts {shifts}, true {want}; aligned to {tuple(aligned[0].shape)}")
+    if shifts != want:
+        raise AssertionError(f"{label}: shifts {shifts}, true {want}")
+    family_line(f"family HDR: {label}", lambda: port.align_mtb(g[0]), smi, 2, 1, 1)
+    al = torch.stack(aligned)
+    al_cpu = al.cpu()
+    ah, aw = al.shape[1:3]
+    label = f"merge_mertens 3x{ah}x{aw}x3"
+    fused, _ = drive(label, lambda: port.merge_mertens(al), {})
+    _near(fused, port.merge_mertens(al_cpu), label, tol=1e-4)
+    family_line(f"family HDR: {label}", lambda: port.merge_mertens(al), smi)
+    label = f"merge_debevec 3x{ah}x{aw}x3 (1/30, 1/8, 1/2 s)"
+    hdr, _ = drive(label, lambda: port.merge_debevec(al, BRACKET_TIMES),
+                   {"apply_lut256_wide": 2})
+    hdr_cpu = port.merge_debevec(al_cpu, BRACKET_TIMES)
+    _near(hdr, hdr_cpu, label, tol=1e-4, rel=True)
+    family_line(f"family HDR: {label}", lambda: port.merge_debevec(al, BRACKET_TIMES), smi)
+    for name, fn, tol in (("tonemap(2.2)", lambda x: port.tonemap(x, 2.2), dict(tol=6e-8)),
+                          ("tonemap_reinhard", port.tonemap_reinhard,
+                           dict(tol=5e-5, finite=0.999)),
+                          ("tonemap_drago", port.tonemap_drago, dict(tol=5e-5, finite=0.999)),
+                          ("tonemap_mantiuk", port.tonemap_mantiuk,
+                           dict(tol=5e-5, finite=0.999))):
+        label = f"{name} of the radiance {ah}x{aw}x3"
+        mapped, _ = drive(label, lambda: fn(hdr), {})
+        _near(mapped, fn(hdr_cpu), label, **tol)
+        family_line(f"family HDR: {label}", lambda: fn(hdr), smi)
+    print(f"phase 14 HDR chain: card vs CPU within their limits ({time.perf_counter() - t0:.1f} s)")
+    del al, al_cpu, hdr, hdr_cpu, aligned, g, stack, frames, fused, mapped
+
+    # -- decolor and TV-L1 on 1080p
+    t0 = time.perf_counter()
+    H, W = sizes["photo"]
+    label = f"decolor {H}x{W}x3"
+    gphoto = on_card(photo)
+    (g8, boost), _ = drive(label, lambda: port.decolor(gphoto), {"take_table": 15})
+    _on(dev, (g8, boost))
+    want_g, want_b = port.decolor(torch.from_numpy(photo))
+    _near(g8, want_g, f"{label} gray", lsb=1)
+    _near(boost, want_b, f"{label} color boost", lsb=8)
+    family_line(f"family decolor: {label}", lambda: port.decolor(gphoto), smi, 2, 1, 1)
+    K, H, W = sizes["tvl1"]
+    clean = photo_scene(H, W, 1403)[..., 1]
+    rng = np.random.default_rng(1404)
+    obs = np.stack([np.clip(clean + rng.normal(0, 20, clean.shape), 0, 255).astype(np.uint8)
+                    for _ in range(K)])
+    label = f"denoise_tvl1 {K}x{H}x{W}, 30 iterations"
+    out, g = run(label, port.denoise_tvl1, (obs,), lsb=1)
+    err_in = float(np.abs(obs[0].astype(float) - clean).mean())
+    err_out = float((out.cpu().double() - torch.from_numpy(clean).double()).abs().mean())
+    print(f"  {label}: mean |error| {err_in:.2f} in the first observation, {err_out:.2f} after")
+    family_line(f"family TV-L1: {label}", lambda: port.denoise_tvl1(g[0]), smi)
+    print(f"phase 14 decolor and TV-L1: card vs CPU within their limits "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase correlation with a Hanning window
+    t0 = time.perf_counter()
+    H, W = sizes["photo"]
+    big = photo_scene(H + 16, W + 16, 1405)[..., 0].astype(np.float32)
+    dy, dx = PHASE_SHIFT
+    a, b = big[8:8 + H, 8:8 + W], big[8 + dy:8 + dy + H, 8 + dx:8 + dx + W]
+    win = create_hanning_window((H, W)).astype(np.float32)
+    ga, gb, gw = on_card(a), on_card(b), on_card(win)
+    label = f"phase_correlate {H}x{W} f32, Hanning window"
+    (px, py), resp = drive(label, lambda: port.phase_correlate(ga, gb, gw), {})[0]
+    (cx, cy), cresp = port.phase_correlate(*(torch.from_numpy(v) for v in (a, b, win)))
+    print(f"{label}: card ({px:.5f}, {py:.5f}) response {resp:.5f}, CPU ({cx:.5f}, {cy:.5f}) "
+          f"{cresp:.5f}, true ({-dx}, {-dy})")
+    if max(abs(px - cx), abs(py - cy), abs(px + dx), abs(py + dy)) >= 0.05:
+        raise AssertionError(f"{label}: shift off the CPU's or the true one by 0.05 px or more")
+    family_line(f"family phase correlation: {label}", lambda: port.phase_correlate(ga, gb, gw),
+                smi, 5)
+
+    # -- seamless cloning of a region into a frame
+    (rh, rw), (H, W) = sizes["clone"]
+    src = photo_scene(H, W, 1406)
+    dst = photo_scene(H, W, 1407)
+    mask = np.zeros((H, W), np.uint8)
+    yy, xx = np.ogrid[0:H, 0:W]
+    mask[((yy - H / 2) / (rh / 2)) ** 2 + ((xx - W / 2) / (rw / 2)) ** 2 < 1] = 255
+    label = f"seamless_clone of a {rh}x{rw} region into {H}x{W}x3"
+    g = [on_card(v) for v in (src, dst, mask)]
+    out, _ = drive(label, lambda: port.seamless_clone(*g, (W // 2, H // 2)), {})
+    _on(dev, out)
+    want = port.seamless_clone(*(torch.from_numpy(v) for v in (src, dst, mask)), (W // 2, H // 2))
+    _near(out, want, label, lsb=2)
+    mean = float((out.cpu().to(torch.int64) - want.to(torch.int64)).abs().double().mean())
+    if mean >= 0.05:
+        raise AssertionError(f"{label}: card vs CPU mean {mean}")
+    family_line(f"family seamless clone: {label}",
+                lambda: port.seamless_clone(*g, (W // 2, H // 2)), smi, 5)
+
+    # -- inpainting scratches, the OpenCV sample's scale
+    H, W = sizes["inpaint"]
+    img = photo_scene(H, W, 1408)[..., 1].copy()
+    mask = stroke_mask(H, W, 1409)
+    label = f"inpaint (Telea, radius 3) {H}x{W}, {100 * (mask > 0).mean():.2f} % masked"
+    out, g = run(label, lambda im, m: port.inpaint(im, m, 3.0), (img, mask))
+    t1 = time.perf_counter()
+    port.inpaint(g[0], g[1], 3.0)
+    print(f"  family inpaint: {label}: {(time.perf_counter() - t1) * 1e3:.1f} ms on the host "
+          f"clock (a host helper: no device launch)  [{smi}]")
+    print(f"phase 14 phase correlation, seamless clone and inpaint: card vs CPU within their "
+          f"limits ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -3168,6 +3443,10 @@ def main() -> None:
     # -- 13. arithmetic, statistics, corners, optical flow, CamShift and
     # mean-shift segmentation
     arith_stats_and_tracking(port, dev, smi, on_card, drive)
+
+    # -- 14. the photo module: domain-transform filters, the HDR bracket,
+    # decolor, TV-L1, phase correlation, seamless clone, inpaint
+    photo_and_hdr(port, dev, smi, on_card, drive)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

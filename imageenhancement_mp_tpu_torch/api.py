@@ -32,8 +32,10 @@ from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
 from imageenhancement_mp_tpu_torch.ops import morphology
 from imageenhancement_mp_tpu_torch.ops.nlmeans import (fast_nl_means_multi_vec,
                                                        fast_nl_means_u16_vec, fast_nl_means_vec)
+from imageenhancement_mp_tpu_torch.ops import photo
 from imageenhancement_mp_tpu_torch.ops.pyramid import pyr_down_planes, pyr_up_planes
 from imageenhancement_mp_tpu_torch.ops import resize as rs
+from imageenhancement_mp_tpu_torch.ops.seamless import seamless_clone_patch
 from imageenhancement_mp_tpu_torch.ops.subpix import get_rect_sub_pix_planes
 from imageenhancement_mp_tpu_torch.ops.template import match_template_planes
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
@@ -41,7 +43,7 @@ from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_plan
                                                     warp_affine_planes, warp_perspective_planes,
                                                     warp_polar_planes)
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
-from imageenhancement_mp_tpu_torch.utils import tracking, warp_coords
+from imageenhancement_mp_tpu_torch.utils import photo_host, tracking, warp_coords
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.structuring import (get_structuring_element as
                                                              _structuring_element)
@@ -68,7 +70,10 @@ __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch
            "psnr", "norm", "mean_std_dev", "min_max_loc", "moments_device", "compare_hist",
            "get_gaussian_kernel", "get_deriv_kernels", "get_rect_sub_pix", "corner_sub_pix",
            "good_features_to_track", "calc_optical_flow_pyr_lk", "mean_shift", "cam_shift",
-           "pyr_mean_shift_filtering"]
+           "pyr_mean_shift_filtering", "edge_preserving_filter", "detail_enhance", "stylization",
+           "pencil_sketch", "merge_mertens", "tonemap", "decolor", "denoise_tvl1",
+           "tonemap_reinhard", "tonemap_drago", "tonemap_mantiuk", "align_mtb", "merge_debevec",
+           "phase_correlate", "inpaint", "seamless_clone"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -510,7 +515,13 @@ def cvt_gray(img: torch.Tensor, order: str = "rgb") -> torch.Tensor:
     return color.cvt_gray_nhwc(img, str(order))
 
 
+def _need_tensor(x, what: str) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} takes torch.Tensor inputs, got {type(x).__name__}")
+
+
 def _check_u8_rgb(img: torch.Tensor, what: str) -> None:
+    _need_tensor(img, what)
     if img.dtype != torch.uint8:
         raise TypeError(f"{what}, got {img.dtype}")
     if img.dim() not in (3, 4) or img.shape[-1] != 3:
@@ -598,19 +609,34 @@ def fast_nl_means_denoising_colored(img: torch.Tensor, h: float = 3.0, h_color: 
     return out if lab.dim() == 4 else out[0]
 
 
+def _frames(frames, what: str):
+    """A stacked tensor as it is, or a list of tensor frames; NumPy frames
+    raise (each frame stays on its own device)."""
+    if isinstance(frames, torch.Tensor):
+        return frames
+    if not isinstance(frames, (list, tuple)) or not all(
+            isinstance(f, torch.Tensor) for f in frames):
+        raise TypeError(f"{what} takes a stacked torch.Tensor or a list of torch.Tensor "
+                        f"frames, not NumPy arrays")
+    if not frames:
+        raise ValueError(f"{what}: no frames")
+    return list(frames)
+
+
+def _frame_stack(frames, what: str) -> torch.Tensor:
+    frames = _frames(frames, what)
+    return frames if isinstance(frames, torch.Tensor) else torch.stack(frames)
+
+
 def _temporal_stack(frames, idx: int, tw: int) -> torch.Tensor:
     tw, idx = int(tw), int(idx)
     if tw % 2 == 0:
         raise ValueError("temporalWindowSize must be odd")
-    n = frames.shape[0] if isinstance(frames, torch.Tensor) else len(frames)
+    frames = _frames(frames, "fastNlMeansDenoisingMulti")
     lo = idx - tw // 2
-    if lo < 0 or idx + tw // 2 >= n:
+    if lo < 0 or idx + tw // 2 >= len(frames):
         raise ValueError("temporal window exceeds the frame list")
-    if isinstance(frames, torch.Tensor):
-        stack = frames[lo:lo + tw]
-    else:
-        stack = torch.stack([f if isinstance(f, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(f)) for f in frames[lo:lo + tw]])
+    stack = _frame_stack(frames[lo:lo + tw], "fastNlMeansDenoisingMulti")
     if stack.dtype != torch.uint8:
         raise TypeError("fastNlMeansDenoisingMulti requires uint8 frames")
     return stack
@@ -623,7 +649,7 @@ def fast_nl_means_denoising_multi(frames, img_to_denoise_index: int, temporal_wi
     search set is every spatial offset in every frame of the odd
     ``temporal_window_size`` window centred on ``img_to_denoise_index``;
     templates come from the target frame.  ``frames`` is a ``[T,H,W]`` or
-    ``[T,H,W,C]`` uint8 tensor (or a list of frames); returns the denoised
+    ``[T,H,W,C]`` uint8 tensor (or a list of frame tensors); returns the denoised
     target frame."""
     stack = _temporal_stack(frames, img_to_denoise_index, temporal_window_size)
     if stack.dim() not in (3, 4) or (stack.dim() == 4 and stack.shape[-1] not in (1, 2, 3, 4)):
@@ -645,7 +671,7 @@ def fast_nl_means_denoising_colored_multi(frames, img_to_denoise_index: int,
     frame converted with the linear-RGB Lab variant, temporal NLMeans on L
     with ``h`` and on the (a, b) pairs with ``h_color``, the target
     converted back.  ``frames`` is a ``[T,H,W,3]`` uint8 tensor (or a
-    list); returns the denoised target."""
+    list of frame tensors); returns the denoised target."""
     stack = _temporal_stack(frames, img_to_denoise_index, temporal_window_size)
     if stack.dim() != 4 or stack.shape[-1] != 3:
         raise ValueError(f"expected [T,H,W,3] frames, got {tuple(stack.shape)}")
@@ -1123,3 +1149,298 @@ def pyr_mean_shift_filtering(img: torch.Tensor, sp: float, sr: float, max_level:
     out = pyr_mean_shift_planes(batch, float(sp), float(sr), int(max_level), int(max_count),
                                 float(epsilon))
     return out if img.dim() == 4 else out[0]
+
+
+# -- OpenCV's photo module and its companions: the domain-transform filters,
+# the HDR merges and tonemaps, decolor, TV-L1 (plain torch on the input's
+# device; merge_debevec's two tables through apply_lut256, decolor's u8 Lab
+# legs through take_table), AlignMTB, phaseCorrelate, seamlessClone and
+# inpaint (their host legs in utils/photo_host.py)
+
+def _batched(fn, img: torch.Tensor):
+    out = fn(img if img.dim() == 4 else img[None])
+    if img.dim() == 4:
+        return out
+    return tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
+
+
+def edge_preserving_filter(img: torch.Tensor, flags: str = "recursive", sigma_s: float = 60.0,
+                           sigma_r: float = 0.4) -> torch.Tensor:
+    """``cv2.edgePreservingFilter`` — the Gastal domain transform on u8
+    ``[H,W,3]`` / ``[N,H,W,3]``: ``flags='recursive'`` (RECURS_FILTER, the f32
+    IIR chains one torch op per step) or ``'normconv'`` (NORMCONV_FILTER:
+    sequential f32 coordinates, ``searchsorted`` box bounds, box means)."""
+    _check_u8_rgb(img, "edgePreservingFilter is uint8")
+    if flags not in ("recursive", "normconv"):
+        raise ValueError(f"flags must be 'recursive' or 'normconv', got {flags!r}")
+    return _batched(lambda x: photo.edge_preserving_filter_nhwc(
+        x, flags, float(sigma_s), float(sigma_r)), img)
+
+
+def detail_enhance(img: torch.Tensor, sigma_s: float = 10.0, sigma_r: float = 0.15,
+                   order: str = "rgb") -> torch.Tensor:
+    """``cv2.detailEnhance`` — the RF filter on the f32 Lab L plane, the
+    detail layer boosted 3×.  u8 ``[H,W,3]`` / ``[N,H,W,3]``."""
+    _check_u8_rgb(img, "detailEnhance is uint8")
+    color._order(order)
+    return _batched(lambda x: photo.detail_enhance_nhwc(
+        x, float(sigma_s), float(sigma_r), order), img)
+
+
+def stylization(img: torch.Tensor, sigma_s: float = 60.0, sigma_r: float = 0.45) -> torch.Tensor:
+    """``cv2.stylization`` — the NC domain-transform filter and Sobel edge
+    darkening.  u8 ``[H,W,3]`` / ``[N,H,W,3]``."""
+    _check_u8_rgb(img, "stylization is uint8")
+    return _batched(lambda x: photo.stylization_nhwc(x, float(sigma_s), float(sigma_r)), img)
+
+
+def pencil_sketch(img: torch.Tensor, sigma_s: float = 60.0, sigma_r: float = 0.07,
+                  shade_factor: float = 0.02, order: str = "rgb"):
+    """``cv2.pencilSketch`` — ``(gray u8 [..H,W], color u8 [..H,W,3])``, the
+    oracle's law bit for bit.  u8 ``[H,W,3]`` / ``[N,H,W,3]``."""
+    _check_u8_rgb(img, "pencilSketch is uint8")
+    color._order(order)
+    return _batched(lambda x: photo.pencil_sketch_nhwc(
+        x, float(sigma_s), float(sigma_r), float(shade_factor), order), img)
+
+
+def _stack_rgb_u8(frames, what: str) -> torch.Tensor:
+    stack = _frame_stack(frames, what)
+    if stack.dim() != 4 or stack.shape[-1] != 3:
+        raise ValueError(f"expected [T,H,W,3] frames, got {tuple(stack.shape)}")
+    if stack.dtype != torch.uint8:
+        raise TypeError(f"{what} expects uint8 frames, got {stack.dtype}")
+    return stack
+
+
+def merge_mertens(images, contrast_weight: float = 1.0, saturation_weight: float = 1.0,
+                  exposure_weight: float = 0.0) -> torch.Tensor:
+    """``cv2.createMergeMertens(...).process`` — exposure fusion of a
+    ``[T,H,W,3]`` u8 tensor (or a list of frames) into f32 ``[H,W,3]``
+    (about [0, 1]; scale by 255 and clip to display)."""
+    stack = _stack_rgb_u8(images, "merge_mertens")
+    return photo.merge_mertens_nhwc(stack, float(contrast_weight), float(saturation_weight),
+                                    float(exposure_weight))
+
+
+def _check_f32(img, what: str) -> None:
+    _need_tensor(img, what)
+    if img.dtype != torch.float32:
+        raise TypeError(f"{what} expects float32 HDR input, got {img.dtype}")
+
+
+def tonemap(img: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+    """``cv2.createTonemap(gamma).process`` — global min-max normalize and
+    ``pow(1/gamma)``; a constant image maps to zeros.  f32 ``[H,W,3]``."""
+    _check_f32(img, "tonemap")
+    return photo.tonemap_nhwc(img, float(gamma))
+
+
+def decolor(img: torch.Tensor, order: str = "rgb"):
+    """``cv2.decolor`` — ``(grayscale u8 [H,W], color_boost u8 [H,W,3])``.
+    The 9 polynomial weights solve on the host over the fetched image (at
+    most 800 rows plus columns of work image); the evaluation, min-max
+    normalize and the u8 Lab L-replacement (15 ``take_table`` lookups) run
+    on the device."""
+    _need_tensor(img, "decolor")
+    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[-1] != 3:
+        raise TypeError("decolor expects a uint8 [H,W,3] image")
+    if order not in ("rgb", "bgr"):
+        raise ValueError(f"unknown channel order {order!r}")
+    rgb = img.flip(-1) if order == "bgr" else img
+    wei, combs = photo_host.decolor_weights(_host(rgb).astype(np.float32) / np.float32(255.0))
+    x = rgb.to(torch.float32) * color._f(1.0 / 255.0, rgb)
+    chans = (x[..., 0], x[..., 1], x[..., 2])
+    gray = torch.zeros_like(chans[0])
+    for w, exps in zip(wei, combs):
+        term = color._f(w, x)
+        for ch, e in zip(chans, exps):
+            if e:
+                term = term * (ch if e == 1 else ch * ch)
+        gray = gray + term
+    mn, mx = gray.min(), gray.max()
+    gray = torch.where(mx > mn, (gray - mn) / (mx - mn), gray * 0)
+    g8 = torch.round(gray * color._f(255.0, x)).clamp(0, 255).to(torch.uint8)
+    lab = color.rgb_to_lab_nhwc(rgb.contiguous(), "rgb")
+    boost = color.lab_to_rgb_nhwc(torch.cat([g8[..., None], lab[..., 1:]], dim=-1), "rgb")
+    return g8, (boost.flip(-1) if order == "bgr" else boost)
+
+
+def denoise_tvl1(observations, lam: float = 1.0, niters: int = 30) -> torch.Tensor:
+    """``cv2.denoise_TVL1`` — the Chambolle-Pock primal-dual TV-L1 denoiser
+    on one or more noisy u8 ``[H,W]`` observations: a list of tensors or one
+    ``[K,H,W]`` (or ``[H,W]``) tensor."""
+    stack = _frame_stack(observations, "denoise_tvl1")
+    if stack.dim() == 2:
+        stack = stack[None]
+    if stack.dtype != torch.uint8 or stack.dim() != 3:
+        raise TypeError("denoise_tvl1 expects uint8 [H,W] observations")
+    if int(niters) < 1 or float(lam) <= 0:
+        raise ValueError("niters must be >= 1 and lam > 0")
+    return photo.denoise_tvl1_stack(stack, float(lam), int(niters))
+
+
+def tonemap_reinhard(img: torch.Tensor, gamma: float = 1.0, intensity: float = 0.0,
+                     light_adapt: float = 1.0, color_adapt: float = 0.0) -> torch.Tensor:
+    """``cv2.createTonemapReinhard(...).process`` — f32 ``[H,W,3]`` HDR in,
+    f32 [0, 1] out."""
+    _check_f32(img, "tonemap_reinhard")
+    return photo.tonemap_reinhard_nhwc(img[None], float(gamma), float(intensity),
+                                       float(light_adapt), float(color_adapt))[0]
+
+
+def tonemap_drago(img: torch.Tensor, gamma: float = 1.0, saturation: float = 1.0,
+                  bias: float = 0.85) -> torch.Tensor:
+    """``cv2.createTonemapDrago(...).process`` — f32 ``[H,W,3]``."""
+    _check_f32(img, "tonemap_drago")
+    return photo.tonemap_drago_nhwc(img[None], float(gamma), float(saturation), float(bias))[0]
+
+
+def tonemap_mantiuk(img: torch.Tensor, gamma: float = 1.0, scale: float = 0.7,
+                    saturation: float = 1.0) -> torch.Tensor:
+    """``cv2.createTonemapMantiuk(...).process`` in its closed form
+    ``L' = L^(scale^(1/0.4185))`` — f32 ``[H,W,3]``."""
+    _check_f32(img, "tonemap_mantiuk")
+    return photo.tonemap_mantiuk_nhwc(img[None], float(gamma), float(scale),
+                                      float(saturation))[0]
+
+
+def _shift(img: torch.Tensor, sx: int, sy: int) -> torch.Tensor:
+    """``cv2.AlignMTB.shiftMat``: translate by ``(sx, sy)``, zero fill."""
+    out = torch.zeros_like(img)
+    H, W = img.shape[:2]
+    out[max(0, sy):min(H, H + sy), max(0, sx):min(W, W + sx)] = \
+        img[max(0, -sy):min(H, H - sy), max(0, -sx):min(W, W - sx)]
+    return out
+
+
+def align_mtb(frames, max_bits: int = 6, exclude_range: int = 4, cut: bool = True) -> list:
+    """``cv2.createAlignMTB(...).process`` — median-threshold-bitmap
+    alignment of an exposure stack to its middle frame, bit-exact: the u8
+    grays on the device, the greedy pyramid search over them on the host,
+    the shifts and the crop to the common region (``cut``) on the device.
+    ``frames``: a ``[T,H,W,3]`` u8 tensor or a list of frames; returns a
+    list of aligned frames on their device."""
+    frames = _frames(frames, "align_mtb")
+    if isinstance(frames, torch.Tensor) and (frames.dim() != 4 or frames.shape[-1] != 3):
+        raise ValueError(f"expected [T,H,W,3], got {tuple(frames.shape)}")
+    if any(f.dim() != 3 or f.shape[-1] != 3 for f in frames):
+        raise ValueError("align_mtb expects a list of [H,W,3] u8 frames")
+    grays = [_host(color.cvt_gray_nhwc(f, "rgb")) for f in frames]
+    shifts = photo_host.mtb_shifts(grays, int(max_bits), int(exclude_range))
+    out = [_shift(f, sx, sy) for f, (sx, sy) in zip(frames, shifts)]
+    if cut:
+        xs, ys = [s[0] for s in shifts], [s[1] for s in shifts]
+        mx, my = max(0, max(xs)), max(0, max(ys))
+        nx, ny = min(0, min(xs)), min(0, min(ys))
+        H, W = frames[0].shape[:2]
+        out = [o[my:H + ny, mx:W + nx] for o in out]
+    return out
+
+
+def merge_debevec(frames, times) -> torch.Tensor:
+    """``cv2.createMergeDebevec().process`` — HDR radiance from a
+    ``[T,H,W,3]`` u8 tensor (or a list of frames) and the exposure times in
+    seconds: f32 ``[H,W,3]``.  Its two 256-entry f32 tables are two
+    ``apply_lut256`` lookups (``apply_lut256_wide`` on CUDA)."""
+    stack = _stack_rgb_u8(frames, "merge_debevec")
+    t = tuple(float(v) for v in np.asarray(times).ravel())
+    if len(t) != stack.shape[0]:
+        raise ValueError("times must match the number of frames")
+    return photo.merge_debevec_nhwc(stack, t)
+
+
+def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window=None):
+    """``cv2.phaseCorrelate`` — sub-pixel translation between two equal-size
+    single-channel frames, one device program on ``torch.fft`` (f32
+    spectra): the optional window, the zero pad to the optimal DFT size,
+    the normalized cross-power spectrum, the first maximum of its shifted
+    inverse and the clamped 5×5 centroid.  Returns ``((dx, dy),
+    response)``."""
+    _need_tensor(src1, "phase_correlate")
+    _need_tensor(src2, "phase_correlate")
+    if src1.dim() != 2 or tuple(src2.shape) != tuple(src1.shape):
+        raise ValueError("phase_correlate expects equal-shape 2-D inputs")
+    H, W = src1.shape
+    M, N = photo_host.optimal_dft_size(H), photo_host.optimal_dft_size(W)
+    dev = src1.device
+    a, b = src1.to(torch.float32), src2.to(dev, torch.float32)
+    if window is not None:
+        _need_tensor(window, "phase_correlate")
+        w = window.to(dev, torch.float32)
+        a, b = a * w, b * w
+    pa = torch.zeros((M, N), dtype=torch.float32, device=dev)
+    pb = torch.zeros_like(pa)
+    pa[:H, :W] = a
+    pb[:H, :W] = b
+    P = torch.fft.fft2(pa) * torch.conj(torch.fft.fft2(pb))
+    mag = P.abs()
+    zero = mag == 0
+    Q = torch.where(zero, torch.zeros_like(P), P / torch.where(zero, torch.ones_like(mag), mag))
+    C = torch.fft.fftshift(torch.fft.ifft2(Q).real)
+    flat = torch.argmax(C)
+    py, px = flat // N, flat % N
+    off = torch.arange(-2, 3, device=dev)
+    ys = (py + off).clamp(0, M - 1)
+    xs = (px + off).clamp(0, N - 1)
+    box = C[ys][:, xs]
+    first = torch.ones(1, dtype=torch.bool, device=dev)
+    uy = torch.cat([first, ys[1:] != ys[:-1]])
+    ux = torch.cat([first, xs[1:] != xs[:-1]])
+    box = torch.where(uy[:, None] & ux[None, :], box, torch.zeros_like(box))
+    s = box.sum()
+    se = s + color._f(1.2e-38, C)
+    cy = (box * ys[:, None].to(torch.float32)).sum() / se
+    cx = (box * xs[None, :].to(torch.float32)).sum() / se
+    dx, dy, resp = torch.stack([N / 2.0 - cx, M / 2.0 - cy, s]).tolist()
+    return (dx, dy), resp
+
+
+def inpaint(img: torch.Tensor, mask: torch.Tensor, inpaint_radius: float = 3.0,
+            flags: str = "telea") -> torch.Tensor:
+    """``cv2.inpaint`` (Telea fast marching) on a grayscale u8 ``[H,W]``
+    image: a host helper by design (a priority-queue fill where every
+    painted pixel feeds the next pop), the oracle's law bit for bit on the
+    fetched image and mask; the result lies on ``img``'s device."""
+    if flags != "telea":
+        raise ValueError("only INPAINT_TELEA is implemented (flags='telea'); cv2's "
+                         "INPAINT_NS iterative solver is not transcribed yet")
+    _need_tensor(img, "inpaint")
+    _need_tensor(mask, "inpaint")
+    out = photo_host.inpaint_telea(_host(img), _host(mask), float(inpaint_radius))
+    return torch.from_numpy(out).to(img.device)
+
+
+def seamless_clone(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor, p,
+                   flags: str = "normal") -> torch.Tensor:
+    """``cv2.seamlessClone`` (NORMAL_CLONE) — Poisson image editing of u8
+    gray or RGB tensors: the mask's bounding box in ``src`` pasted centred
+    at ``p`` (x, y) in ``dst``.  The geometry is host work on the fetched
+    mask; the Poisson solve (type-1 sine transforms through ``torch.fft``)
+    and the paste run on the device."""
+    for t in (src, dst, mask):
+        _need_tensor(t, "seamless_clone")
+    if src.dtype != torch.uint8 or dst.dtype != torch.uint8:
+        raise TypeError("seamless_clone: uint8 images only")
+    if flags != "normal":
+        raise ValueError("only NORMAL_CLONE is implemented (flags='normal')")
+    ys, xs = np.nonzero(_host(mask) != 0)
+    if ys.size == 0:
+        return dst.clone()
+    y0, y1 = int(ys.min()), int(ys.max()) + 1
+    x0, x1 = int(xs.min()), int(xs.max()) + 1
+    h, w = y1 - y0, x1 - x0
+    cx, cy = int(p[0]), int(p[1])
+    dy0, dx0 = cy - h // 2, cx - w // 2
+    if dy0 < 0 or dx0 < 0 or dy0 + h > dst.shape[0] or dx0 + w > dst.shape[1]:
+        raise ValueError("pasted ROI falls outside dst")
+
+    def planes(a):
+        return a[None] if a.dim() == 2 else a.permute(2, 0, 1)
+
+    sp = planes(src[y0:y1, x0:x1])
+    dp = planes(dst[dy0:dy0 + h, dx0:dx0 + w])
+    blended = seamless_clone_patch(sp, dp, mask[y0:y1, x0:x1].to(dst.device) != 0)
+    out = dst.clone()
+    out[dy0:dy0 + h, dx0:dx0 + w] = blended[0] if src.dim() == 2 else blended.permute(1, 2, 0)
+    return out

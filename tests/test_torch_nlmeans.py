@@ -182,8 +182,18 @@ def test_api_multi_matches_jax_and_ref(pallas_on, shape):
     np.testing.assert_array_equal(got, np.asarray(
         jie.fast_nl_means_denoising_multi(x, 2, 3, 7.0, 3, 5)))
     np.testing.assert_array_equal(got, ref.fast_nl_means_denoising_multi(list(x), 2, 3, 7.0, 3, 5))
-    as_list = tie.fast_nl_means_denoising_multi(list(x), 2, 3, 7.0, 3, 5).numpy()
+    as_list = tie.fast_nl_means_denoising_multi([torch.from_numpy(f) for f in x], 2, 3, 7.0, 3,
+                                                5).numpy()
     np.testing.assert_array_equal(as_list, got)
+
+
+@pytest.mark.parametrize("frames", ["list", "stack"])
+def test_api_multi_rejects_numpy_frames(frames):
+    """NumPy frames raise TypeError, naming the tensor expected: the frames
+    are never copied to the CPU behind the caller's back."""
+    x = _noisy((3, 9, 11), 81)
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        tie.fast_nl_means_denoising_multi(list(x) if frames == "list" else x, 1, 3)
 
 
 def test_api_colored_multi_matches_jax_and_ref(pallas_on):

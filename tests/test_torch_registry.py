@@ -2,9 +2,10 @@
 registry names, each callable through make_pipeline on a small u8 plane;
 the inspection chain (resize area → tophat 15 → Canny, then connected
 components) through make_pipeline at 0 LSB against JAX's make_pipeline and
-the ref/ chain; the 19 api functions of the registry's slice and the 32
-of the arithmetic, statistics and tracking slice with JAX's parameter
-names and defaults; the 94 names of the port's api.__all__."""
+the ref/ chain; the 19 api functions of the registry's slice, the 32 of
+the arithmetic, statistics and tracking slice and the 16 of the photo
+slice with JAX's parameter names and defaults; the 110 names of the port's
+api.__all__."""
 
 import inspect
 
@@ -33,6 +34,10 @@ SLICE18_API = ("add", "subtract", "absdiff", "multiply", "divide", "bitwise_and"
                "get_gaussian_kernel", "get_deriv_kernels", "get_rect_sub_pix", "corner_sub_pix",
                "good_features_to_track", "calc_optical_flow_pyr_lk", "mean_shift", "cam_shift",
                "pyr_mean_shift_filtering")
+SLICE19_API = ("edge_preserving_filter", "detail_enhance", "stylization", "pencil_sketch",
+               "merge_mertens", "tonemap", "decolor", "denoise_tvl1", "tonemap_reinhard",
+               "tonemap_drago", "tonemap_mantiuk", "align_mtb", "merge_debevec",
+               "phase_correlate", "inpaint", "seamless_clone")
 
 
 def _chain(oh, ow):
@@ -46,10 +51,11 @@ def test_registry_equals_jax():
 
 
 def test_api_names_and_signatures():
-    assert len(port_api.__all__) == len(set(port_api.__all__)) == 94
+    assert len(port_api.__all__) == len(set(port_api.__all__)) == 110
     assert len(SLICE18_API) == len(set(SLICE18_API)) == 32
-    assert set(NEW_API + SLICE18_API) <= set(port_api.__all__)
-    for name in NEW_API + SLICE18_API:
+    assert len(SLICE19_API) == len(set(SLICE19_API)) == 16
+    assert set(NEW_API + SLICE18_API + SLICE19_API) <= set(port_api.__all__)
+    for name in NEW_API + SLICE18_API + SLICE19_API:
         mine = inspect.signature(getattr(port_api, name)).parameters
         theirs = inspect.signature(getattr(jax_api, name)).parameters
         assert list(mine) == list(theirs), name
