@@ -255,7 +255,23 @@
    99.9 % finite; decolor gray +-1 and boost 8; seamless max 2, mean 0.05;
    the phase shift 0.05 px), each printed with its ms per call, device
    launches per call and busy share under torch.profiler.
-15. Prints a one-line JSON per-kernel summary (launches on the main paths,
+15. The segment-and-measure slice (plain torch on the card, no kernel of
+   its own; the host helpers on NumPy): distance_transform on a burst of
+   eight 1080x1920 masks thresholded from photos (L1, C, L2 3x3, L2 5x5 to
+   f32 and L1 to u8), flood_fill on 1080x1920 gray and RGB frames (8- and
+   4-connected, fixed range 70 and floating range 20, one with a mask wall
+   and mask_only) from a seed in the background, hough_lines (rho 1,
+   theta pi/180) on a 1080p Canny map of a photo with eight straight bars,
+   and at 480x640 hough_lines_p, find_contours in every mode and method,
+   the shape descriptors and match_shapes.  Each device op with counters
+   of its own (no kernel), card against CPU at 0 (the first frame of the
+   burst; one flood fill at full size and the rest on a 270x480 crop; the
+   lines bit for bit), the flood fill's fixpoint steps printed; the host
+   helpers on the card's fetched masks and edges against the CPU's, equal.
+   Each family prints its ms per call back to back, launches per call and
+   busy share under torch.profiler (the host helpers: ms on the host
+   clock).
+16. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -2161,6 +2177,273 @@ def photo_and_hdr(port, dev, smi, on_card, drive, sizes: dict = P14) -> None:
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 15's sizes: a burst of eight 1080p masks for the distance transform
+# (a document scanner's or an inspection line's frames), 1080p gray and RGB
+# frames for the flood fill and the standard Hough transform, OpenCV's
+# sample scale 480x640 for the host helpers (HoughLinesP, findContours and
+# the shape descriptors)
+P15 = {"distance": (8, 1080, 1920), "flood": (1080, 1920), "flood_crop": (270, 480),
+       "hough": (1080, 1920), "hough_threshold": 150, "contours": (480, 640)}
+
+
+def line_scene(H: int, W: int, seed: int) -> np.ndarray:
+    """``photo_scene`` with eight dark straight bars 3 pixels wide across it
+    (lane or page edges for the Hough transforms), u8 RGB."""
+    rng = np.random.default_rng(seed)
+    img = photo_scene(H, W, seed).astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for _ in range(8):
+        ang = rng.uniform(0, np.pi)
+        cy, cx = rng.uniform(0.2, 0.8) * H, rng.uniform(0.2, 0.8) * W
+        d = np.abs((xx - cx) * np.sin(ang) - (yy - cy) * np.cos(ang))
+        img[d < 1.5] = rng.uniform(0, 30, 3)
+    return img.astype(np.uint8)
+
+
+def background_point(H: int, W: int, seed: int) -> tuple:
+    """An (x, y) of ``photo_scene(H, W, seed)``'s background, at least 4
+    pixels outside each of its discs (their centres and radii replayed from
+    its generator), the first such point right of the centre."""
+    rng = np.random.default_rng(seed)
+    discs = []
+    for _ in range(12):
+        cy, cx, r = rng.uniform(0, H), rng.uniform(0, W), rng.uniform(H / 20, H / 6)
+        rng.uniform(20, 235, 3)
+        discs.append((cy, cx, r + 4))
+    y = H // 2
+    for x in range(W // 2, W):
+        if all((y - cy) ** 2 + (x - cx) ** 2 >= r * r for cy, cx, r in discs):
+            return x, y
+    raise AssertionError("no background point on the middle row")
+
+
+def _host_ms(fn) -> tuple:
+    """One call of a host helper on the host clock: (ms, result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _equal_results(a, b, what: str) -> None:
+    """Equal host results: arrays of one dtype and equal elements, tuples,
+    lists and dicts elementwise, numbers as values."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys differ")
+        for k in a:
+            _equal_results(a[k], b[k], f"{what}[{k}]")
+    elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} items, CPU {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_results(x, y, f"{what}[{i}]")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: card-derived {a.dtype} {a.shape}, CPU {b.dtype} "
+                                 f"{b.shape} differ")
+    elif a != b:
+        raise AssertionError(f"{what}: {a} against the CPU's {b}")
+
+
+def contours_and_shapes(port, dev, smi, on_card, drive, sizes: dict = P15) -> None:
+    """Phase 15: distanceTransform on a burst of masks, floodFill on 1080p
+    gray and RGB frames, HoughLines on a 1080p Canny edge map, and the host
+    helpers (HoughLinesP, findContours, the shape descriptors, matchShapes)
+    at 480x640, each device op with counters of its own (no kernel), card
+    against CPU at 0, timed with its launches and busy share."""
+    from imageenhancement_mp_tpu_torch.ops.floodfill import flood_region
+
+    t_phase = time.perf_counter()
+
+    # -- distanceTransform: the four (type, mask) pairs and L1 to u8 on the
+    # masks of a burst of thresholded photos
+    t0 = time.perf_counter()
+    B, H, W = sizes["distance"]
+    greens = np.stack([photo_scene(H, W, 1501 + b)[..., 1] for b in range(B)])
+    g = on_card(greens)
+    _, masks = port.threshold(g, 128.0, 255.0, channels_last=False)
+    _, masks0 = port.threshold(torch.from_numpy(greens[:1]), 128.0, 255.0, channels_last=False)
+    _same(masks[:1], masks0, "phase 15 masks")
+    print(f"phase 15 masks: {B}x{H}x{W} u8, {100 * float((masks > 0).float().mean()):.1f} % "
+          f"nonzero (distance sources are the zeros)")
+    for dt, mask, dst in (("l1", 3, "f32"), ("c", 3, "f32"), ("l2", 3, "f32"), ("l2", 5, "f32"),
+                          ("l1", 3, "u8")):
+        label = f"distance_transform {dt} mask {mask} to {dst} {B}x{H}x{W}"
+        out, _ = drive(label, lambda: port.distance_transform(masks, dt, mask, dst,
+                                                              channels_last=False), {})
+        _on(dev, out)
+        t1 = time.perf_counter()
+        _same(out[:1], port.distance_transform(masks0, dt, mask, dst, channels_last=False), label)
+        cpu_s = time.perf_counter() - t1
+        finite = out[out < 3e38]
+        print(f"  {label}: card vs CPU at 0 over the first {H}x{W} frame (CPU {cpu_s:.1f} s); "
+              f"largest finite distance {float(finite.max()) if finite.numel() else 0:.4f}")
+        fn = lambda: port.distance_transform(masks, dt, mask, dst,  # noqa: E731
+                                             channels_last=False)
+        if (dt, mask, dst) in (("l1", 3, "f32"), ("l2", 5, "f32")):
+            family_line(f"family distance: {label}", fn, smi, 2, 1, 0)
+        else:   # the profiler's 25k-event post-processing takes ~20 s: one per mask size
+            ms_d, iqr = time_ms(fn, 2, 1, 0)
+            print(f"  family distance: {label}: {ms_d:.4f} ms per call back to back (IQR "
+                  f"{iqr:.4f}); launches and busy share as the profiled call of its mask size"
+                  f"  [{smi}]")
+    print(f"phase 15 distance_transform: card vs CPU at 0 ({time.perf_counter() - t0:.1f} s)")
+    del g, masks, masks0, greens, out, finite
+
+    # -- floodFill on a 1080p frame, the seed in the background that spans
+    # most of it; one full-size call on the CPU, a crop for the rest
+    t0 = time.perf_counter()
+    H, W = sizes["flood"]
+    ch, cw = sizes["flood_crop"]
+    rgb = photo_scene(H, W, 1511)
+    gray = np.ascontiguousarray(rgb[..., 1])
+    block = np.zeros((H + 2, W + 2), np.uint8)
+    block[1:-1, W // 3] = 1                                   # a wall with a gap at the top
+    block[1:H // 8, W // 3] = 0
+    cases = [("gray 8-connected fixed range 70", gray, 8, True, (70,), None, False),
+             ("gray 4-connected floating range 20", gray, 4, False, (20,), None, False),
+             ("RGB 8-connected floating range 20", rgb, 8, False, (20, 20, 20), None, False),
+             ("RGB 4-connected fixed range 70, a mask, mask_only", rgb, 4, True,
+              (70, 70, 70), block, True)]
+    sx, sy = background_point(H, W, 1511)
+    for k, (name, img, conn, fixed, diff, mk, mo) in enumerate(cases):
+        args = ((sx, sy), (255, 0, 0) if img.ndim == 3 else 255, diff, diff, conn, fixed)
+        gi = on_card(img)
+        gm = None if mk is None else on_card(mk)
+        label = f"flood_fill {name} {H}x{W}"
+        (n, out, om, rect), _ = drive(label, lambda: port.flood_fill(
+            gi, *args, mask=gm, mask_only=mo, mask_fill=255 if mo else 1), {})
+        _on(dev, (out, om))
+        if k == 0:
+            want = port.flood_fill(torch.from_numpy(img), *args)
+        else:
+            cy0, cx0 = sy - ch // 2, sx - cw // 2
+            crop = np.ascontiguousarray(img[cy0:cy0 + ch, cx0:cx0 + cw])
+            cargs = ((cw // 2, ch // 2),) + args[1:]
+            cm = None if mk is None else mk[cy0:cy0 + ch + 2, cx0:cx0 + cw + 2].copy()
+            got_c = port.flood_fill(on_card(crop), *cargs, mask=None if cm is None
+                                    else on_card(cm), mask_only=mo, mask_fill=255 if mo else 1)
+            want_c = port.flood_fill(torch.from_numpy(crop), *cargs, mask=cm, mask_only=mo,
+                                     mask_fill=255 if mo else 1)
+            if got_c[0] != want_c[0] or got_c[3] != want_c[3]:
+                raise AssertionError(f"{label}: {ch}x{cw} crop card {got_c[0]} {got_c[3]}, CPU "
+                                     f"{want_c[0]} {want_c[3]}")
+            _same(got_c[1], want_c[1], f"{label} {ch}x{cw} crop image")
+            _same(got_c[2], want_c[2], f"{label} {ch}x{cw} crop mask")
+        if k == 0:
+            if n != want[0] or rect != want[3]:
+                raise AssertionError(f"{label}: card {n} {rect}, CPU {want[0]} {want[3]}")
+            _same(out, want[1], f"{label} image")
+            _same(om, want[2], f"{label} mask")
+        region = om[1:-1, 1:-1] == (255 if mo else 1)
+        if int(region.sum()) != n:
+            raise AssertionError(f"{label}: the mask marks {int(region.sum())} cells, n {n}")
+        x = gi.reshape(H, W, -1).to(torch.float32)
+        blocked = torch.zeros((H, W), dtype=torch.bool, device=dev) if gm is None \
+            else gm[1:-1, 1:-1] != 0
+        _, _, _, steps = flood_region(x, blocked, (sy, sx), torch.tensor(diff, dtype=torch.float32),
+                                      torch.tensor(diff, dtype=torch.float32), conn, fixed)
+        print(f"  {label}: seed ({sx}, {sy}), {n} pixels ({100 * n / (H * W):.1f} %), rect "
+              f"{rect}; {steps} fixpoint steps; card vs CPU at 0 "
+              f"{'at full size' if k == 0 else f'on a {ch}x{cw} crop'}")
+        if n < H * W // 2:
+            raise AssertionError(f"{label}: the region covers less than half the frame")
+        family_line(f"family flood fill: {label}", lambda: port.flood_fill(
+            gi, *args, mask=gm, mask_only=mo, mask_fill=255 if mo else 1), smi, 3, 1, 1)
+    print(f"phase 15 flood_fill: card vs CPU at 0 ({time.perf_counter() - t0:.1f} s)")
+    del gi, out, om, x
+
+    # -- HoughLines on a 1080p Canny edge map (rho 1, theta pi/180)
+    t0 = time.perf_counter()
+    H, W = sizes["hough"]
+    scene = np.ascontiguousarray(line_scene(H, W, 1521)[..., 1])
+    ge = port.canny(on_card(scene), 50.0, 150.0)
+    ce = port.canny(torch.from_numpy(scene), 50.0, 150.0)
+    _same(ge, ce, "phase 15 Canny edges")
+    nnz = int((ce > 0).sum())
+    thr = sizes["hough_threshold"]
+    label = f"hough_lines rho 1 theta pi/180 threshold {thr} on a {H}x{W} Canny map"
+    lines, _ = drive(label, lambda: port.hough_lines(ge, 1.0, np.pi / 180, thr), {})
+    want = port.hough_lines(ce, 1.0, np.pi / 180, thr)
+    _equal_results(lines.view(np.int32), want.view(np.int32), label)
+    print(f"  {label}: {nnz} edge pixels vote in 180 angles x "
+          f"{int(np.rint(((W + H) * 2 + 1) / 1.0))} distances; {len(lines)} lines, card vs CPU "
+          f"equal bit for bit")
+    if len(lines) < 8:
+        raise AssertionError(f"{label}: {len(lines)} lines, the scene has 8 bars")
+    family_line(f"family hough: {label}", lambda: port.hough_lines(ge, 1.0, np.pi / 180, thr),
+                smi, 5, 2, 1)
+    print(f"phase 15 hough_lines: card vs CPU equal ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the host helpers at 480x640: HoughLinesP, findContours, descriptors
+    t0 = time.perf_counter()
+    H, W = sizes["contours"]
+    scene = np.ascontiguousarray(line_scene(H, W, 1531)[..., 1])
+    ge = port.canny(on_card(scene), 50.0, 150.0)
+    ce = port.canny(torch.from_numpy(scene), 50.0, 150.0)
+    _same(ge, ce, "phase 15 480x640 Canny edges")
+    label = f"hough_lines_p (1, pi/180, 50, 30, 5) on a {H}x{W} Canny map"
+    ms_c, segs = _host_ms(lambda: port.hough_lines_p(ge, 1.0, np.pi / 180, 50, 30, 5))
+    _equal_results(segs, port.hough_lines_p(ce, 1.0, np.pi / 180, 50, 30, 5), label)
+    print(f"  family host helpers: {label}: {len(segs)} segments, {ms_c:.1f} ms on the host "
+          f"clock (a host helper: no device launch)  [{smi}]")
+    # a segmentation mask: the photo's green channel blurred (Gaussian 7)
+    # and thresholded at 128, on both devices
+    green = photo_scene(H, W, 1532)[..., 1].copy()
+    _, gmask = port.threshold(port.gaussian_blur(on_card(green), 7), 128.0, 255.0)
+    _, cmask = port.threshold(port.gaussian_blur(torch.from_numpy(green), 7), 128.0, 255.0)
+    _same(gmask, cmask, "phase 15 480x640 mask")
+    times = []
+    for mode in ("list", "external", "ccomp", "tree"):
+        for method in ("none", "simple"):
+            ms_c, got = _host_ms(lambda: port.find_contours(gmask, mode, method))
+            _equal_results(got, port.find_contours(cmask, mode, method),
+                           f"find_contours {mode} {method}")
+            times.append(f"{mode}/{method} {len(got[0])} contours {ms_c:.1f} ms")
+    print(f"  family host helpers: find_contours on a {H}x{W} mask, card-derived against CPU "
+          f"equal (contours and hierarchy): {'; '.join(times)} on the host clock  [{smi}]")
+    cs_, _ = port.find_contours(gmask, "list", "simple")
+    ccs = [torch.from_numpy(c) for c in cs_]
+    big = max(cs_, key=port.contour_area)
+    cbig = torch.from_numpy(big)
+    hull_i = port.convex_hull(big, False, False)
+    hull = port.convex_hull(big)
+    descriptors = [
+        (f"area, arc length, bounding box of {len(cs_)} contours",
+         lambda cs: [(port.contour_area(c), port.arc_length(c, True), port.bounding_rect(c))
+                     for c in cs], cs_, ccs),
+        (f"moments of the largest ({len(big)} points)", port.contour_moments, big, cbig),
+        ("convex hull, points and indices", lambda c: (port.convex_hull(c),
+                                                        port.convex_hull(c, False, False)),
+         big, cbig),
+        ("is_contour_convex, convexity_defects",
+         lambda c: (port.is_contour_convex(c), port.convexity_defects(c, hull_i)), big, cbig),
+        ("approx_poly_dp eps 3", lambda c: port.approx_poly_dp(c, 3.0, True), big, cbig),
+        ("min_area_rect, box_points", lambda c: (port.min_area_rect(c),
+                                                 port.box_points(port.min_area_rect(c))),
+         big, cbig),
+        (f"min_enclosing_circle of the hull ({len(hull)} points)", port.min_enclosing_circle,
+         hull, torch.from_numpy(hull)),
+        ("fit_line l2 and huber", lambda c: (port.fit_line(c, "l2"), port.fit_line(c, "huber")),
+         big, cbig),
+        ("fit_ellipse", port.fit_ellipse, big, cbig),
+        ("point_polygon_test at the centre", lambda c: port.point_polygon_test(
+            c, (W / 2, H / 2), True), big, cbig)]
+    times = []
+    for name, fn, arg, carg in descriptors:
+        ms_c, got = _host_ms(lambda: fn(arg))
+        _equal_results(got, fn(carg), name)
+        times.append(f"{name} {ms_c:.1f} ms")
+    ms_m, dist = _host_ms(lambda: port.match_shapes(gmask, port.flip(gmask, 1), "i1"))
+    _equal_results(dist, port.match_shapes(cmask, port.flip(cmask, 1), "i1"), "match_shapes")
+    times.append(f"match_shapes of the mask and its mirror ({dist:.6g}) {ms_m:.1f} ms")
+    print(f"  family host helpers: descriptors, arrays against tensors equal: "
+          f"{'; '.join(times)} on the host clock  [{smi}]")
+    print(f"phase 15 host helpers: card-derived against CPU equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -3447,6 +3730,10 @@ def main() -> None:
     # -- 14. the photo module: domain-transform filters, the HDR bracket,
     # decolor, TV-L1, phase correlation, seamless clone, inpaint
     photo_and_hdr(port, dev, smi, on_card, drive)
+
+    # -- 15. distanceTransform, floodFill, the Hough transforms, findContours
+    # and the shape descriptors
+    contours_and_shapes(port, dev, smi, on_card, drive)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -9,6 +9,9 @@ colour conversions, which take ``[..,H,W,C]`` pixels.  The output lies on
 the input's device:
 a CPU tensor runs the plain PyTorch versions, a CUDA tensor the kernels.
 ``channels_last=False`` reads a 3-D input as ``[N, H, W]`` even when W ≤ 4.
+The host helpers (the contour and shape functions, ``moments``,
+``hough_lines_p``, ``gabor_kernel``) take tensors or arrays and return
+NumPy, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -21,11 +24,14 @@ from imageenhancement_mp_tpu_torch.ops import arith, pointwise, stats
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_color, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.canny import canny_planes, connected_components_planes
 from imageenhancement_mp_tpu_torch.ops.clahe import clahe_planes
+from imageenhancement_mp_tpu_torch.ops.distance import distance_transform_planes
 from imageenhancement_mp_tpu_torch.ops import filters
 from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.histogram import (equalize_hist_global_planes,
                                                          equalize_hist_planes, histogram_256)
 from imageenhancement_mp_tpu_torch.ops import color
+from imageenhancement_mp_tpu_torch.ops.floodfill import flood_region
+from imageenhancement_mp_tpu_torch.ops.hough import hough_accumulator
 from imageenhancement_mp_tpu_torch.ops.lk import calc_optical_flow_pyr_lk_planes
 from imageenhancement_mp_tpu_torch.ops.meanshift import pyr_mean_shift_planes
 from imageenhancement_mp_tpu_torch.ops.median import median_blur_planes
@@ -43,7 +49,8 @@ from imageenhancement_mp_tpu_torch.ops.warp import (remap_planes, undistort_plan
                                                     warp_affine_planes, warp_perspective_planes,
                                                     warp_polar_planes)
 from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
-from imageenhancement_mp_tpu_torch.utils import photo_host, tracking, warp_coords
+from imageenhancement_mp_tpu_torch.utils import (contours_host, hough_host, photo_host, taps,
+                                                 tracking, warp_coords)
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
 from imageenhancement_mp_tpu_torch.utils.structuring import (get_structuring_element as
                                                              _structuring_element)
@@ -73,7 +80,12 @@ __all__ = ["apply_lut", "histogram", "gamma", "log_transform", "contrast_stretch
            "pyr_mean_shift_filtering", "edge_preserving_filter", "detail_enhance", "stylization",
            "pencil_sketch", "merge_mertens", "tonemap", "decolor", "denoise_tvl1",
            "tonemap_reinhard", "tonemap_drago", "tonemap_mantiuk", "align_mtb", "merge_debevec",
-           "phase_correlate", "inpaint", "seamless_clone"]
+           "phase_correlate", "inpaint", "seamless_clone", "gabor_kernel", "distance_transform",
+           "flood_fill", "hough_lines", "hough_lines_p", "find_contours", "contour_area",
+           "arc_length", "bounding_rect", "contour_moments", "moments", "hu_moments",
+           "match_shapes", "convex_hull", "is_contour_convex", "point_polygon_test",
+           "convexity_defects", "min_area_rect", "box_points", "min_enclosing_circle", "fit_line",
+           "fit_ellipse", "approx_poly_dp"]
 
 
 def _check_u8(img: torch.Tensor) -> None:
@@ -1444,3 +1456,248 @@ def seamless_clone(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor, p,
     out = dst.clone()
     out[dy0:dy0 + h, dx0:dx0 + w] = blended[0] if src.dim() == 2 else blended.permute(1, 2, 0)
     return out
+
+
+# -- distanceTransform, floodFill and the Hough transforms; contours, shape
+# descriptors and moments (host helpers in utils/contours_host.py and
+# utils/hough_host.py)
+
+def gabor_kernel(ksize, sigma: float, theta: float, lambd: float, gamma: float = 1.0,
+                 psi: float = np.pi / 2) -> np.ndarray:
+    """``cv2.getGaborKernel`` (host helper, f64, ``ksize`` = (rows, cols)):
+    the oracle's formula bit for bit; pair it with ``filter2d`` for Gabor
+    banks."""
+    return taps.gabor_kernel(ksize, sigma, theta, lambd, gamma, psi)
+
+
+def distance_transform(img: torch.Tensor, distance_type: str = "l2", mask_size: int = 3,
+                       dst_type: str = "f32", channels_last: bool = True) -> torch.Tensor:
+    """``cv2.distanceTransform`` per plane of a u8 tensor: zero pixels are
+    the sources.  The two-pass chamfer over sheared columns on the tensor's
+    device (``ops/distance.py``), bit for bit the oracle's law: L1 (1, 2),
+    C (1, 1), L2 3×3 (0.955, 1.3693), L2 5×5 (1, 1.4, 2.1969); L1 and C
+    take the 3×3 mask.  ``dst_type='u8'`` (L1 only, as cv2) clips and
+    truncates the f32 field."""
+    _need_tensor(img, "distance_transform")
+    _check_u8(img)
+    dt = str(distance_type).lower()
+    if dt not in ("l1", "l2", "c"):
+        raise ValueError(f"distance_type must be l1|l2|c, got {distance_type!r}")
+    if int(mask_size) not in (3, 5):
+        raise ValueError(f"mask_size must be 3 or 5, got {mask_size}")
+    if dst_type not in ("f32", "u8"):
+        raise ValueError(f"dst_type must be f32|u8, got {dst_type!r}")
+    if dst_type == "u8" and dt != "l1":
+        raise ValueError("dst_type='u8' requires distance_type='l1' (cv2)")
+    planes, restore = as_planes(img, channels_last=channels_last)
+    return restore(distance_transform_planes(planes, dt, int(mask_size), str(dst_type)))
+
+
+_FLOOD_DTYPES = {torch.uint8: (0, 255), torch.uint16: (0, 65535), torch.float32: None}
+
+
+def flood_fill(img: torch.Tensor, seed_point, new_val, lo_diff=0, up_diff=0,
+               connectivity: int = 4, fixed_range: bool = False, mask=None,
+               mask_only: bool = False, mask_fill: int = 1):
+    """``cv2.floodFill`` on a u8, u16 or f32 ``[H,W]`` or ``[H,W,C≤4]``
+    tensor → ``(n, image, mask, rect)`` as cv2 returns them: the filled
+    count, the filled image, the ``(H+2, W+2)`` u8 mask with its ring set
+    to 1 and ``mask_fill`` in the filled cells, and the ``(x, y, w, h)``
+    rectangle.  ``seed_point`` is (x, y); ``mask`` (a tensor or array) is
+    copied, never written.  The region grows on the tensor's device as a
+    fixpoint of shifted ORs (``ops/floodfill.py``); image and mask come
+    back on that device."""
+    _need_tensor(img, "flood_fill")
+    if img.dtype not in _FLOOD_DTYPES:
+        raise TypeError(f"floodFill supports uint8/uint16/float32, got {img.dtype}")
+    gray = img.dim() == 2
+    if not gray and (img.dim() != 3 or img.shape[2] > 4):
+        raise ValueError(f"expected [H,W] or [H,W,C<=4], got {tuple(img.shape)}")
+    H, W = img.shape[:2]
+    C = 1 if gray else img.shape[2]
+    x0, y0 = int(seed_point[0]), int(seed_point[1])
+    if not (0 <= x0 < W and 0 <= y0 < H):
+        raise ValueError(f"seed {seed_point} outside {W}x{H} image")
+    conn = int(connectivity) or 4
+    if conn not in (4, 8):
+        raise ValueError("connectivity must be 4 or 8")
+    dev = img.device
+    if mask is None:
+        out_mask = torch.zeros((H + 2, W + 2), dtype=torch.uint8, device=dev)
+    else:
+        m = mask if isinstance(mask, torch.Tensor) else torch.from_numpy(np.asarray(mask))
+        out_mask = m.to(dev, torch.uint8, copy=True)
+    if tuple(out_mask.shape) != (H + 2, W + 2):
+        raise ValueError("mask must be (H+2, W+2) uint8")
+    blocked = out_mask[1:-1, 1:-1] != 0
+    out_mask[0, :] = 1
+    out_mask[-1, :] = 1
+    out_mask[:, 0] = 1
+    out_mask[:, -1] = 1
+    lo = np.broadcast_to(np.abs(np.asarray(lo_diff, np.float32)).reshape(-1), (C,))
+    up = np.broadcast_to(np.abs(np.asarray(up_diff, np.float32)).reshape(-1), (C,))
+    region, n, rect, _ = flood_region(img.reshape(H, W, C).to(torch.float32), blocked,
+                                      (y0, x0), torch.from_numpy(lo.copy()),
+                                      torch.from_numpy(up.copy()), conn, bool(fixed_range))
+    out = img.clone()
+    if n == 0:
+        return 0, out, out_mask, (0, 0, 0, 0)
+    out_mask[1:-1, 1:-1].masked_fill_(region, int(mask_fill if mask_fill else 1))
+    if not mask_only:
+        nv = np.broadcast_to(np.asarray(new_val, np.float64).reshape(-1), (C,))
+        lims = _FLOOD_DTYPES[img.dtype]
+        if lims is None:
+            fill = torch.from_numpy(nv.astype(np.float32))
+            target = out
+        else:
+            fillv = np.clip(np.rint(nv), *lims)
+            if img.dtype == torch.uint16:   # written through the int16 view
+                fill = torch.from_numpy(fillv.astype(np.uint16).view(np.int16))
+                target = out.view(torch.int16)
+            else:
+                fill = torch.from_numpy(fillv.astype(np.uint8))
+                target = out
+        if gray:
+            target.masked_fill_(region, fill[0].item())
+        else:
+            target[region] = fill.to(dev)
+    return n, out, out_mask, rect
+
+
+def hough_lines(img: torch.Tensor, rho: float = 1.0, theta: float = np.pi / 180,
+                threshold: int = 100, min_theta: float = 0.0,
+                max_theta: float = np.pi) -> np.ndarray:
+    """``cv2.HoughLines`` (standard) on one ``[H,W]`` u8 tensor → ``[N, 2]``
+    f32 (rho, theta) lines, bit for bit the oracle's law.  The votes are
+    counted on the tensor's device (``ops/hough.py``); the threshold, the
+    4-neighbour maxima and the sort run on the fetched accumulator."""
+    _need_tensor(img, "hough_lines")
+    if img.dtype != torch.uint8 or img.dim() != 2:
+        raise TypeError("HoughLines expects a single [H,W] uint8 image")
+    H, W = img.shape
+    _, tabcos, tabsin = hough_host.hough_tables(min_theta, max_theta, theta, rho)
+    numrho = hough_host.hough_numrho(H, W, float(rho))
+    acc = hough_accumulator(img, tabcos, tabsin, numrho).cpu().numpy()
+    return hough_host.hough_lines_from_acc(acc, threshold, rho, min_theta, theta)
+
+
+def hough_lines_p(img, rho: float = 1.0, theta: float = np.pi / 180, threshold: int = 100,
+                  min_line_length: int = 0, max_line_gap: int = 0,
+                  lines_max: int = 2 ** 31 - 1) -> np.ndarray:
+    """``cv2.HoughLinesP`` → ``[N, 4]`` int32 (x1, y1, x2, y2) segments, bit
+    for bit (cv2's local RNG stream and its erase-as-you-walk accumulator).
+    A host helper by design: each random candidate un-votes and erases what
+    the next one reads.  Takes a tensor (fetched) or an array."""
+    return hough_host.hough_lines_p(_host(img), float(rho), float(theta), int(threshold),
+                                    int(min_line_length), int(max_line_gap), int(lines_max))
+
+
+def find_contours(img, mode: str = "list", method: str = "simple"):
+    """``cv2.findContours`` → ``(contours, hierarchy)``: int32 ``[N, 2]``
+    (x, y) arrays and the int32 ``[M, 4]`` hierarchy, in cv2's order, for
+    the four modes and both methods.  A host helper by design: Suzuki-Abe
+    border following erases as it walks.  Takes a u8 tensor (fetched) or
+    array."""
+    return contours_host.find_contours(_host(img), mode, method)
+
+
+def contour_area(points, oriented: bool = False) -> float:
+    """``cv2.contourArea`` (host helper): Green's-theorem area, bit for
+    bit."""
+    return contours_host.contour_area(_host(points), oriented)
+
+
+def arc_length(points, closed: bool) -> float:
+    """``cv2.arcLength`` (host helper): f32 square roots, f64 sum, bit for
+    bit."""
+    return contours_host.arc_length(_host(points), closed)
+
+
+def bounding_rect(points):
+    """``cv2.boundingRect`` (host helper) → (x, y, w, h), exact."""
+    return contours_host.bounding_rect(_host(points))
+
+
+def contour_moments(points) -> dict:
+    """``cv2.moments`` of a point-list contour (host helper): cv2's Green
+    closed forms, the 24 keys."""
+    return contours_host.contour_moments(_host(points))
+
+
+def moments(img, binary_image: bool = False) -> dict:
+    """``cv2.moments`` of a grayscale image in f64 (host helper: it fetches
+    the image; it feeds the exact ``hu_moments``/``match_shapes`` chain).
+    On the device use :func:`moments_device`."""
+    return contours_host.moments(_host(img), binary_image)
+
+
+def hu_moments(m) -> np.ndarray:
+    """``cv2.HuMoments`` (host helper): the seven invariants ``[7, 1]`` from
+    a ``moments``/``contour_moments`` dict."""
+    return contours_host.hu_moments(m)
+
+
+def match_shapes(a, b, method: str = "i1") -> float:
+    """``cv2.matchShapes`` of two grayscale images (host helper: fetches
+    both): the log-Hu distances I1/I2/I3 with cv2's significance gates."""
+    return contours_host.match_shapes(_host(a), _host(b), method)
+
+
+def convex_hull(points, clockwise: bool = False, return_points: bool = True):
+    """``cv2.convexHull`` (host helper): Sklansky's chains in cv2's order,
+    points or int32 indices."""
+    return contours_host.convex_hull(_host(points), clockwise, return_points)
+
+
+def is_contour_convex(points) -> bool:
+    """``cv2.isContourConvex`` (host helper), exact."""
+    return contours_host.is_contour_convex(_host(points))
+
+
+def point_polygon_test(contour, pt, measure_dist: bool = False) -> float:
+    """``cv2.pointPolygonTest`` (host helper): +1/−1/0, or the signed f64
+    distance."""
+    return contours_host.point_polygon_test(_host(contour), pt, measure_dist)
+
+
+def convexity_defects(contour, hull_indices) -> np.ndarray:
+    """``cv2.convexityDefects`` (host helper) → ``[N, 4]`` int32 (start,
+    end, farthest, fixed-point depth), bit for bit."""
+    return contours_host.convexity_defects(_host(contour), _host(hull_indices))
+
+
+def min_area_rect(points):
+    """``cv2.minAreaRect`` (host helper) → ((cx, cy), (w, h), angle):
+    rotating calipers over the hull in f64."""
+    return contours_host.min_area_rect(_host(points))
+
+
+def box_points(rect) -> np.ndarray:
+    """``cv2.boxPoints`` (host helper): the four f32 corners of a rotated
+    rect."""
+    return contours_host.box_points(rect)
+
+
+def min_enclosing_circle(points):
+    """``cv2.minEnclosingCircle`` (host helper) → ((cx, cy), r), Welzl's
+    disc in f64."""
+    return contours_host.min_enclosing_circle(_host(points))
+
+
+def fit_line(points, dist_type: str = "l2", param: float = 0.0, reps: float = 0.01,
+             aeps: float = 0.01):
+    """``cv2.fitLine`` (host helper, 2-D) → (vx, vy, x0, y0) f32: L2 in
+    closed form, the robust types by cv2's 20-attempt IRLS scheme."""
+    return contours_host.fit_line(_host(points), dist_type, param, reps, aeps)
+
+
+def fit_ellipse(points):
+    """``cv2.fitEllipse`` (host helper) → ((cx, cy), (w, h), angle): direct
+    least squares."""
+    return contours_host.fit_ellipse(_host(points))
+
+
+def approx_poly_dp(curve, epsilon, closed: bool) -> np.ndarray:
+    """``cv2.approxPolyDP`` (host helper): cv2 5.0's distance-to-segment
+    law, bit for bit, for int and f32 curves."""
+    return contours_host.approx_poly_dp(_host(curve), float(epsilon), bool(closed))

@@ -5,10 +5,11 @@ kernels, and stackBlur's fixed-point descale tables.
 A verbatim copy of the tap functions in the JAX package's ``ref/ops.py``
 (``_BINOMIAL_FX``, ``_cdf_fixed_taps``, ``gaussian_kernel_fixed``,
 ``gaussian_taps_u16``, ``_auto_sigma``, ``gaussian_kernel``,
-``gaussian_axes``, ``deriv_kernels``) and of ``ref/stackblur.py``'s ``_MUL``
-and ``_SHR``.  It is copied, not imported, because importing the JAX
+``gaussian_axes``, ``deriv_kernels``, ``gabor_kernel``) and of
+``ref/stackblur.py``'s ``_MUL`` and ``_SHR``.  It is copied, not imported, because importing the JAX
 package's ``ref`` runs that package's ``__init__`` and so imports JAX.
-``tests/test_torch_utils.py`` pins each copy to the original.  Two
+``tests/test_torch_utils.py`` pins each copy to the original
+(``gabor_kernel``: ``tests/test_torch_contours.py``).  Two
 options serve ``cv2.getGaussianKernel``/``cv2.getDerivKernels`` as the
 oracle's ``get_gaussian_kernel``/``get_deriv_kernels`` compute them:
 ``gaussian_kernel(per_tap=True)`` and ``deriv_kernels(normalize=...,
@@ -22,7 +23,7 @@ import math
 import numpy as np
 
 __all__ = ["gaussian_kernel_fixed", "gaussian_taps_u16", "gaussian_kernel", "gaussian_axes",
-           "deriv_kernels", "STACK_MUL", "STACK_SHR"]
+           "deriv_kernels", "gabor_kernel", "STACK_MUL", "STACK_SHR"]
 
 _BINOMIAL_FX = {
     1: np.array([256], np.int64),  # k=1 is the identity (probe: any sigma)
@@ -182,6 +183,23 @@ def deriv_kernels(dx: int, dy: int, ksize: int = 3, normalize: bool = False,
         return k * (1.0 / (1 << (ksz - order - 1))) if normalize else k
 
     return one(dx), one(dy)
+
+
+def gabor_kernel(ksize, sigma: float, theta: float, lambd: float,
+                 gamma: float = 1.0, psi: float = np.pi / 2) -> np.ndarray:
+    """``cv2.getGaborKernel`` (f64) — the standard Gabor formula;
+    ``ksize`` = (rows, cols) row-major."""
+    rows, cols = (int(ksize[0]), int(ksize[1])) if isinstance(ksize, (tuple, list)) \
+        else (int(ksize), int(ksize))
+    # cv2 bumps even sizes to the enclosing odd kernel (2*(k//2)+1) and
+    # writes kernel[ymax−y, xmax−x] — i.e. the grid runs POSITIVE→
+    # NEGATIVE (the cosine phase is odd in xr, so the flip matters)
+    ymax, xmax = rows // 2, cols // 2
+    y, x = np.mgrid[ymax:-ymax - 1:-1, xmax:-xmax - 1:-1]
+    xr = x * np.cos(theta) + y * np.sin(theta)
+    yr = -x * np.sin(theta) + y * np.cos(theta)
+    ex = np.exp(-(xr * xr + gamma * gamma * yr * yr) / (2 * sigma * sigma))
+    return (ex * np.cos(2 * np.pi * xr / lambd + psi)).astype(np.float64)
 
 
 # Klingemann stackblur fixed-point tables (public-domain algorithm

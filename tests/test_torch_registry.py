@@ -3,9 +3,10 @@ registry names, each callable through make_pipeline on a small u8 plane;
 the inspection chain (resize area → tophat 15 → Canny, then connected
 components) through make_pipeline at 0 LSB against JAX's make_pipeline and
 the ref/ chain; the 19 api functions of the registry's slice, the 32 of
-the arithmetic, statistics and tracking slice and the 16 of the photo
-slice with JAX's parameter names and defaults; the 110 names of the port's
-api.__all__."""
+the arithmetic, statistics and tracking slice, the 16 of the photo slice
+and the 23 of the distance, flood-fill, Hough and contour slice with JAX's
+parameter names and defaults; the 133 names of the port's api.__all__:
+every public function of JAX's api.py and equalize_unsharp."""
 
 import inspect
 
@@ -38,6 +39,11 @@ SLICE19_API = ("edge_preserving_filter", "detail_enhance", "stylization", "penci
                "merge_mertens", "tonemap", "decolor", "denoise_tvl1", "tonemap_reinhard",
                "tonemap_drago", "tonemap_mantiuk", "align_mtb", "merge_debevec",
                "phase_correlate", "inpaint", "seamless_clone")
+SLICE20_API = ("gabor_kernel", "distance_transform", "flood_fill", "hough_lines",
+               "hough_lines_p", "find_contours", "contour_area", "arc_length", "bounding_rect",
+               "contour_moments", "moments", "hu_moments", "match_shapes", "convex_hull",
+               "is_contour_convex", "point_polygon_test", "convexity_defects", "min_area_rect",
+               "box_points", "min_enclosing_circle", "fit_line", "fit_ellipse", "approx_poly_dp")
 
 
 def _chain(oh, ow):
@@ -51,11 +57,15 @@ def test_registry_equals_jax():
 
 
 def test_api_names_and_signatures():
-    assert len(port_api.__all__) == len(set(port_api.__all__)) == 110
+    assert len(port_api.__all__) == len(set(port_api.__all__)) == 133
     assert len(SLICE18_API) == len(set(SLICE18_API)) == 32
     assert len(SLICE19_API) == len(set(SLICE19_API)) == 16
-    assert set(NEW_API + SLICE18_API + SLICE19_API) <= set(port_api.__all__)
-    for name in NEW_API + SLICE18_API + SLICE19_API:
+    assert len(SLICE20_API) == len(set(SLICE20_API)) == 23
+    jax_public = {n for n, f in inspect.getmembers(jax_api, inspect.isfunction)
+                  if f.__module__ == jax_api.__name__ and not n.startswith("_")}
+    assert len(jax_public) == 132
+    assert set(port_api.__all__) == jax_public | {"equalize_unsharp"}
+    for name in NEW_API + SLICE18_API + SLICE19_API + SLICE20_API:
         mine = inspect.signature(getattr(port_api, name)).parameters
         theirs = inspect.signature(getattr(jax_api, name)).parameters
         assert list(mine) == list(theirs), name
