@@ -166,14 +166,20 @@
    each against the plain path on the card and on the CPU; then times the
    paths and each kernel beside its bound, torch.gather (K5, K13) and the
    two-kernel chain (K14, with its median's issue floor).
-11. The filters and config 3: holds sep_conv_u8's wide instance (more than
-   31 taps on an axis, taps from a device buffer) against its plain version
-   at 0 LSB: 33 and 37 taps (sigma 6 on u8), 33x5, 3x37, 1x35, 37x3, 121
-   and 541 taps (a halo deeper than the block and than the small planes)
-   on fourteen shapes (the runtime instance's residues, tiny planes), each
-   epilogue, with and without a LUT, each also misaligned, 8x1080x1920,
-   [70000, 8, 8] and [1, 2_200_000, 8], and times it at 8x1080x1920 beside
-   its bytes bound and the k 5 instance; runs every function of
+11. The filters and config 3: holds sep_conv_u8 past 31 taps (its wide
+   instance where an axis keeps more than 31 taps once its zero ends are
+   trimmed, taps from a device buffer) against its plain version at 0 LSB:
+   33 and 37 taps (sigma 6 on u8), 33x5, 3x37, 1x35, 37x3, 67, 121, an
+   asymmetric 33x33 and 541 taps (a halo deeper than the tile and than the
+   small planes), printing each set's route, on fourteen shapes (the
+   runtime instance's residues, tiny planes), each epilogue, with and
+   without a LUT, each also misaligned, 8x1080x1920 at every timed set
+   from 33 to 541 taps, [70000, 8, 8] and [1, 2_200_000, 8]; times it at
+   8x1080x1920 from 33 to 541 taps beside its bound (bytes, or its MACs
+   after trimming at the int8 rate, whichever is larger) and the k 5
+   instance; drives gaussian_blur at sigma 6 and 20, unsharp_mask(1.0, 35)
+   and equalize_unsharp(1.0, 33), one sep_conv_u8 launch each (and one
+   hist256_lut), one frame card against CPU; runs every function of
    ops/filters.py (gaussian_blur and unsharp_mask on u16/i16/f32,
    laplacian, laplacian_sharpen, sobel, scharr, box_blur, box_filter,
    corner_harris, corner_min_eigen_val, spatial_gradient, sqr_box_filter,
@@ -358,9 +364,10 @@ REPLACES = {
 # host enqueue time lands between its events) overstates
 TIMED_RUNS, WARMUPS, CALLS_PER_RUN = 20, 3, 10
 # the least time a kernel could take: H100 SXM data sheet, 3.35 TB/s HBM3,
-# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores
+# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores, 1,979 TOP/s
+# int8 (dense, on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "int8": 1979e12}
 
 
 def bound_ms(nbytes: float, ops: float = 0.0, kind: str = "f32") -> tuple[float, str]:
@@ -1156,9 +1163,22 @@ def paced_ms(fn, sleep_cycles: int, runs: int = TIMED_RUNS, calls: int = CALLS_P
     return statistics.median(times)
 
 
+def wide_bound_ms(n: int, tv, th) -> tuple[float, str]:
+    """The wide instance's bound on n pixels: 2 B/px, or its MACs (a nonzero
+    tap of either axis after trimming, 2 operations each) at the card's int8
+    peak, whichever is larger: the products are u8 pixels times Q8 integer
+    taps, which the tensor cores take as int8.  Bytes at every Gaussian."""
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+
+    r = kconv.conv_route(tv, th)
+    macs = sum(1 for t in r.taps_v + r.taps_h if t)
+    return bound_ms(2 * n, 2.0 * n * macs, "int8")
+
+
 def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> dict:
-    """Phase 11: sep_conv_u8's wide instance (more than 31 taps on an axis)
-    against its plain version and timed beside its bytes bound; every filter
+    """Phase 11: sep_conv_u8's wide instance (more than 31 taps on an axis
+    after trimming) against its plain version and timed beside its bound,
+    from 37 to 541 taps; every filter
     of ops/filters.py card against CPU at 2x2160x3840; config 3 through
     make_pipeline at k 3 and 5 on 8x1080x1920 and 2x2160x3840 u8, with
     counters of its own, card against CPU on one frame, timed back to back
@@ -1167,25 +1187,30 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
     from imageenhancement_mp_tpu_torch.kernels import conv as kconv
     from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
 
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(11)
 
     def rand_u8(shape) -> torch.Tensor:
         return on_card(rng.integers(0, 256, shape, dtype=np.uint8))
 
-    # -- the wide instance: 33 and 37 taps (sigma 6 on u8), rectangular
-    # pairs with one axis wide, 121 taps, and 541 taps (radius 270: the halo
-    # deeper than the block's 256 columns and than the small planes, which
-    # reflect again), on the runtime instance's residues, tiny planes,
-    # misaligned views, every epilogue, with and without a LUT
+    # -- past 31 taps: 33 and 37 taps (sigma 6 on u8), rectangular pairs
+    # with one axis wide, 67 and 121 taps, an asymmetric set (the unpaired
+    # vertical pass), and 541 taps (radius 270: the halo deeper than the
+    # tile and than the small planes, which reflect again), on the runtime
+    # instance's residues, tiny planes, misaligned views, every epilogue,
+    # with and without a LUT.  33, 33x5 and 1x35 take the runtime instance
+    # once their zero ends are trimmed; the rest the wide one
     wide_taps = [q8_taps(33, 0.0), q8_taps(0, 6.0), q8_taps((33, 5), 0.0),
                  q8_taps((3, 37), 0.0), q8_taps((1, 35), 0.0), q8_taps((0, 3), 6.0, 0.0),
-                 q8_taps(0, 20.0), q8_taps(0, 90.0)]
+                 q8_taps(0, 12.0), q8_taps(0, 20.0), q8_taps(0, 90.0),
+                 ((1,) * 20 + (2,) * 13, (2,) * 13 + (1,) * 20)]
     wide_shapes = [(2, 64, 256), (1, 37, 131), (1, 5, 9), (1, 1, 1), (1, 17, 257), (2, 15, 271),
                    (1, 129, 1917), (1, 3, 1), (1, 2, 2), (2, 40, 3), (1, 1, 640), (1, 16, 255),
                    (1, 33, 513), (1, 300, 700)]
-    routes, n_wide = set(), 0
+    routes, n_wide = [], 0
     for tv, th in wide_taps:
-        routes.add(kconv.conv_route(tv, th).describe())
+        r = kconv.conv_route(tv, th)
+        routes.append(f"{len(tv)}x{len(th)} -> {len(r.taps_v)}x{len(r.taps_h)} {r.describe()}")
         for shape in wide_shapes:
             x = rand_u8(shape)
             for amount in (None, 1.0, 0.5, -1.0, 100.0):
@@ -1199,7 +1224,8 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
     tv37, th37 = q8_taps(0, 6.0)
     tv33, th33 = q8_taps(33, 0.0)
     x8 = rand_u8((8, 1080, 1920))
-    for tv, th in ((tv37, th37), (tv33, th33), q8_taps((33, 5), 0.0)):
+    for tv, th in ((tv37, th37), (tv33, th33), q8_taps((33, 5), 0.0), q8_taps(0, 10.0),
+                   q8_taps(0, 20.0), q8_taps(0, 45.0), q8_taps(0, 90.0)):
         for amount in (None, 1.0, 0.5):
             check("sep_conv_u8", kconv.sep_conv_u8(x8, tv, th, amount),
                   kconv.sep_conv_u8_plain(x8, tv, th, amount), f"8x1080x1920 {len(tv)}x{len(th)}")
@@ -1212,26 +1238,36 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
     check("sep_conv_u8", kconv.sep_conv_u8(tall, tv33, th33, 0.5),
           kconv.sep_conv_u8_plain(tall, tv33, th33, 0.5), "1x2200000x8, 33 taps")
     del many, tall, lm
-    print(f"sep_conv_u8 wide instance vs plain on the card: 0 LSB over {n_wide + 2} cases "
-          f"(tap counts {sorted({(len(tv), len(th)) for tv, th in wide_taps})}; routes "
-          f"{sorted(routes)}; [70000, 8, 8] and [1, 2_200_000, 8])")
+    print(f"sep_conv_u8 past 31 taps vs plain on the card: 0 LSB over {n_wide + 2} cases "
+          f"(taps before -> after trimming and route: {'; '.join(routes)}; [70000, 8, 8] and "
+          f"[1, 2_200_000, 8])")
     n8 = x8.numel()
-    for label, (tv, th), amount in (("37 taps (sigma 6), blur", (tv37, th37), None),
-                                    ("37 taps (sigma 6), amount 1", (tv37, th37), 1.0),
-                                    ("33 taps, blur", (tv33, th33), None),
-                                    ("33x5 taps, blur", q8_taps((33, 5), 0.0), None)):
+    timed = [("37 taps (sigma 6), blur", (tv37, th37), None),
+             ("37 taps (sigma 6), amount 1", (tv37, th37), 1.0),
+             ("33 taps, blur", (tv33, th33), None),
+             ("33x5 taps, blur", q8_taps((33, 5), 0.0), None)]
+    timed += [(f"{len(q8_taps(0, sg)[0])} taps (sigma {sg:g}), {'blur' if a is None else 'amount 1'}",
+               q8_taps(0, sg), a) for sg in (10.0, 20.0, 45.0, 90.0) for a in (None, 1.0)]
+    for label, (tv, th), amount in timed:
+        r = kconv.conv_route(tv, th)
         k_ms, k_iqr = time_ms(lambda: kconv.sep_conv_u8(x8, tv, th, amount))
         p_ms, p_iqr = time_ms(lambda: kconv.sep_conv_u8_plain(x8, tv, th, amount), 3, 1)
-        print(f"  sep_conv_u8 wide instance at (8, 1080, 1920) {label}: kernel {k_ms:.4f} ms "
-              f"(IQR {k_iqr:.4f}), plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound "
-              f"{bound_ms(2 * n8)[0]:.4f} ms (bytes)  [{smi}]")
+        b_ms, b_by = wide_bound_ms(n8, tv, th)
+        print(f"  sep_conv_u8 at (8, 1080, 1920) {label}, {len(r.taps_v)}x{len(r.taps_h)} after "
+              f"trimming on the {r.describe()} route: kernel {k_ms:.4f} ms (IQR {k_iqr:.4f}), "
+              f"plain {p_ms:.4f} ms (IQR {p_iqr:.4f}), bound {b_ms:.4f} ms ({b_by}; bytes "
+              f"{bound_ms(2 * n8)[0]:.4f})  [{smi}]")
     k5_ms = time_ms(lambda: kconv.sep_conv_u8(x8, *q8_taps(5, 0.0)))[0]
     print(f"  sep_conv_u8 k5 instance at (8, 1080, 1920), blur, for comparison: {k5_ms:.4f} ms"
           f"  [{smi}]")
-    # the public calls past 31 taps go through the kernel, once, no plain fallback
+    # the public calls past 31 taps go through the kernel, once, no plain
+    # fallback (unsharp_mask at 35 and equalize_unsharp at 33 take the
+    # runtime instance after trimming; sigma 6 and 20 the wide one)
     for label, fn, expect in (
             ("gaussian_blur(x, 0, sigma=6.0)", lambda x: port.gaussian_blur(
                 x, 0, 6.0, channels_last=False), {"sep_conv_u8": 1}),
+            ("gaussian_blur(x, 0, sigma=20.0)", lambda x: port.gaussian_blur(
+                x, 0, 20.0, channels_last=False), {"sep_conv_u8": 1}),
             ("unsharp_mask(x, 1.0, 35)", lambda x: port.unsharp_mask(
                 x, 1.0, 35, channels_last=False), {"sep_conv_u8": 1}),
             ("equalize_unsharp(x, 1.0, 33)", lambda x: port.equalize_unsharp(x, 1.0, 33),
@@ -1242,6 +1278,7 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
         if e:
             raise AssertionError(f"{label}: the card differs from the CPU")
     del x8
+    print(f"phase 11 past 31 taps: {time.perf_counter() - t_phase:.1f} s")
 
     # -- every filter card against CPU at 2x2160x3840
     shape4 = (2, 2160, 3840)
@@ -1326,6 +1363,7 @@ def filters_and_config3(port, dev, smi, on_card, misaligned, check, drive) -> di
                   f"wall ({100 * busy / wall:.1f} % busy)  [{smi}]")
             for us, n, name in rows[:12]:
                 print(f"    {us:9.2f} us per call  {100 * us / busy:5.1f} %  x{n:g}  {name[:100]}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     return {"sep_conv_u8": launches}
 
 

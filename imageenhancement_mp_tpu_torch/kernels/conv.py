@@ -7,13 +7,15 @@ LUT prologue) and the JAX package's ``kernels/conv.py::_sep_conv_planes``
 every odd ksize per axis.  :func:`sep_conv_u8_plain` is the same
 function in plain PyTorch.
 
-The host picks the kernel's instance and route (:func:`conv_route`): a
-compile-time instance for k 3, 5 or 7 on both axes, the runtime one for any
-other pair up to 31 taps, the wide one (:data:`WIDE`, its taps in a device
-buffer) where either axis has more; the horizontal pass on packed 16-bit
-lanes where the taps reduced by their common power of two have scales
-``qv·qh ≤ 256`` (the JAX package's ``kernels/conv2.py::_reduce_taps`` rule),
-else in int32 on the Q8 taps (always in the wide instance); and the epilogue
+The host picks the kernel's instance and route (:func:`conv_route`): an
+axis of more than 31 taps first loses the zero taps at its two ends (equal
+runs, so the centre stays; :func:`trim_taps`), then a compile-time instance
+for k 3, 5 or 7 on both axes, the runtime one for any other pair up to 31
+taps, the wide one (:data:`WIDE`, its taps in a device buffer) where either
+axis still has more; the horizontal pass on packed 16-bit lanes where the
+taps reduced by their common power of two have scales ``qv·qh ≤ 256`` (the
+JAX package's ``kernels/conv2.py::_reduce_taps`` rule), else in int32 on the
+Q8 taps (exact f32 FMAs in the wide instance); and the epilogue
 (:func:`epilogue_mode`): on lanes for an integral amount in [0, 127], where
 cv2's two FMAs are exact, else the FMAs themselves.
 
@@ -40,7 +42,7 @@ from imageenhancement_mp_tpu_torch.utils.fma import fma32
 
 __all__ = ["COMPILED_K", "ConvRoute", "RUNTIME_MAX_TAPS", "MAX_LANE_AMOUNT", "WIDE",
            "conv_route", "epilogue_mode", "reduce_taps", "reflect101", "sep_conv_u8",
-           "sep_conv_u8_plain", "unsharp_weights"]
+           "sep_conv_u8_plain", "trim_taps", "unsharp_weights", "wide_tap_buffer"]
 
 RUNTIME_MAX_TAPS = 31    # the most taps an axis passes by value (the runtime instance)
 COMPILED_K = (3, 5, 7)   # kv = kh = k; every other pair runs the runtime or the wide instance
@@ -74,13 +76,27 @@ def reduce_taps(taps: Sequence[int]) -> tuple[tuple[int, ...], int]:
     return tuple(t >> z for t in taps), 8 - z
 
 
+def trim_taps(taps: Sequence[int]) -> tuple[int, ...]:
+    """An axis of more than :data:`RUNTIME_MAX_TAPS` taps without the zero
+    taps its two ends share (as many from each end, so the centre and every
+    REFLECT_101 index stay); shorter axes as they are.  Exact: a zero tap
+    adds nothing."""
+    t = tuple(taps)
+    if len(t) <= RUNTIME_MAX_TAPS:
+        return t
+    z = 0
+    while 2 * z + 1 < len(t) and t[z] == 0 and t[-1 - z] == 0:
+        z += 1
+    return t[z:len(t) - z]
+
+
 class ConvRoute(NamedTuple):
     """What the kernel runs for one tap pair."""
     instance: int              # 3, 5 or 7: the compile-time instance; 0: the runtime one;
                                # WIDE: the wide one
     packed: bool               # horizontal pass on 16-bit lanes (else int32)
-    taps_v: tuple[int, ...]    # the taps the kernel multiplies by: reduced when packed
-    taps_h: tuple[int, ...]
+    taps_v: tuple[int, ...]    # the taps the kernel multiplies by: trimmed past 31,
+    taps_h: tuple[int, ...]    # reduced when packed
     shift: int                 # blur = (acc + 2^(shift-1)) >> shift; 16 on the int32 route
 
     def describe(self) -> str:
@@ -93,9 +109,10 @@ def conv_route(taps_v: Sequence[int], taps_h: Sequence[int]) -> ConvRoute:
     scales give ``qv·qh ≤ 256``: every vertical sum is then ≤ 255·qv and
     every horizontal one ≤ 255·qv·qh ≤ 65535, so neither pass carries across
     a lane, and ``(acc + q/2) >> log2 q`` is cv2's ``(acc8 + 2^15) >> 16``
-    (``acc8 = acc·65536/q``).  More than :data:`RUNTIME_MAX_TAPS` taps on
-    either axis: the wide instance on the int32 route."""
-    tv, th = tuple(taps_v), tuple(taps_h)
+    (``acc8 = acc·65536/q``).  Counted after :func:`trim_taps`: more than
+    :data:`RUNTIME_MAX_TAPS` taps on either axis take the wide instance on
+    the int32 route."""
+    tv, th = trim_taps(taps_v), trim_taps(taps_h)
     if max(len(tv), len(th)) > RUNTIME_MAX_TAPS:
         return ConvRoute(WIDE, False, tv, th, 16)
     k = len(tv) if len(tv) == len(th) and len(tv) in COMPILED_K else 0
@@ -113,14 +130,25 @@ def _launch_taps(tv: tuple[int, ...], th: tuple[int, ...]) -> tuple[ConvRoute, n
     return route, *(np.ascontiguousarray(t, np.int32) for t in (route.taps_v, route.taps_h))
 
 
+def wide_tap_buffer(tv: Sequence[int], th: Sequence[int]) -> np.ndarray:
+    """What the wide instance reads: ``tv`` as int32, then ``th`` as f32
+    (its horizontal pass runs exact f32 FMAs) zero-padded to a multiple of 8
+    plus 8 (it reads the taps 8 at a time, and 8 past its segment), the f32
+    bits held in int32."""
+    thf = np.zeros(-(-len(th) // 8) * 8 + 8, np.float32)
+    thf[:len(th)] = th
+    return np.concatenate([np.asarray(tv, np.int32), thf.view(np.int32)])
+
+
 @functools.lru_cache(maxsize=16)
 def _device_taps(tv: tuple[int, ...], th: tuple[int, ...], device: torch.device,
                  stream: int) -> torch.Tensor:
-    """The wide instance's taps, ``tv`` then ``th``, as an int32 buffer on
-    ``device``, made once per tap pair, device and stream and never written
-    again.  Made on the stream whose launches read it, so the caching
-    allocator reuses it only after they ran, once the cache drops it."""
-    return torch.tensor(tv + th, dtype=torch.int32, device=device)
+    """The wide instance's taps (:func:`wide_tap_buffer` of the route's
+    trimmed taps) as an int32 buffer on ``device``, made once per tap pair,
+    device and stream and never written again.  Made on the stream whose
+    launches read it, so the caching allocator reuses it only after they
+    ran, once the cache drops it."""
+    return torch.from_numpy(wide_tap_buffer(tv, th)).to(device)
 
 
 def epilogue_mode(amount: float | None) -> tuple[int, int]:
@@ -204,7 +232,7 @@ def sep_conv_u8(planes: torch.Tensor, taps_v: Sequence[int], taps_h: Sequence[in
                 if route.instance == WIDE else None)
     mode, amount_i = epilogue_mode(amount)
     launch("sep_conv_u8", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
-           c_tv.ctypes.data, len(tv), c_th.ctypes.data, len(th), dev_taps,
+           c_tv.ctypes.data, len(c_tv), c_th.ctypes.data, len(c_th), dev_taps,
            None if luts is None else luts.data_ptr(),
            route.instance, int(route.packed), route.shift, mode, amount_i, alpha, beta)
     return out

@@ -67,6 +67,7 @@
 // The epilogue (0 blur, 1 lanes, 2 the two FMAs) is a template parameter:
 // each instance compiles one.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -98,8 +99,12 @@ struct ConvArgs {
   int32_t H, W;
   // the route's taps (reduced on the packed route); th centred in the runtime instance
   int32_t tv[kMaxTaps], th[kMaxTaps];
-  const int32_t* wtaps;  // the wide instance's taps on the device: kv vertical, then kh horizontal
+  // the wide instance's taps on the device: kv vertical (int32), then kh
+  // horizontal (f32) zero-padded to a multiple of 8 plus 8
+  const int32_t* wtaps;
   int32_t kv, kh;
+  int32_t tw, kseg, vstride;    // wide: tile columns, taps per segment, shared row pitch
+  int32_t vec16;                // wide: base pointer 16-byte aligned and W % 16 == 0
   int32_t shift, half;  // blur = (acc + half) >> shift
   uint32_t mul_s, mul_b, bias2, lo2, hi2;  // epilogue 1: 1 + a, a, 256a per lane, clamp bounds
   float alpha, beta;    // epilogue 2
@@ -391,106 +396,334 @@ sep_conv_u8_kernel(const ConvArgs a) {
   }
 }
 
-// The wide instance: any odd kv, kh (taken where either exceeds 31), the
-// int32 route on cv2's Q8 taps, read from a device buffer (a.wtaps) since
-// they no longer fit the argument struct.  A block of 256 threads writes 16
-// rows of 256 columns, one column a thread; the union of its columns'
-// horizontal windows, 256 + 2 rh columns, which may be many times the tile
-// when the radius exceeds it, goes through shared memory in chunks of 256:
-// each thread forms the vertical sums of one chunk column for the block's 16
-// rows (each of the 16 + kv - 1 input rows loaded once and added into the
-// rows it reaches), then every thread adds the chunk's columns that fall in
-// its window.  What bounds it: issue, about two instructions per tap and
-// pass per pixel (a uniform tap load or a shared-memory read beside each
-// IMAD), against 2 B/px of device memory; the compile-time instances'
-// register windows need a tap count known when compiling.  Both the row and
-// the column indices reflect as numpy.pad(mode="reflect") does, in 64 bits,
-// so a halo deeper than the plane, or than 2^31 pixels, reflects again.
-constexpr int kWideCols = 256;  // output columns per block, one a thread
-constexpr int kWideRows = 16;   // output rows per block
+// The wide instance: every tap pair with more than 31 taps on an axis after
+// the host trimmed the zero taps off both ends (kernels/conv.py::conv_route),
+// odd counts up to 2^30.  Its taps come from a device buffer (a.wtaps: the kv
+// vertical taps as int32, then the kh horizontal ones as f32, zero-padded to
+// a multiple of 8 plus 8).  A block writes 32 rows of a.tw columns (a
+// multiple of 64) and strides over (plane, row block) pairs on gridDim.y.
+//  - Vertical pass: the tile's union of columns (a.tw + kh - 1 of them from
+//    a 16-byte boundary) in rounds of 512.  A round streams the tile's
+//    32 + kv - 1 input rows through shared memory in chunks of 32 rows,
+//    double-buffered with cp.async (16 bytes a copy; bytes where a row's
+//    edge or a misaligned plane needs reflection).  Thread t owns union
+//    columns 2t and 2t + 1 of all 32 output rows, as two packed 16-bit lanes
+//    in a word (every sum is <= 255 * sum(tv) <= 65280: no lane carries):
+//    its last 32 input rows sit in a register window, and each new row costs
+//    one 2-byte shared load and, for a nonzero tap, 32 IMADs.  A chunk's 32
+//    taps and their nonzero mask are staged with it, so a zero tap's
+//    products are skipped on a register bit, and the next row and tap are
+//    read a step ahead.  Every thread walks the same rows, so a chunk is
+//    loaded once for all of them and its copies are in flight together.  The
+//    sums go to a shared f32 tile of 32 rows (0x4B00LLLL is 2^23 + LLLL).
+//  - Horizontal pass: lane l of a warp is the tile's row l, so its reads of
+//    a shared column hit 32 banks (the tile's row pitch is odd); a lane owns
+//    8 adjacent output columns and slides a window of 8 vertical sums along
+//    the taps: 8 FFMAs and one shared load a tap (the next 8 sums loaded a
+//    group of 8 taps ahead), the taps read 4 at a time.
+//    Every sum is an integer below 255 * 256 * 256 < 2^24, so f32 FMAs are
+//    exact in any order; blur = (acc + 2^15) >> 16 is an add, a scale by
+//    2^-16 and a round-toward-zero add of 2^23.  A zero tap's FMAs are
+//    skipped.  Taps wider than the shared tile run in segments, the
+//    accumulators kept across them (a.tw is then 64: one group a warp).
+//  - Borders: the row and column indices reflect as
+//    numpy.pad(mode="reflect") does, in 64 bits, so a halo deeper than the
+//    plane, or than 2^31 pixels, reflects again; inside the plane that is two
+//    compares.  The LUT is applied as the vertical pass reads its bytes.  The
+//    epilogue and the stores are the instances' (finish_row).
+// Mirrored taps are not paired: a pair's two rows sit at both ends of the
+// window, so pairing needs two windows and both ends of the tile at once.
+// What bounds it: the work is about 0.5 IMAD a nonzero vertical tap times
+// the union's overhead (512 * rounds / tw) and 1.15 instructions a
+// horizontal tap per output pixel, against 2 B/px of device memory.  On an
+// H100 (700 W) at 8x1080x1920, device-paced: 0.146 ms at 37 taps (sigma 6;
+// the instance before this design 0.562), 0.326 at 121, 1.81 at 541
+// (13.37), against a 0.0099 ms bytes bound: 15x, 33x and 183x it (its
+// products, u8 times Q8 taps, take less than that at the int8 tensor-core
+// rate, which this design leaves unused; at the f32 rate of the IMADs and
+// FFMAs it runs on, one a nonzero tap, 0.033, 0.088 and 0.245 ms).  At 37
+// taps the copies cost about 0.05 ms (a chunk's latency a tile: the first
+// chunk is all window fill) and the horizontal pass 0.03.  Measured
+// and dropped: paired 8-row jobs loading their rows from global memory
+// (0.218 ms at 37 taps, 3.58 at 541, waiting on those loads), 16-row jobs
+// in 512-thread blocks (0.176 and 1.44), and blocks kept resident to stage
+// a tile's first chunk during the last tile's horizontal pass (spills at
+// 128 registers).  PERF.md, K2's wide row, has every time.
+constexpr int kWideRows = 32;     // output rows per block: one a lane in the horizontal pass
+constexpr int kWideThreads = 256;
+constexpr int kWideRound = 2 * kWideThreads;  // union columns per vertical round
+constexpr int kWideMaxRounds = 2;             // a shared tile of at most 1024 columns
 
 __device__ __forceinline__ int reflect101_wide(int64_t i, int n) {
   if (i >= 0 && i < n) return int(i);
   if (n == 1) return 0;
+  if (i < 0 && i > -int64_t(n)) return int(-i);                   // one reflection
+  if (i >= n && i < 2 * int64_t(n) - 1) return int(2 * int64_t(n - 1) - i);
   const int64_t m = 2 * int64_t(n - 1);
   i %= m;
   if (i < 0) i += m;
   return int(i >= n ? m - i : i);
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(kWideCols)
-sep_conv_u8_wide_kernel(const ConvArgs a) {
-  __shared__ uint8_t lut[256];
-  __shared__ int32_t vs[kWideRows][kWideCols];
-  const int t = threadIdx.x, t_first = t & ~31, t_last = t_first + 31;
-  const int H = a.H, W = a.W, kv = a.kv;
-  const int rv = kv >> 1, rh = a.kh >> 1, span = kWideCols + 2 * rh;  // kv, kh <= 2^30
-  const int64_t x0 = int64_t(blockIdx.x) * kWideCols;
-  const int32_t* __restrict__ tv = a.wtaps;
-  const int32_t* __restrict__ th = a.wtaps + kv;
-  const bool use_lut = a.luts != nullptr;
-  const int64_t nrb = (H + kWideRows - 1) / kWideRows;
-  for (int64_t item = blockIdx.y; item < a.B * nrb; item += gridDim.y) {
-    const int64_t b = item / nrb;
-    const int y0 = int(item - b * nrb) * kWideRows;
-    __syncthreads();  // the previous item's readers of lut and vs are done
-    if (use_lut)
-      for (int i = t; i < 256; i += kWideCols) lut[i] = a.luts[b * 256 + i];
-    __syncthreads();
-    const uint8_t* plane = a.x + b * int64_t(H) * W;
-    int32_t acc[kWideRows] = {};
-    for (int c0 = 0; c0 < span; c0 += kWideCols) {
-      // vertical sums of union column c0 + t (plane column x0 - rh + c0 + t)
-      int32_t v[kWideRows] = {};
-      if (c0 + t < span) {
-        const uint8_t* col = plane + reflect101_wide(x0 - rh + c0 + t, W);
-        const int kin = kWideRows + kv - 1;
-        for (int i = 0; i < kin; ++i) {
-          uint32_t px = col[int64_t(reflect101_wide(int64_t(y0) - rv + i, H)) * W];
-          if (use_lut) px = lut[px];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// One chunk of a vertical round into shared memory: input rows yb .. yb + 31
+// of the plane (reflected) at plane columns cb .. cb + ncols - 1 (ncols a
+// multiple of 16, at most 512) into buf, 512 bytes a row, a warp a row and a
+// lane 16 bytes of it; and taps j0 .. j0 + 31 (0 outside 0 .. kv - 1) into
+// taps[0..31], their nonzero mask into taps[32].
+__device__ __forceinline__ void wide_stage(uint8_t* buf, int32_t* taps,
+                                           const uint8_t* __restrict__ plane, int H, int W,
+                                           int64_t yb, int64_t cb, int ncols, bool vec16,
+                                           const int32_t* __restrict__ tv, int kv, int j0, int warp,
+                                           int lane) {
+  const int c = lane << 4;
+  const int64_t pc = cb + c;
+  const bool fast = vec16 && pc >= 0 && pc + 16 <= W;
+  for (int r = warp; r < kWideRows; r += kWideThreads / 32) {
+    if (c >= ncols) break;
+    const uint8_t* row = plane + int64_t(reflect101_wide(yb + r, H)) * W;
+    uint8_t* dst = buf + r * kWideRound + c;
+    if (fast) {
+      cp_async16(dst, row + pc);
+    } else {  // the indices first, so the 16 loads are in flight together
+      int ci[16];
 #pragma unroll
-          for (int r = 0; r < kWideRows; ++r) {
-            const int j = i - r;  // input row i is tap i - r of output row r
-            if (unsigned(j) < unsigned(kv)) v[r] += __ldg(tv + j) * int32_t(px);
-          }
+      for (int i = 0; i < 16; ++i) ci[i] = reflect101_wide(pc + i, W);
+      uint32_t px[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) px[i] = row[ci[i]];
+      uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) w[i >> 2] |= px[i] << (8 * (i & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  if (warp == kWideThreads / 32 - 1) {
+    const int j = j0 + lane;
+    const int32_t tap = j >= 0 && j < kv ? __ldg(tv + j) : 0;
+    taps[lane] = tap;
+    const unsigned mask = __ballot_sync(kFull, tap != 0);
+    if (lane == 0) taps[32] = int32_t(mask);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One vertical round: the sums of the tile's 32 output rows at union
+// columns c0 .. c0 + ncols - 1 (plane columns ubase + c0 + ...), stored as
+// f32 in rows 0..31 of vs.  Input row i of the tile is plane row y0 - rv + i;
+// row i enters window slot i & 31 and, as tap j = i - 31's newest row, adds
+// tv[j] * x[j + r] to output row r.  The next row and tap are read a step
+// ahead; a zero tap's step skips its products on the chunk's mask.
+__device__ __forceinline__ void wide_vround(const ConvArgs& a, float* __restrict__ vs, int S,
+                                            uint8_t* stage, int32_t* staps,
+                                            const uint8_t* __restrict__ plane, int y0,
+                                            int64_t ubase, int c0, int ncols, bool use_lut,
+                                            const uint8_t* lut, int t) {
+  const int H = a.H, W = a.W, kv = a.kv, rv = kv >> 1;
+  const int warp = t >> 5, lane = t & 31;
+  const bool mine = 2 * t < ncols;  // this thread's two columns are needed
+  const int nchunks = (kv + kWideRows - 1 + kWideRows - 1) / kWideRows;  // rows 0 .. kv + 30
+  constexpr int kBuf = kWideRows * kWideRound, kTaps = kWideRows + 1;
+  uint32_t win[kWideRows], acc[kWideRows];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) acc[r] = 0;
+  wide_stage(stage, staps, plane, H, W, int64_t(y0) - rv, ubase + c0, ncols, a.vec16, a.wtaps, kv,
+             -(kWideRows - 1), warp, lane);
+  for (int c = 0; c < nchunks; ++c) {
+    const uint8_t* buf = stage + (c & 1) * kBuf;
+    const int32_t* tq = staps + (c & 1) * kTaps;
+    if (c + 1 < nchunks) {  // the other buffers' readers finished at the end of chunk c - 1
+      wide_stage(stage + ((c + 1) & 1) * kBuf, staps + ((c + 1) & 1) * kTaps, plane, H, W,
+                 int64_t(y0) - rv + kWideRows * (c + 1), ubase + c0, ncols, a.vec16, a.wtaps, kv,
+                 kWideRows * (c + 1) - (kWideRows - 1), warp, lane);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // every thread's copies of chunk c have landed
+    if (mine) {
+      const unsigned mask = unsigned(tq[kWideRows]);
+      const uint16_t* col = reinterpret_cast<const uint16_t*>(buf) + t;
+      uint32_t px = col[0], tap = uint32_t(tq[0]);
+#pragma unroll
+      for (int s = 0; s < kWideRows; ++s) {
+        const uint32_t px_next = s + 1 < kWideRows ? col[(s + 1) * (kWideRound / 2)] : 0u;
+        const uint32_t tap_next = s + 1 < kWideRows ? uint32_t(tq[s + 1]) : 0u;
+        win[s] = use_lut ? uint32_t(lut[px & 0xffu]) | (uint32_t(lut[px >> 8]) << 16)
+                         : __byte_perm(px, 0, 0x4140);
+        if (mask & (1u << s)) {
+#pragma unroll
+          for (int r = 0; r < kWideRows; ++r) acc[r] += tap * win[(s + 1 + r) & (kWideRows - 1)];
         }
-      }
-      __syncthreads();  // the previous chunk's readers of vs are done
-#pragma unroll
-      for (int r = 0; r < kWideRows; ++r) vs[r][t] = v[r];
-      __syncthreads();
-      // output column t takes union columns t + j, j in [0, 2 rh]; this chunk
-      // holds c0 .. c0 + 255.  The warp walks the taps any of its lanes needs.
-      const int jlo = max(c0 - t_last, 0), jhi = min(c0 + kWideCols - 1 - t_first, 2 * rh);
-      for (int j = jlo; j <= jhi; ++j) {
-        const int32_t tap = __ldg(th + j);
-        const int s = t + j - c0;
-        if (unsigned(s) >= unsigned(kWideCols)) continue;
-#pragma unroll
-        for (int r = 0; r < kWideRows; ++r) acc[r] += tap * vs[r][s];
+        px = px_next;
+        tap = tap_next;
       }
     }
-    if (x0 + t >= W) continue;
-    uint8_t* oplane = a.out + b * int64_t(H) * W;
+    __syncthreads();  // the readers of buffers c & 1 are done before chunk c + 2 lands in them
+  }
+  if (!mine) return;
 #pragma unroll
-    for (int r = 0; r < kWideRows; ++r) {
-      if (y0 + r >= H) break;
-      const int64_t o = int64_t(y0 + r) * W + x0 + t;
-      uint32_t s = plane[o];
-      if (use_lut) s = lut[s];
-      const uint32_t bl = uint32_t(min((acc[r] + a.half) >> a.shift, 255));
-      oplane[o] = uint8_t(epilogue<EPI>(bl, s, a));  // the low lane: this pixel's byte
-    }
+  for (int r = 0; r < kWideRows; ++r) {
+    float* dst = vs + r * S + c0 + 2 * t;
+    dst[0] = __fsub_rn(__uint_as_float(__byte_perm(acc[r], 0x4B00u, 0x5410)), 8388608.0f);
+    dst[1] = __fsub_rn(__uint_as_float(__byte_perm(acc[r], 0x4B00u, 0x5432)), 8388608.0f);
   }
 }
 
 template <int EPI>
-void launch_wide(const ConvArgs& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kWideThreads, 2)
+sep_conv_u8_wide_kernel(const ConvArgs a) {
+  extern __shared__ float4 wide_smem[];
+  const int S = a.vstride;  // odd: a column of the tile's 32 rows spans 32 banks
+  float* vs = reinterpret_cast<float*>(wide_smem);
+  float* ths = vs + kWideRows * S;  // 16-byte aligned: 32 * S floats
+  uint8_t* stage = reinterpret_cast<uint8_t*>(ths + a.kseg + 8);  // 2 chunks of 32 x 512 bytes
+  int32_t* staps = reinterpret_cast<int32_t*>(stage + 2 * kWideRows * kWideRound);  // 2 x 33
+  uint8_t* lut = reinterpret_cast<uint8_t*>(staps + 2 * (kWideRows + 1));
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int H = a.H, W = a.W, kh = a.kh, rh = kh >> 1;
+  const int khp = (kh + 7) & ~7;
+  const int nseg = (khp + a.kseg - 1) / a.kseg;
+  const int64_t x0 = int64_t(blockIdx.x) * a.tw;
+  const int64_t cols = W - x0 < a.tw ? W - x0 : a.tw;
+  const int ngroups = int((cols + 7) >> 3);  // 8-column groups of output
+  const float* __restrict__ thf = reinterpret_cast<const float*>(a.wtaps + a.kv);
+  const bool use_lut = a.luts != nullptr;
+  const int64_t nrb = (H + kWideRows - 1) / kWideRows;
+  float acc[kCols];
+  for (int64_t item = blockIdx.y; item < a.B * nrb; item += gridDim.y) {
+    const int64_t b = item / nrb;
+    const int y0 = int(item - b * nrb) * kWideRows;
+    const uint8_t* plane = a.x + b * int64_t(H) * W;
+    __syncthreads();  // the previous item's readers of lut, ths and vs are done
+    if (use_lut)
+      for (int i = t; i < 256; i += kWideThreads) lut[i] = a.luts[b * 256 + i];
+    for (int seg = 0; seg < nseg; ++seg) {
+      const int j0 = seg * a.kseg, lenp = min(a.kseg, khp - j0);  // this segment's taps
+      if (seg > 0) __syncthreads();  // the previous segment's readers of ths and vs are done
+      for (int i = t; i < lenp + 8; i += kWideThreads) ths[i] = thf[j0 + i];
+      __syncthreads();  // lut and ths are staged
+      // union index u is plane column ubase + u; output column x0 + c at
+      // segment tap jj reads u = o + c + jj
+      const int64_t org = x0 + j0 - rh, ubase = org & ~int64_t(15);
+      const int o = int(org - ubase);
+      const int uneed = (o + 8 * ngroups + lenp + 15) & ~15;  // the windows read below uneed
+      for (int c0 = 0; c0 < uneed; c0 += kWideRound)
+        wide_vround(a, vs, S, stage, staps, plane, y0, ubase, c0, min(kWideRound, uneed - c0),
+                    use_lut, lut, t);
+      __syncthreads();
+      for (int g = warp; g < ngroups; g += kWideThreads / 32) {
+        if (seg == 0) {
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) acc[k] = 0.0f;
+        }
+        const float* vrow = vs + lane * S + o + kCols * g;
+        float w[kCols];  // u = jj .. jj + 7 (relative to vrow); nw: the next 8
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) w[k] = vrow[k];
+        for (int jj = 0; jj < lenp; jj += kCols) {
+          float nw[kCols];
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) nw[k] = vrow[jj + kCols + k];
+          const float4 t0 = *reinterpret_cast<const float4*>(ths + jj);
+          const float4 t1 = *reinterpret_cast<const float4*>(ths + jj + 4);
+          const float tt[kCols] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+          for (int s = 0; s < kCols; ++s) {
+            if (tt[s] != 0.0f) {
+#pragma unroll
+              for (int k = 0; k < kCols; ++k)
+                acc[k] = __fmaf_rn(tt[s], s + k < kCols ? w[s + k] : nw[s + k - kCols], acc[k]);
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) w[k] = nw[k];
+        }
+        const int y = y0 + lane;
+        if (seg < nseg - 1 || y >= H) continue;
+        const int xc = int(x0) + kCols * g;
+        uint32_t bl[kWords], s[kWords], bv[kCols];
+#pragma unroll
+        for (int k = 0; k < kCols; ++k)  // floor((acc + 2^15) / 2^16) in the low mantissa bits
+          bv[k] = __float_as_uint(__fadd_rz(__fmul_rn(__fadd_rn(acc[k], 32768.0f), 1.0f / 65536.0f),
+                                            8388608.0f)) - 0x4B000000u;
+#pragma unroll
+        for (int m = 0; m < kWords; ++m) bl[m] = bv[2 * m] | (bv[2 * m + 1] << 16);
+        int cidx[kCols];
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) cidx[i] = reflect101(xc + i, W);
+        const int64_t off = int64_t(y) * W;
+        unpack_row(s, fetch_row(plane + off, xc, a.vec_in && xc + kCols <= W, cidx), use_lut, lut);
+        finish_row<EPI>(a.out + b * int64_t(H) * W + off, xc, W, a.vec_out && xc + kCols <= W, bl,
+                        s, a);
+      }
+    }
+  }
+}
+
+// The wide instance's tile, chosen on the host from kh: rounds of 512
+// union columns (a round keeps the 256 threads' vertical jobs busy), the
+// fewest whose tile is at least 3 kh wide, so the union's overhead
+// (512 * rounds / tw) stays small, up to 2; wider taps run in segments on
+// a 64-column tile.
+constexpr int kWideMaxSeg = ((kWideRound * kWideMaxRounds - 15 - 64) / 8) * 8;
+
+void wide_tile(ConvArgs& a) {
+  const int khp = (a.kh + 7) & ~7;
+  const int cap = ((a.W + 63) / 64) * 64;
+  int tw = 0, rounds = 1;
+  for (; rounds <= kWideMaxRounds; ++rounds) {
+    tw = ((kWideRound * rounds - 15 - khp) / 64) * 64;
+    if (tw >= 3 * khp || tw >= cap || rounds == kWideMaxRounds) break;
+  }
+  if (tw >= 64) {
+    a.tw = tw < cap ? tw : cap;
+    a.kseg = khp;
+  } else {
+    a.tw = 64;
+    a.kseg = kWideMaxSeg;
+  }
+  const int umax = 15 + a.tw + a.kseg;  // the union columns a segment's windows read
+  a.vstride = ((umax + kWideRound - 1) / kWideRound) * kWideRound + 1;
+}
+
+constexpr size_t wide_smem_bytes(int vstride, int kseg) {
+  return sizeof(float) * (size_t(kWideRows) * vstride + kseg + 8) +
+         2 * kWideRows * kWideRound + sizeof(int32_t) * 2 * (kWideRows + 1) + 256;
+}
+
+// The largest tile wide_tile makes: a vstride of at most 1025 (the union of
+// two rounds, plus one) and a segment of at most kWideMaxSeg taps; about
+// 168 KB, under the 227 KB a block may opt in to.
+constexpr size_t kWideMaxSmem = wide_smem_bytes(kWideRound * kWideMaxRounds + 1, kWideMaxSeg);
+
+// Raises the instance's dynamic shared-memory limit to kWideMaxSmem once per
+// device (a bit each in `opted`; devices past 63 each launch), so a launch
+// spends no host time on it.
+template <int EPI>
+int launch_wide(ConvArgs& a, cudaStream_t stream) {
+  static std::atomic<uint64_t> opted{0};
+  wide_tile(a);
+  const size_t smem = wide_smem_bytes(a.vstride, a.kseg);
+  if (smem > kWideMaxSmem) return int(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return int(e);
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (!(opted.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(sep_conv_u8_wide_kernel<EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(kWideMaxSmem));
+    if (e != cudaSuccess) return int(e);
+    opted.fetch_or(bit, std::memory_order_relaxed);
+  }
   const int64_t items = a.B * ((a.H + kWideRows - 1) / kWideRows);
-  const dim3 grid(unsigned((a.W + kWideCols - 1) / kWideCols),
-                  unsigned(items < kMaxGridY ? items : kMaxGridY));
-  sep_conv_u8_wide_kernel<EPI><<<grid, kWideCols, 0, stream>>>(a);
+  const dim3 grid(unsigned((a.W + a.tw - 1) / a.tw), unsigned(items < kMaxGridY ? items : kMaxGridY));
+  sep_conv_u8_wide_kernel<EPI><<<grid, kWideThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
 }
 
 template <int K, bool PACKED, int EPI>
@@ -525,10 +758,11 @@ extern "C" {
 
 // x, out: [B, H, W] u8 contiguous.  taps_v/taps_h: host arrays of kv/kh taps
 // (odd, >= 0): the route's, chosen by kernels/conv.py::conv_route.
-// dev_taps: the same kv + kh taps in device memory for the wide instance
-// (null for the others).  instance: 3, 5 or 7 (then kv = kh = instance), 0
-// (the runtime instance, kv and kh <= 31) or -1 (the wide instance, int32
-// route, any kv and kh).  packed: 1 runs the horizontal pass on lanes (needs
+// dev_taps: the same taps in device memory for the wide instance, kv int32
+// then kh f32 zero-padded to a multiple of 8 plus 8
+// (kernels/conv.py::_device_taps; null for the others).  instance: 3, 5 or
+// 7 (then kv = kh = instance), 0 (the runtime instance, kv and kh <= 31) or
+// -1 (the wide instance: any kv and kh, packed 0, shift 16).  packed: 1 runs the horizontal pass on lanes (needs
 // 255 * sum(tv) * sum(th) <= 65535), 0 in int32 (needs 255 * sum(tv) <=
 // 65535).  blur = (acc + half) >> shift, half = 2^(shift-1) (0 at shift 0).
 // luts: [B, 256] u8 device table or null.  mode: 0 blur; 1 integral amount in
@@ -584,12 +818,12 @@ int ie_sep_conv_u8(const uint8_t* x, uint8_t* out, int64_t B, int64_t H, int64_t
   a.vec_in = (reinterpret_cast<uintptr_t>(x) % 8 == 0) && (W % 8 == 0);
   a.vec_out = (reinterpret_cast<uintptr_t>(out) % 8 == 0) && (W % 8 == 0);
   if (wide) {
+    a.vec16 = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (W % 16 == 0);
     switch (mode) {
-      case 0: launch_wide<0>(a, stream); break;
-      case 1: launch_wide<1>(a, stream); break;
-      default: launch_wide<2>(a, stream); break;
+      case 0: return launch_wide<0>(a, stream);
+      case 1: return launch_wide<1>(a, stream);
+      default: return launch_wide<2>(a, stream);
     }
-    return int(cudaGetLastError());
   }
   switch (instance * 2 + (packed ? 1 : 0)) {
     case 0: launch_route<0, false>(a, mode, stream); break;

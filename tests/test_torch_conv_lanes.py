@@ -195,8 +195,9 @@ ROUTES = [((1, 0.0), "runtime/packed", 0), ((3, 0.0), "k3/packed", 4), ((5, 0.0)
           ((5, 1.5), "k5/int32", 16), ((3, 1.1), "k3/int32", 16), ((7, 2.3), "k7/int32", 16),
           ((9, 0.0), "runtime/int32", 16), ((31, 0.0), "runtime/int32", 16),
           (((1, 31), 0.0), "runtime/packed", 8), (((5, 3), 0.0), "runtime/packed", 6),
-          ((33, 0.0), "wide/int32", 16), ((0, 6.0), "wide/int32", 16),
-          (((33, 1), 0.0), "wide/int32", 16), (((3, 35), 0.0), "wide/int32", 16)]
+          # past 31 taps the zero ends are trimmed first (kernels/conv.py::trim_taps)
+          ((33, 0.0), "runtime/int32", 16), ((0, 6.0), "wide/int32", 16),
+          (((33, 1), 0.0), "runtime/packed", 8), (((3, 35), 0.0), "runtime/int32", 16)]
 
 
 @pytest.mark.parametrize("ks_sigma,route,shift", ROUTES, ids=[str(r[0]) for r in ROUTES])
@@ -206,9 +207,11 @@ def test_host_chooses_instance_and_route(monkeypatch, ks_sigma, route, shift):
     assert (r.describe(), r.shift) == (route, shift)
     if r.packed:    # the kernel's entry point refuses a packed route whose lanes could carry
         assert 255 * sum(r.taps_v) * sum(r.taps_h) + (1 << r.shift >> 1) <= 65535
-        assert r.taps_v == kconv.reduce_taps(tv)[0] and r.taps_h == kconv.reduce_taps(th)[0]
+        assert r.taps_v == kconv.reduce_taps(kconv.trim_taps(tv))[0]
+        assert r.taps_h == kconv.reduce_taps(kconv.trim_taps(th))[0]
     else:
-        assert (r.taps_v, r.taps_h) == (tv, th) and 255 * sum(tv) <= 65535
+        assert (r.taps_v, r.taps_h) == (kconv.trim_taps(tv), kconv.trim_taps(th))
+        assert 255 * sum(tv) <= 65535
     launches = []
     monkeypatch.setattr(kconv, "on_cuda", lambda t, what: True)
     monkeypatch.setattr(kconv, "launch", lambda *args: launches.append(args))
@@ -229,8 +232,10 @@ def test_every_gaussian_tap_set_fits_its_route():
             r = kconv.conv_route(tv, tv)
             bound = 255 * sum(r.taps_v) * (sum(r.taps_h) if r.packed else 1)
             assert bound <= 65535, (k, sigma, r)
-            assert r.instance == (k if k in kconv.COMPILED_K else
-                                  0 if k <= kconv.RUNTIME_MAX_TAPS else kconv.WIDE)
+            n = len(kconv.trim_taps(tv))   # the count after trimming (k itself up to 31)
+            assert n == k or k > kconv.RUNTIME_MAX_TAPS
+            assert r.instance == (n if n in kconv.COMPILED_K else
+                                  0 if n <= kconv.RUNTIME_MAX_TAPS else kconv.WIDE)
             assert r.packed or r.shift == 16
 
 

@@ -170,6 +170,11 @@ def test_even_and_zero_sizes_still_raise():
         kconv.sep_conv_u8(x, (128,) * 32, (256,))
 
 
+# past 31 taps the zero ends are trimmed before the instance is chosen: these
+# take the runtime instance on the trimmed taps, the rest the wide one
+RUNTIME_AFTER_TRIM = {(33, 0.0): (31, 31), ((33, 5), 0.0): (31, 5), (35, 2.0): (13, 13)}
+
+
 def test_past_31_taps_the_wrapper_launches_the_wide_instance(monkeypatch):
     launches = []
     monkeypatch.setattr(kconv, "on_cuda", lambda t, what: True)
@@ -178,16 +183,24 @@ def test_past_31_taps_the_wrapper_launches_the_wide_instance(monkeypatch):
     x = torch.zeros((2, 8, 9), dtype=torch.uint8)
     for ksize, sigma in WIDE:
         tv, th = tf.q8_taps(ksize, sigma)
+        cut_v, cut_h = kconv.trim_taps(tv), kconv.trim_taps(th)
+        runtime = (ksize, sigma) in RUNTIME_AFTER_TRIM
+        if runtime:
+            assert (len(cut_v), len(cut_h)) == RUNTIME_AFTER_TRIM[(ksize, sigma)]
         for amount, mode in ((None, (0, 0)), (1.0, (1, 1)), (0.5, (2, 0))):
             launches.clear()
             kconv.sep_conv_u8(x, tv, th, amount)
             (name, _, *args), = launches
             assert name == "sep_conv_u8"
-            assert (args[6], args[8]) == (len(tv), len(th))
+            assert (args[6], args[8]) == (len(cut_v), len(cut_h))
+            if runtime:
+                assert args[9] is None and args[-7] == 0
+                continue
             assert tuple(args[-7:-2]) == (kconv.WIDE, 0, 16, *mode)
-            dev_taps = kconv._device_taps(tv, th, x.device, 0)
+            dev_taps = kconv._device_taps(cut_v, cut_h, x.device, 0)
             assert args[9] == dev_taps.data_ptr()
-            assert tuple(dev_taps.tolist()) == tv + th
+            np.testing.assert_array_equal(dev_taps.numpy(), kconv.wide_tap_buffer(cut_v, cut_h))
+            assert tuple(dev_taps[:len(cut_v)].tolist()) == cut_v
     # at 31 taps and below the taps travel by value: no device buffer
     launches.clear()
     kconv.sep_conv_u8(x, *tf.q8_taps(31, 0.0))

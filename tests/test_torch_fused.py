@@ -115,8 +115,9 @@ def test_median_unsharp_cuda_branch(monkeypatch, km, amount, ksize):
 @pytest.mark.parametrize("km,ksize", [(5, 33), (3, 101)])
 def test_median_unsharp_past_31_taps_launches_the_chain(monkeypatch, km, ksize):
     """Past FUSED_MAX_TAPS: one median launch, then one sep_conv_u8 launch
-    (its wide instance, cv2's taps on both axes, the unsharp epilogue), and
-    no median_unsharp launch."""
+    (cv2's taps on both axes, trimmed of their zero ends, on the instance
+    they then take: the runtime one at ksize 33, the wide one at 101; the
+    unsharp epilogue), and no median_unsharp launch."""
     calls = []
     for mod in (kfused, kmedian, kconv):
         monkeypatch.setattr(mod, "on_cuda", lambda t, what: True)
@@ -129,7 +130,9 @@ def test_median_unsharp_past_31_taps_launches_the_chain(monkeypatch, km, ksize):
     (_, med), (_, conv) = calls
     assert med[-1] == km
     taps = kfused.fused_taps(ksize)
-    assert (conv[7], conv[9]) == (len(taps), len(taps)) and conv[12] == kconv.WIDE
+    route = kconv.conv_route(taps, taps)
+    assert (conv[7], conv[9]) == (len(route.taps_v), len(route.taps_h))
+    assert conv[12] == route.instance == (0 if ksize == 33 else kconv.WIDE)
     assert taps == tuple(int(t) for t in ref.gaussian_kernel_fixed(ksize))
     calls.clear()
     kfused.median_unsharp(x, km, 1.5, kfused.FUSED_MAX_TAPS)

@@ -26,11 +26,32 @@ enqueue one call and the synchronised wall time per call outside the
 profiler, and the SASS opcode histogram of each sep_conv_u8 kernel instance
 (cuobjdump of the tree's built library) with its registers and spills from
 nvcc.log.  Exits non-zero when torch sees no CUDA device.
+
+    python3 tools/torch_conv_profile.py --wide --parent build/parent \
+        [--variants tools/conv_wide_split.json]
+
+times the wide instance instead (more than 31 taps on an axis after
+trimming) at the tap sets of WIDE_CASES on 8x1080x1920 u8, blur and amount
+1, device-paced, each tree in a process of its own in turns (parent, this,
+this, parent), each set first held to the plain version on small planes and
+at full size; then, in this tree, the yardstick (two separable f32
+F.conv2d calls, TF32 off, on the reflect-padded planes, timed and checked
+against the plain version) and the wide instance against the runtime one
+on the tap sets of RUNTIME_CASES (at most 31 taps after trimming), both
+through the C entry point, held to the plain version, device-paced, in
+turns.  ``--variants FILE.json`` ({name: [[old, new], ...]}) adds copies of
+this tree under build/variants/<name> whose csrc/conv.cu has each ``old``
+(which must occur) replaced by ``new``, timed as trees beside this one;
+their results are reported against the plain version, not held to it, so a
+copy may drop a part of the kernel (tools/conv_wide_split.json drops the
+horizontal taps, the vertical rounds and the vertical pass's copies into
+shared memory, one each, to split the kernel's time).
 """
 import argparse
 import collections
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -63,25 +84,7 @@ def measure(root: Path) -> dict:
     from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
 
     dev = torch.device("cuda", 0)
-
-    def time_ms(fn, device_paced: bool = False) -> float:
-        """Median of 20 runs of CALLS calls between CUDA events.  Device-paced:
-        a sleep kernel ahead of the first event holds the device while the host
-        enqueues the run, so the events see the kernels back to back."""
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(20):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            if device_paced:
-                torch.cuda._sleep(SLEEP_CYCLES)
-            start.record()
-            for _ in range(CALLS):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / CALLS)
-        return statistics.median(times)
+    time_ms = lambda fn, device_paced=False: _time_ms(torch, fn, device_paced)
 
     def host_us(fn, device_busy: bool) -> float:
         """Median host µs to enqueue one of CALLS calls, the device idle at the
@@ -138,6 +141,182 @@ def measure(root: Path) -> dict:
     if hasattr(kconv, "conv_route"):
         out.update(routes(torch, np, _build, kconv, x8, l8, tv, th, time_ms))
     return out
+
+
+# the wide instance's cases: (label, ksize, sigma) of q8_taps on u8
+WIDE_CASES = (("ksize 33 sigma 0", 33, 0.0), ("sigma 6 (37 taps)", 0, 6.0),
+              ("sigma 10 (61 taps)", 0, 10.0), ("sigma 20 (121 taps)", 0, 20.0),
+              ("sigma 45 (271 taps)", 0, 45.0), ("sigma 90 (541 taps)", 0, 90.0))
+
+
+def _time_ms(torch, fn, device_paced: bool = False) -> float:
+    """Median of 20 runs of CALLS calls between CUDA events.  Device-paced:
+    a sleep kernel ahead of the first event holds the device while the host
+    enqueues the run, so the events see the kernels back to back."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if device_paced:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / CALLS)
+    return statistics.median(times)
+
+
+def measure_wide(root: Path, strict: bool = True) -> dict:
+    """The tree's sep_conv_u8 at each WIDE_CASES tap set on 8x1080x1920 u8,
+    blur and amount 1, device-paced (ms), and each set's route (str); each
+    set first held to the plain version at 0 LSB, or (not ``strict``) its
+    largest difference from it reported."""
+    np, torch, port = _setup(root)
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(61)
+    x8 = torch.from_numpy(rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)).to(dev)
+    small = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+             for s in ((2, 64, 300), (1, 37, 131), (1, 5, 9))]
+    out = {}
+    for label, ks, sigma in WIDE_CASES:
+        tv, th = q8_taps(ks, sigma)
+        out[f"{label} route"] = kconv.conv_route(tv, th).describe()
+        worst = 0
+        for x in small + [x8]:
+            for amount in (None, 1.0, 0.5):
+                got = kconv.sep_conv_u8(x, tv, th, amount)
+                want = kconv.sep_conv_u8_plain(x, tv, th, amount)
+                err = int((got.int() - want.int()).abs().max())
+                if err and strict:
+                    raise AssertionError(f"{root}: {label} {tuple(x.shape)} amount {amount}: "
+                                         f"max abs err {err}")
+                worst = max(worst, err)
+        if not strict:
+            out[f"{label} max abs err vs plain"] = str(worst)
+        for amount in (None, 1.0):
+            key = f"sep_conv_u8 8x1080x1920 {label}, {'blur' if amount is None else 'amount 1'}"
+            out[key] = _time_ms(torch, lambda: kconv.sep_conv_u8(x8, tv, th, amount), True)
+    return out
+
+
+def wide_yardstick(smi: str) -> None:
+    """Two separable f32 F.conv2d calls (TF32 off, cuDNN's choice of
+    algorithm) on the reflect-padded 8x1080x1920 planes at each WIDE_CASES
+    tap set: their time, device-paced, and whether (acc + 2^15) >> 16 of
+    their sums equals the plain version (exact sums)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT))
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    x8 = torch.from_numpy(np.random.default_rng(61).integers(0, 256, (8, 1080, 1920),
+                                                             dtype=np.uint8)).to(dev)
+    for label, ks, sigma in WIDE_CASES:
+        tv, th = q8_taps(ks, sigma)
+        wv = torch.tensor(tv, dtype=torch.float32, device=dev).view(1, 1, -1, 1)
+        wh = torch.tensor(th, dtype=torch.float32, device=dev).view(1, 1, 1, -1)
+        pad = (len(th) // 2, len(th) // 2, len(tv) // 2, len(tv) // 2)
+
+        def conv2d():
+            p = F.pad(x8.view(8, 1, *x8.shape[1:]).float(), pad, mode="reflect")
+            return F.conv2d(F.conv2d(p, wv), wh)
+
+        acc = conv2d().view(x8.shape)
+        blur = ((acc.double() + 32768) / 65536).floor().clamp(max=255).to(torch.uint8)
+        err = int((blur.int() - kconv.sep_conv_u8_plain(x8, tv, th).int()).abs().max())
+        integral = bool(torch.equal(acc, acc.round()))
+        print(f"  yardstick F.pad + two f32 F.conv2d (TF32 off) at 8x1080x1920 {label}: "
+              f"{_time_ms(torch, conv2d, True):.4f} ms device-paced; sums integral {integral}, "
+              f"blur vs the plain version max abs err {err}  [{smi}]")
+
+
+# sets of at most 31 taps after trimming, which take the runtime instance:
+# (label, ksize, sigma) of q8_taps
+RUNTIME_CASES = (("ksize 25 sigma 0", 25, 0.0), ("ksize 29 sigma 0", 29, 0.0),
+                 ("ksize 31 sigma 0", 31, 0.0), ("ksize 33 sigma 0 (31 trimmed)", 33, 0.0),
+                 ("sigma 5.1 (33 taps, 29 trimmed)", 0, 5.1),
+                 ("33x5 sigma 0 (31x5 trimmed)", (33, 5), 0.0))
+
+
+def wide_vs_runtime(smi: str) -> None:
+    """This tree's wide instance against the runtime one (the route
+    conv_route picks) at each RUNTIME_CASES tap set on 8x1080x1920 u8, blur
+    and amount 1, through the C entry point; each held to the plain version
+    at 0 LSB, then timed device-paced in turns A B B A."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.kernels._build import launch
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    dev = torch.device("cuda", 0)
+    x8 = torch.from_numpy(np.random.default_rng(62).integers(0, 256, (8, 1080, 1920),
+                                                             dtype=np.uint8)).to(dev)
+    out_t = torch.empty_like(x8)
+    for label, ks, sigma in RUNTIME_CASES:
+        tv, th = q8_taps(ks, sigma)
+        r = kconv.conv_route(tv, th)
+        wv, wh = kconv.trim_taps(tv), kconv.trim_taps(th)
+        buf = torch.from_numpy(kconv.wide_tap_buffer(wv, wh)).to(dev)
+        kinds = {"runtime": (r.taps_v, r.taps_h, None, r.instance, int(r.packed), r.shift),
+                 "wide": (wv, wh, buf.data_ptr(), kconv.WIDE, 0, 16)}
+        for amount in (None, 1.0):
+            mode, amount_i = kconv.epilogue_mode(amount)
+            alpha, beta = (1.0, 0.0) if amount is None else kconv.unsharp_weights(amount)
+            want = kconv.sep_conv_u8_plain(x8, tv, th, amount)
+            fns = {}
+            for kind, (ctv, cth, dtaps, inst, packed, shift) in kinds.items():
+                c_tv, c_th = (np.ascontiguousarray(t, np.int32) for t in (ctv, cth))
+
+                def fn(c_tv=c_tv, c_th=c_th, dtaps=dtaps, inst=inst, packed=packed, shift=shift):
+                    launch("sep_conv_u8", dev, x8.data_ptr(), out_t.data_ptr(), *x8.shape,
+                           c_tv.ctypes.data, len(c_tv), c_th.ctypes.data, len(c_th), dtaps, None,
+                           inst, packed, shift, mode, amount_i, alpha, beta)
+                fn()
+                err = int((out_t.int() - want.int()).abs().max())
+                if err:
+                    raise AssertionError(f"{label} {kind} amount {amount}: max abs err {err}")
+                fns[kind] = fn
+            runs = {k: [] for k in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for kind in order:
+                    runs[kind].append(_time_ms(torch, fns[kind], True))
+            print(f"  {label} ({len(wv)}x{len(wh)} taps) at 8x1080x1920, "
+                  f"{'blur' if amount is None else 'amount 1'}, device-paced: " + "; ".join(
+                      f"{kind} ({r.describe() if kind == 'runtime' else 'wide/f32'}) "
+                      f"{' / '.join(f'{t:.4f}' for t in ts)} ms" for kind, ts in runs.items())
+                  + f"  [{smi}]")
+
+
+def variant_tree(name: str, subs: list) -> Path:
+    """A copy of this tree's package under build/variants/<name> with each
+    [old, new] of ``subs`` replaced in csrc/conv.cu."""
+    pkg = "imageenhancement_mp_tpu_torch"
+    d = ROOT / "build" / "variants" / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ROOT / pkg, d / pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    src = d / pkg / "kernels" / "csrc" / "conv.cu"
+    text = src.read_text()
+    for old, new in subs:
+        if old not in text:
+            raise SystemExit(f"variant {name}: {old!r} is not in csrc/conv.cu")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return d
 
 
 def routes(torch, np, _build, kconv, x, luts, tv, th, time_ms) -> dict:
@@ -270,15 +449,28 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, help="a parent tree holding imageenhancement_mp_tpu_torch")
     ap.add_argument("--tree", action="append", default=[], metavar="LABEL=PATH",
                     help="another tree, timed between the parent and this one")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the wide instance at WIDE_CASES instead, its yardstick, and it "
+                         "against the runtime instance at RUNTIME_CASES")
+    ap.add_argument("--variants", type=Path, metavar="FILE.json",
+                    help="with --wide: copies of this tree with csrc/conv.cu edited, "
+                         "{name: [[old, new], ...]}, timed as trees")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)  # one tree, in a child
+    ap.add_argument("--measure-wide", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--lenient", action="store_true", help=argparse.SUPPRESS)  # a variant
     ap.add_argument("--inspect", type=Path, help=argparse.SUPPRESS)  # profile and SASS, in a child
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.variants and not args.wide:
+        ap.error("--variants goes with --wide")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_conv_profile: torch.cuda.is_available() is False")
     if args.measure:
         print(json.dumps(measure(args.measure.resolve())))
+        return
+    if args.measure_wide:
+        print(json.dumps(measure_wide(args.measure_wide.resolve(), not args.lenient)))
         return
     if args.inspect:
         profile(args.inspect.resolve(), args.label)
@@ -293,20 +485,34 @@ def main() -> None:
     for spec in args.tree:
         label, _, path = spec.partition("=")
         trees.insert(-1, (label, Path(path).resolve()))
+    variants = json.loads(args.variants.read_text()) if args.variants else {}
+    for name, subs in variants.items():
+        trees.insert(-1, (name, variant_tree(name, subs)))
     if len(trees) > 1:
         trees = trees + trees[::-1]
     runs: dict[str, list[dict]] = {}
     for label, root in trees:
-        child = subprocess.run([sys.executable, __file__, "--measure", str(root)], check=True,
+        child = subprocess.run([sys.executable, __file__,
+                                "--measure-wide" if args.wide else "--measure", str(root),
+                                *(["--lenient"] if label in variants else [])],
                                capture_output=True, text=True)
+        if child.returncode:
+            raise SystemExit(f"{label} ({root}) failed:\n{child.stdout}\n{child.stderr}")
         result = json.loads(child.stdout.strip().splitlines()[-1])
         runs.setdefault(label, []).append(result)
-        print(f"{label} ({root}): " + ", ".join(f"{k} {v:.4f}" for k, v in result.items()))
+        print(f"{label} ({root}): " + ", ".join(
+            f"{k} {v}" if isinstance(v, str) else f"{k} {v:.4f}" for k, v in result.items()))
     for key in runs["this"][0]:
+        if isinstance(runs["this"][0][key], str):
+            continue
         cells = {label: [r[key] for r in rs if key in r] for label, rs in runs.items()}
         unit = "us" if key.endswith(" us") else "ms"
         print(f"  {key}: " + "; ".join(f"{label} {' / '.join(f'{t:.4f}' for t in ts)} {unit}"
                                        for label, ts in cells.items() if ts) + f"  [{smi}]")
+    if args.wide:
+        wide_yardstick(smi)
+        wide_vs_runtime(smi)
+        return
     for label, root in dict(trees).items():
         subprocess.run([sys.executable, __file__, "--inspect", str(root), "--label", label],
                        check=True)
