@@ -277,7 +277,22 @@
    Each family prints its ms per call back to back, launches per call and
    busy share under torch.profiler (the host helpers: ms on the host
    clock).
-16. Prints a one-line JSON per-kernel summary (launches on the main paths,
+16. The port's entry points: the CUDA self-check
+   (selftest.run_selftest((128, 131), 0): the JAX selftest's rows less
+   spatial/cfg5 and the 128x256 rows, each on the card with counters of its
+   own and again on the CPU, every row within its budget, the 128x256
+   rows' exact launches: sep_conv_u8's k 3/5/7, runtime and wide instances,
+   hist256_lut, the u8 and u16 CLAHE stages), whether the native frame
+   loader and writer built, then the CLI in-process through cli.main: batch
+   mode on four 1080x1920 gray frames and one 1080x1920x3 frame
+   (histeq -> unsharp:1.0:5; exactly 5 hist256_lut, apply_lut256 and
+   sep_conv_u8 launches), once as PGM/PPM and once as PNG, each on the card
+   and with --device cpu (no launch), the outputs equal byte for byte and
+   the wall time a frame split into decode, H2D, device, D2H and
+   encode/write; single-image mode on a 2160x3840 .npy through config 5's
+   ops (median:5 clahe:2.0:8:8 unsharp: one median, tile_luts256,
+   clahe_blend and sep_conv_u8 launch), card against CPU at 0 LSB.
+17. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -2482,6 +2497,148 @@ def contours_and_shapes(port, dev, smi, on_card, drive, sizes: dict = P15) -> No
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 16's sizes: the selftest's own (128x131, and its 128x256 rows), a
+# batch of four 1080p gray frames and one 1080p RGB frame, one 4K gray frame
+# through config 5's ops in single-image mode
+P16 = {"selftest": (128, 131), "frame": (1080, 1920), "single": (2160, 3840)}
+# the 128x256 rows: the conv instance each Gaussian row's taps take, and the
+# kernels each row must launch on the card
+WIDE_CONV = {"wide/gauss3": (3, 0.0), "wide/gauss5": (5, 0.0), "wide/gauss7": (7, 0.0),
+             "wide/gauss15": (15, 0.0), "wide/gauss37/s6": (37, 6.0)}
+WIDE_LAUNCHES = {"wide/gauss3": {"sep_conv_u8": 1}, "wide/gauss5": {"sep_conv_u8": 1},
+                 "wide/gauss7": {"sep_conv_u8": 1}, "wide/gauss15": {"sep_conv_u8": 1},
+                 "wide/gauss37/s6": {"sep_conv_u8": 1},
+                 "wide/eq_unsharp": {"hist256_lut": 1, "sep_conv_u8": 1},
+                 "wide/clahe": {"tile_luts256": 1, "clahe_blend": 1},
+                 "wide/clahe/u16": {"hist65536_tiles": 1, "clahe_lut": 1, "clahe_blend": 1}}
+
+
+def _batch_split(label: str, s: dict, smi: str) -> None:
+    """Print a CLI batch run's seconds by stage, per frame."""
+    from imageenhancement_mp_tpu_torch.cli import STAGES
+
+    n = s["frames"]
+    print(f"  {label}: {n} frames, {sum(s[k] for k in STAGES) * 1e3 / n:.3f} ms a frame "
+          f"in all  [{smi}]")
+    for k, name in zip(STAGES, ("decode (waiting on the prefetch)", "H2D", "device (the ops)",
+                                "D2H", "encode/write (queueing and the final flush)")):
+        print(f"    {name}: {s[k] * 1e3 / n:.3f} ms a frame")
+
+
+def entry_points(smi: str, drive, sizes: dict = P16) -> None:
+    """Phase 16: the port's two entry points.  The selftest on the card,
+    every row within its budget, the 128x256 rows through the conv kernel's
+    k 3/5/7, runtime and wide instances and the u8 and u16 CLAHE blends;
+    the CLI's batch mode in-process on 1080p PNM and PNG frames and its
+    single-image mode on a 4K .npy through config 5's ops, each on the card
+    and with --device cpu, the outputs equal byte for byte."""
+    import tempfile
+
+    import imageenhancement_mp_tpu_torch as port
+    from imageenhancement_mp_tpu_torch import cli, selftest
+    from imageenhancement_mp_tpu_torch.io import FrameLoader, FrameWriter
+    from imageenhancement_mp_tpu_torch.kernels import conv as kconv
+    from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
+
+    t_phase = time.perf_counter()
+    # -- the selftest: each row on cuda:0 with counters of its own, then on
+    # the CPU
+    results = []
+    t0 = time.perf_counter()
+    ok = selftest.run_selftest(sizes["selftest"], 0, verbose=False, results=results)
+    secs = time.perf_counter() - t0
+    bad = [r for r in results if r["lsb"] is None or r["lsb"] > r["budget"]]
+    for r in bad:
+        print(f"  selftest row {r['name']}: max-LSB {r['lsb']} over its budget {r['budget']}")
+    if not ok:
+        raise AssertionError(f"selftest: {len(bad)} of {len(results)} rows over their budgets")
+    worst = max(results, key=lambda r: r["seconds"])
+    print(f"phase 16 selftest {sizes['selftest']} seed 0: all {len(results)} rows within their "
+          f"budgets in {secs:.1f} s (card and CPU; the slowest card run {worst['name']} "
+          f"{worst['seconds']:.3f} s)  [{smi}]")
+    nonzero = [f"{r['name']} {r['lsb']}" for r in results if r["lsb"]]
+    print(f"  rows off the CPU within their budgets: {', '.join(nonzero) or 'none'}")
+    by_name = {r["name"]: r for r in results}
+    for name, want in WIDE_LAUNCHES.items():
+        got = by_name[name]["launches"]
+        route = (f", sep_conv_u8 instance {kconv.conv_route(*q8_taps(*WIDE_CONV[name])).describe()}"
+                 if name in WIDE_CONV else "")
+        print(f"  {name} {selftest.WIDE_SIZE}: launches {got}{route}")
+        if got != want:
+            raise AssertionError(f"selftest {name}: launches {got}, expected {want}")
+    print(f"  nlmeans/u16 launches: {by_name['nlmeans/u16']['launches']}")
+
+    # -- the CLI: the native frame loader and writer (their g++ build first)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        with FrameWriter(threads=1) as fw:
+            writer_native = fw.native
+        loader_native = FrameLoader([]).native
+        print(f"phase 16 frame IO: native loader {'built' if loader_native else 'not built'}, "
+              f"native writer {'built' if writer_native else 'not built'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        H, W = sizes["frame"]
+        a, b = photo_scene(H, W, 1601), photo_scene(H, W, 1602)
+        frames = [a[..., 0], a[..., 1], b[..., 0], b[..., 2], b]
+        ops = ["--op", "histeq", "--op", "unsharp:1.0:5"]
+        expect = {"hist256_lut": 5, "apply_lut256": 5, "sep_conv_u8": 5}
+        for kind in ("pnm", "png"):
+            names = [f"f{i}." + ("png" if kind == "png" else "ppm" if f.ndim == 3 else "pgm")
+                     for i, f in enumerate(frames)]
+            with FrameWriter(threads=4) as fw:
+                for n, f in zip(names, frames):
+                    fw.save(tmp / n, f)
+            ins = [str(tmp / n) for n in names]
+            outs = {}
+            for device in ("cuda", "cpu"):
+                out = tmp / f"{kind}_{device}"
+                label = f"cli batch {kind} {len(frames)}x{H}x{W} on {device}"
+                split = {}
+                rc, _ = drive(label, lambda: cli.main([*ins, "-o", str(out), *ops,
+                                                       "--device", device], split),
+                              expect if device == "cuda" else {})
+                if rc != 0:
+                    raise AssertionError(f"{label}: exit code {rc}")
+                _batch_split(label, split, smi)
+                outs[device] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+            if list(outs["cuda"]) != [n.replace(".", "_out.") for n in names] or (
+                    outs["cuda"] != outs["cpu"]):
+                raise AssertionError(f"cli batch {kind}: card and CPU outputs differ "
+                                     f"({list(outs['cuda'])}, {list(outs['cpu'])})")
+            print(f"  cli batch {kind}: card and CPU outputs equal byte for byte "
+                  f"({sum(map(len, outs['cuda'].values()))} bytes in {len(names)} files)")
+        back = next(iter(FrameLoader([tmp / "png_cuda" / "f4_out.png"])))
+        want = port.unsharp_mask(port.equalize_hist(torch.from_numpy(b)), 1.0, 5).numpy()
+        if not np.array_equal(back, want):
+            raise AssertionError("cli batch: the RGB frame's output is not histeq -> unsharp")
+
+        # -- single-image mode: a 4K .npy through config 5's ops
+        Hs, Ws = sizes["single"]
+        np.save(tmp / "in.npy", noisy((), Hs, Ws, (), 1603, 10.0))
+        ops5 = ["--op", "median:5", "--op", "clahe:2.0:8:8", "--op", "unsharp"]
+        got = {}
+        for device in ("cuda", "cpu"):
+            label = f"cli single {Hs}x{Ws} config 5 on {device}"
+            t0 = time.perf_counter()
+            rc, _ = drive(label, lambda: cli.main([str(tmp / "in.npy"), "-o",
+                                                   str(tmp / f"{device}.npy"), *ops5,
+                                                   "--device", device]),
+                          {"median": 1, "tile_luts256": 1, "clahe_blend": 1, "sep_conv_u8": 1}
+                          if device == "cuda" else {})
+            if rc != 0:
+                raise AssertionError(f"{label}: exit code {rc}")
+            got[device] = np.load(tmp / f"{device}.npy")
+            print(f"  {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms for the command "
+                  f"(load, H2D, ops, D2H, save)  [{smi}]")
+        e = max_err(torch.from_numpy(got["cuda"]), torch.from_numpy(got["cpu"]))
+        if got["cuda"].shape != (Hs, Ws) or got["cuda"].dtype != np.uint8 or e:
+            raise AssertionError(f"cli single: card {got['cuda'].shape} {got['cuda'].dtype}, "
+                                 f"{e} LSB off the CPU")
+        print(f"  cli single {Hs}x{Ws}: card against CPU 0 LSB")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -3154,6 +3311,12 @@ def main() -> None:
             print(f"  library call for hist65536_tiles: {u16_library_ms:.4f} ms (one "
                   f"torch.bincount on int64 tile offsets made beforehand)  [{smi}]")
             del idx16
+            # the u16 blend's plain version at the timed shape (the kernels
+            # line's plain_ms for clahe_blend is the u8 one)
+            blend16_plain_ms = time_ms(lambda: kclahe.clahe_blend_plain(g16, l16, 8, 8, *tables5),
+                                       5, 2)[0]
+            print(f"  clahe_blend u16 plain version at (2, 2160, 3840) grid 8x8, random plane: "
+                  f"{blend16_plain_ms:.4f} ms  [{smi}]")
     del g16, h16, l16
     # the document kernels beside their issue floors; the share of pixels the
     # athresh screen hands to the f64 recompute, from the plain mirror of the
@@ -3772,6 +3935,10 @@ def main() -> None:
     # -- 15. distanceTransform, floodFill, the Hough transforms, findContours
     # and the shape descriptors
     contours_and_shapes(port, dev, smi, on_card, drive)
+
+    # -- 16. the entry points: the selftest, the CLI's batch and single-image
+    # modes, card against CPU
+    entry_points(smi, drive)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -52,6 +52,7 @@ from imageenhancement_mp_tpu_torch.pipeline import equalize_unsharp
 from imageenhancement_mp_tpu_torch.utils import (contours_host, hough_host, photo_host, taps,
                                                  tracking, warp_coords)
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes, as_vec, treat_as_hwc
+from imageenhancement_mp_tpu_torch.utils.shapes import host_array as _host
 from imageenhancement_mp_tpu_torch.utils.structuring import (get_structuring_element as
                                                              _structuring_element)
 from imageenhancement_mp_tpu_torch.utils.taps import deriv_kernels, gaussian_kernel
@@ -755,8 +756,8 @@ def sep_filter2d(img: torch.Tensor, kernel_x, kernel_y, delta: float = 0.0,
                  channels_last: bool = True) -> torch.Tensor:
     """``cv2.sepFilter2D(img, -1, kx, ky, delta)`` — ``filter2d`` with the
     outer product ``ky ⊗ kx``, as the JAX package composes it."""
-    kx = np.asarray(kernel_x, np.float64).ravel()
-    ky = np.asarray(kernel_y, np.float64).ravel()
+    kx = _host(kernel_x).astype(np.float64).ravel()
+    ky = _host(kernel_y).astype(np.float64).ravel()
     return filter2d(img, np.outer(ky, kx), delta, channels_last)
 
 
@@ -1008,10 +1009,6 @@ def moments_device(img: torch.Tensor, binary_image: bool = False) -> dict:
     images, cv2's completion in f64, one f32 rounding per entry."""
     v = stats.moments_plane(img, bool(binary_image))
     return {k: v[i] for i, k in enumerate(stats.MOMENT_KEYS)}
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def compare_hist(h1, h2, method: str = "correl") -> float:
@@ -1292,11 +1289,17 @@ def denoise_tvl1(observations, lam: float = 1.0, niters: int = 30) -> torch.Tens
     return photo.denoise_tvl1_stack(stack, float(lam), int(niters))
 
 
+def _check_f32_rgb(img, what: str) -> None:
+    _check_f32(img, what)
+    if img.dim() != 3 or img.shape[-1] != 3:
+        raise ValueError(f"{what} expects an f32 [H,W,3] image, got {tuple(img.shape)}")
+
+
 def tonemap_reinhard(img: torch.Tensor, gamma: float = 1.0, intensity: float = 0.0,
                      light_adapt: float = 1.0, color_adapt: float = 0.0) -> torch.Tensor:
     """``cv2.createTonemapReinhard(...).process`` — f32 ``[H,W,3]`` HDR in,
     f32 [0, 1] out."""
-    _check_f32(img, "tonemap_reinhard")
+    _check_f32_rgb(img, "tonemap_reinhard")
     return photo.tonemap_reinhard_nhwc(img[None], float(gamma), float(intensity),
                                        float(light_adapt), float(color_adapt))[0]
 
@@ -1304,7 +1307,7 @@ def tonemap_reinhard(img: torch.Tensor, gamma: float = 1.0, intensity: float = 0
 def tonemap_drago(img: torch.Tensor, gamma: float = 1.0, saturation: float = 1.0,
                   bias: float = 0.85) -> torch.Tensor:
     """``cv2.createTonemapDrago(...).process`` — f32 ``[H,W,3]``."""
-    _check_f32(img, "tonemap_drago")
+    _check_f32_rgb(img, "tonemap_drago")
     return photo.tonemap_drago_nhwc(img[None], float(gamma), float(saturation), float(bias))[0]
 
 
@@ -1312,7 +1315,7 @@ def tonemap_mantiuk(img: torch.Tensor, gamma: float = 1.0, scale: float = 0.7,
                     saturation: float = 1.0) -> torch.Tensor:
     """``cv2.createTonemapMantiuk(...).process`` in its closed form
     ``L' = L^(scale^(1/0.4185))`` — f32 ``[H,W,3]``."""
-    _check_f32(img, "tonemap_mantiuk")
+    _check_f32_rgb(img, "tonemap_mantiuk")
     return photo.tonemap_mantiuk_nhwc(img[None], float(gamma), float(scale),
                                       float(saturation))[0]
 

@@ -25,6 +25,7 @@ import torch
 
 from imageenhancement_mp_tpu_torch.ops.filters import _f32, _pad
 from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
+from imageenhancement_mp_tpu_torch.utils.shapes import host_array
 
 __all__ = ["filter2d_planes"]
 
@@ -35,7 +36,7 @@ def filter2d_planes(planes: torch.Tensor, kernel, delta: float = 0.0) -> torch.T
     """``cv2.filter2D(img, -1, kernel, delta)`` per plane (module doc)."""
     if planes.dtype not in (torch.uint8, torch.uint16, torch.int16, torch.float32):
         raise TypeError(f"expected uint8/uint16/int16/float32, got {planes.dtype}")
-    k = np.asarray(kernel, np.float64)
+    k = host_array(kernel).astype(np.float64)
     if k.ndim != 2:
         raise ValueError(f"kernel must be 2-D, got shape {k.shape}")
     kh, kw = k.shape

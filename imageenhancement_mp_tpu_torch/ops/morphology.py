@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
+from imageenhancement_mp_tpu_torch.utils.shapes import host_array
 
 __all__ = ["erode_planes", "dilate_planes", "morphology_planes", "MORPH_OPS"]
 
@@ -84,7 +85,7 @@ def _filter(x: torch.Tensor, ksize, iterations: int, kernel, op: str,
             dtype: torch.dtype) -> torch.Tensor:
     """``iterations`` min or max filters of the widened planes ``x``."""
     if kernel is not None:
-        mask = np.asarray(kernel) != 0
+        mask = host_array(kernel) != 0
         kh, kw = mask.shape
     else:
         mask, (kh, kw) = None, _ksize2(ksize)

@@ -29,6 +29,7 @@ from imageenhancement_mp_tpu_torch.utils import lut_tables
 from imageenhancement_mp_tpu_torch.utils.colormaps import colormap_table
 from imageenhancement_mp_tpu_torch.utils.fma import fma32
 from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
+from imageenhancement_mp_tpu_torch.utils.shapes import host_array
 
 __all__ = ["apply_lut_planes", "gamma_planes", "log_planes", "convert_scale_abs_planes",
            "contrast_stretch_planes", "stretch_luts_from_minmax", "add_weighted_arrays",
@@ -257,5 +258,5 @@ def calc_back_project_planes(planes: torch.Tensor, hist, scale: float = 1.0) -> 
     saturate(round(hist[bin]·scale)))."""
     if planes.dtype != torch.uint8:
         raise TypeError("calcBackProject requires uint8 input")
-    h = tuple(float(v) for v in np.asarray(hist, np.float64).ravel())
+    h = tuple(float(v) for v in host_array(hist).astype(np.float64).ravel())
     return apply_lut256(planes.contiguous(), _back_project_lut(h, float(scale), planes.device))

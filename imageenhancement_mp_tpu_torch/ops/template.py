@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from imageenhancement_mp_tpu_torch.utils.shapes import host_array
+
 __all__ = ["match_template_planes", "METHODS"]
 
 METHODS = ("sqdiff", "sqdiff_normed", "ccorr", "ccorr_normed", "ccoeff", "ccoeff_normed")
@@ -52,7 +54,7 @@ def match_template_planes(planes: torch.Tensor, templ,
     as the JAX package reads it)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
-    T = np.asarray(templ, np.float32)
+    T = host_array(templ).astype(np.float32)
     if T.ndim != 2:
         raise ValueError(f"template must be 2-D, got shape {T.shape}")
     th, tw = T.shape

@@ -18,9 +18,10 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["treat_as_hwc", "as_vec", "as_planes"]
+__all__ = ["treat_as_hwc", "as_vec", "as_planes", "host_array"]
 
 Restore = Callable[[torch.Tensor], torch.Tensor]
 
@@ -69,3 +70,11 @@ def as_planes(img: torch.Tensor, channels_last: bool = True) -> Tuple[torch.Tens
             out.reshape(n, c, out.shape[-2], out.shape[-1]), 1, -1
         )
     raise ValueError(f"expected 2-4 dims ([N,]H,W[,C]), got shape {tuple(img.shape)}")
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` as a NumPy array on the host: a tensor on any device is copied
+    back (``np.asarray`` cannot read a CUDA tensor); anything else goes
+    through ``np.asarray``.  For the small arguments read on the host:
+    templates, kernels, histograms, points."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -167,6 +167,20 @@ def test_tonemaps_match_ref_and_jax(which):
         fn_t(torch.zeros((4, 4, 3), dtype=torch.float64))
 
 
+@pytest.mark.parametrize("which", ["reinhard", "drago", "mantiuk"])
+def test_tonemaps_reject_gray_with_value_error(which):
+    """A gray plane raises ValueError, as the JAX package's tonemaps do (so
+    the CLI's ``tonemap`` op on a gray frame exits with a clean error)."""
+    fn_t, fn_j = {"reinhard": (tie.tonemap_reinhard, jie.tonemap_reinhard),
+                  "drago": (tie.tonemap_drago, jie.tonemap_drago),
+                  "mantiuk": (tie.tonemap_mantiuk, jie.tonemap_mantiuk)}[which]
+    gray = np.random.default_rng(seed("tonemapgray", which)).random((11, 13)).astype(np.float32)
+    with pytest.raises(ValueError):
+        fn_j(jnp.asarray(gray))
+    with pytest.raises(ValueError):
+        fn_t(torch.from_numpy(gray))
+
+
 def test_device_path_launches_the_kernels(monkeypatch):
     """With the launch stubbed and CUDA assumed: decolor launches take_table
     15 times (u8 rgb2lab 6, lab2rgb 9) and merge_debevec apply_lut256_wide

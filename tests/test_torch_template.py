@@ -77,3 +77,26 @@ def test_api_matches_jax_and_rejects():
         tt.match_template_planes(t, np.zeros(3))
     with pytest.raises(TypeError):
         tie.match_template(t.to(torch.int32), templ)
+
+
+@pytest.mark.parametrize("call", ["match_template", "filter2d", "sep_filter2d", "morphology",
+                                  "calc_back_project"])
+def test_host_arguments_may_be_tensors(call):
+    """A template, kernel or histogram given as a tensor (on any device:
+    np.asarray reads neither a CUDA tensor nor one that requires grad, the
+    CPU stand-in here) gives what the same array gives."""
+    rng = np.random.default_rng(sum(map(ord, call)))
+    img = torch.from_numpy(rng.integers(0, 256, (21, 26), dtype=np.uint8))
+    arg = {"match_template": rng.integers(0, 256, (5, 7)).astype(np.float32),
+           "filter2d": rng.normal(size=(3, 5)),
+           "sep_filter2d": rng.normal(size=5),
+           "morphology": (rng.random((3, 5)) > 0.4).astype(np.uint8),
+           "calc_back_project": rng.random(32) * 300}[call]
+    fn = {"match_template": lambda a: tie.match_template(img, a),
+          "filter2d": lambda a: tie.filter2d(img, a),
+          "sep_filter2d": lambda a: tie.sep_filter2d(img, a, a[1:]),
+          "morphology": lambda a: tie.morphology_ex(img, "close", kernel=a),
+          "calc_back_project": lambda a: tie.calc_back_project(img, a, 0.7)}[call]
+    want = fn(arg)
+    got = fn(torch.tensor(arg, dtype=torch.float64, requires_grad=True))
+    assert torch.equal(got, want)
