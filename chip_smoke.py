@@ -278,8 +278,8 @@
    busy share under torch.profiler (the host helpers: ms on the host
    clock).
 16. The port's entry points: the CUDA self-check
-   (selftest.run_selftest((128, 131), 0): the JAX selftest's rows less
-   spatial/cfg5 and the 128x256 rows, each on the card with counters of its
+   (selftest.run_selftest((128, 131), 0): the JAX selftest's rows, spatial/cfg5
+   on a 1-device mesh of cuda:0 among them, and the 128x256 rows, each on the card with counters of its
    own and again on the CPU, every row within its budget, the 128x256
    rows' exact launches: sep_conv_u8's k 3/5/7, runtime and wide instances,
    hist256_lut, the u8 and u16 CLAHE stages), whether the native frame
@@ -292,7 +292,18 @@
    encode/write; single-image mode on a 2160x3840 .npy through config 5's
    ops (median:5 clahe:2.0:8:8 unsharp: one median, tile_luts256,
    clahe_blend and sep_conv_u8 launch), card against CPU at 0 LSB.
-17. Prints a one-line JSON per-kernel summary (launches on the main paths,
+17. The mesh (parallel/): config 5 batch-sharded on 4x2160x3840 u8 over
+   make_mesh(1) and over a mesh that names cuda:0 four times (each of its
+   four kernels once per shard), equal to the unsharded call at 0 LSB and a
+   frame equal to the CPU plain path; the pooled equalize over the 4-entry
+   mesh on 8x1080x1920 (channels 1 and 3: hist256, equalize_lut256 and
+   apply_lut256 once per shard); config 5 row-sharded on one 4320x7680 frame,
+   u8 and u16; each of the 16 non-pointwise spatial twins on a 2160x3840
+   frame, every kernel of the unsharded call once per shard; three batches
+   through stream_frames(mesh=), each output sharded and equal to the
+   unsharded call; back-to-back ms and host us a call of the unsharded call,
+   the 1-device mesh and the four shards on one card (not a scaling figure).
+18. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
@@ -2639,6 +2650,184 @@ def entry_points(smi: str, drive, sizes: dict = P16) -> None:
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 17's sizes: config 5 on a batch of four 4K frames (batch-sharded, a
+# frame a shard), the pooled equalize on eight 1080p frames (gray and RGB),
+# one 8K scan or aerial tile row-sharded (u8 and u16), the spatial twins on
+# a 4K frame, and three streamed batches of four 4K frames
+P17 = {"batch": (4, 2160, 3840), "pool": (8, 1080, 1920), "scan": (4320, 7680),
+       "twin": (2160, 3840)}
+SHARDS = 4
+# the non-pointwise spatial twins, one stage each (parallel/spatial.py)
+TWINS17 = (("gaussian_blur", {"ksize": 5}), ("unsharp_mask", {"amount": 1.0}),
+           ("median_blur", {"ksize": 5}), ("box_blur", {"ksize": 5}),
+           ("bilateral", {"d": 5, "sigma_color": 30.0, "sigma_space": 6.0}),
+           ("adaptive_threshold", {"method": "gaussian", "block_size": 11, "C": 2.0}),
+           ("erode", {"ksize": 3}), ("dilate", {"ksize": (5, 3)}),
+           ("morphology", {"op": "open", "ksize": (3, 5)}), ("sobel", {"dx": 1, "dy": 1}),
+           ("filter2d", {"kernel": ((0, -1, 0), (-1, 5, -1), (0, -1, 0)), "delta": 2.5}),
+           ("laplacian_sharpen", {}), ("equalize_hist", {}), ("equalize_hist_global", {}),
+           ("contrast_stretch", {"out_range": (30.5, 200.25)}),
+           ("clahe", {"clip_limit": 2.0, "tile_grid": (8, 8)}))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launches(dev: torch.device, fn) -> tuple:
+    """``fn()`` and the launches it made, counters at 0 just before."""
+    from imageenhancement_mp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    _sync(dev)
+    reset_launch_counts()
+    out = fn()
+    _sync(dev)
+    return out, {k: c for k, c in launch_counts.items() if c}
+
+
+def host_us(dev: torch.device, fn, calls: int = 10, rounds: int = 5) -> float:
+    """Host microseconds a call: the median over ``rounds`` rounds of
+    ``calls`` calls queued back to back on the host clock, each timed
+    before the stream is waited for."""
+    fn()
+    _sync(dev)
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        _sync(dev)
+    return statistics.median(per_call)
+
+
+def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> None:
+    """Phase 17: the port's mesh (parallel/).  One card, so the 4-entry mesh
+    names it four times: every split, halo, psum and gather runs on the
+    card's kernels, four shards on one card, not a scaling figure."""
+    import imageenhancement_mp_tpu_torch as port
+    from imageenhancement_mp_tpu_torch.models.presets import PRESETS
+    from imageenhancement_mp_tpu_torch.ops.histogram import equalize_hist_global_planes
+    from imageenhancement_mp_tpu_torch.parallel import mesh as pmesh
+    from imageenhancement_mp_tpu_torch.parallel import sharding as psh
+
+    t_phase = time.perf_counter()
+    config5 = "denoise_clahe_sharpen"
+    one = pmesh.make_mesh(1, device=dev.type)
+    four = pmesh.Mesh([dev] * SHARDS, ("batch",))
+    rows = pmesh.Mesh([dev] * SHARDS, ("y",))
+    single = port.get_preset(config5)
+    per_shard = dict.fromkeys(CONFIG5_KERNELS, SHARDS)
+
+    def same(got, want, what: str) -> None:
+        if isinstance(got, pmesh.ShardedTensor):
+            got = got.gather()
+        e = max_err(got, want)
+        if e or got.device != want.device:
+            raise AssertionError(f"phase 17 {what}: {e} LSB off the unsharded call, on {got.device}")
+
+    try:
+        # -- config 5, batch-sharded: a 1-device mesh and four shards
+        N, H, W = sizes["batch"]
+        x = noisy((N,), H, W, (), 1701, 10.0)
+        g = torch.from_numpy(x).to(dev)
+        want, _ = drive(f"phase 17 config 5 unsharded {N}x{H}x{W}", lambda: single(g),
+                        dict.fromkeys(CONFIG5_KERNELS, 1))
+        cpu = single(torch.from_numpy(x[:1]))
+        e = max_err(want[:1].cpu(), cpu)
+        if e:
+            raise AssertionError(f"phase 17 config 5: a frame {e} LSB off the CPU plain path")
+        pipes = {"1-device mesh": (port.get_preset(config5, mesh=one), 1),
+                 f"{SHARDS} shards on one card": (port.get_preset(config5, mesh=four), SHARDS)}
+        for label, (pipe, n) in pipes.items():
+            got, _ = drive(f"phase 17 config 5 batch-sharded, {label}", lambda: pipe(g),
+                           dict.fromkeys(CONFIG5_KERNELS, n))
+            same(got, want, f"config 5 batch-sharded, {label}")
+        print(f"phase 17 config 5 batch-sharded {N}x{H}x{W} u8: the 1-device mesh and {SHARDS} "
+              "shards equal the unsharded call at 0 LSB, a frame equals the CPU plain path at 0")
+        timed = {"unsharded": single, **{k: p for k, (p, _) in pipes.items()}}
+        for label, fn in timed.items():
+            ms, iqr = time_ms(lambda: fn(g), runs=10, calls=4)
+            print(f"  config 5 {N}x{H}x{W} {label}: {ms:.4f} ms a call back to back (IQR "
+                  f"{iqr:.4f}), host {host_us(dev, lambda: fn(g)):.1f} us a call  [{smi}]")
+        del g, want, got
+
+        # -- pooled hist-eq over four shards, gray and RGB
+        Np, Hp, Wp = sizes["pool"]
+        rng = np.random.default_rng(1702)
+        for channels in (1, 3):
+            xp = torch.from_numpy(rng.integers(0, 256, (Np * channels, Hp, Wp), dtype=np.uint8)
+                                  ).to(dev)
+            pooled = {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1}
+            want, _ = drive(f"phase 17 pooled equalize unsharded, channels {channels}",
+                            lambda: equalize_hist_global_planes(xp, channels), pooled)
+            fn = psh.equalize_hist_global_sharded(four, channels=channels)
+            got, _ = drive(f"phase 17 pooled equalize, {SHARDS} shards, channels {channels}",
+                           lambda: fn(xp), {k: SHARDS for k in pooled})
+            same(got, want, f"pooled equalize, channels {channels}")
+        print(f"phase 17 pooled equalize {Np}x{Hp}x{Wp} (channels 1 and 3) over {SHARDS} shards: "
+              "0 LSB against the unsharded call")
+        del xp, want, got
+
+        # -- config 5, row-sharded: one 8K frame, u8 and u16
+        Hs, Ws = sizes["scan"]
+        x8 = noisy((), Hs, Ws, (), 1703, 10.0)
+        spipe = port.make_pipeline(PRESETS[config5], mesh=rows, shard="spatial")
+        frames = {"u8": torch.from_numpy(x8).to(dev),
+                  "u16": torch.from_numpy(x8.astype(np.uint16) * 256 + rng.integers(
+                      0, 256, (Hs, Ws), dtype=np.uint16)).to(dev)}
+        for dt, gs in frames.items():
+            want, counts = _launches(dev, lambda: single(gs))
+            got, _ = drive(f"phase 17 config 5 row-sharded {Hs}x{Ws} {dt}, {SHARDS} shards",
+                           lambda: spipe(gs), {k: SHARDS * c for k, c in counts.items()})
+            same(got, want, f"config 5 row-sharded {dt}")
+            ms1, _ = time_ms(lambda: single(gs), runs=5, calls=2)
+            ms4, _ = time_ms(lambda: spipe(gs), runs=5, calls=2)
+            print(f"phase 17 config 5 row-sharded {Hs}x{Ws} {dt}: 0 LSB against the unsharded "
+                  f"call (launches a call unsharded {counts}); unsharded {ms1:.4f} ms, "
+                  f"{SHARDS} shards on one card {ms4:.4f} ms a call back to back, host "
+                  f"{host_us(dev, lambda: spipe(gs), 4):.1f} us a call  [{smi}]")
+        del frames, gs, want, got
+
+        # -- every non-pointwise spatial twin on a 4K frame
+        Ht, Wt = sizes["twin"]
+        gt = torch.from_numpy(noisy((), Ht, Wt, (), 1704, 10.0)).to(dev)
+        t0 = time.perf_counter()
+        for name, kw in TWINS17:
+            stage = [(name, kw)]
+            want, counts = _launches(dev, lambda: port.make_pipeline(stage)(gt))
+            expect = {k: SHARDS * c for k, c in counts.items()}
+            if name == "equalize_hist":  # the frame's bins pool across the shards
+                expect = dict.fromkeys(("hist256", "equalize_lut256", "apply_lut256"), SHARDS)
+            got, _ = drive(f"phase 17 spatial {name} {Ht}x{Wt}, {SHARDS} shards",
+                           lambda: port.make_pipeline(stage, mesh=rows, shard="spatial")(gt),
+                           expect)
+            same(got, want, f"spatial {name}")
+        print(f"phase 17 spatial twins: {len(TWINS17)} twins on {Ht}x{Wt} over {SHARDS} shards at "
+              f"0 LSB against the unsharded calls ({time.perf_counter() - t0:.1f} s)")
+        del gt, want, got
+
+        # -- three batches through stream_frames(mesh=)
+        stream = [noisy((N,), H, W, (), 1710 + i, 10.0) for i in range(3)]
+        spipe5 = port.get_preset(config5, mesh=four)
+        outs, _ = drive(f"phase 17 stream_frames 3x({N}x{H}x{W}), {SHARDS} shards",
+                        lambda: list(port.stream_frames(spipe5, stream, 2, mesh=four)),
+                        {k: 3 * c for k, c in per_shard.items()})
+        for f, out in zip(stream, outs):
+            if not isinstance(out, pmesh.ShardedTensor):
+                raise AssertionError(f"phase 17 stream_frames yielded {type(out).__name__}")
+            same(out, single(torch.from_numpy(f).to(dev)), "stream_frames")
+        if len(outs) != 3:
+            raise AssertionError(f"phase 17 stream_frames yielded {len(outs)} of 3 batches")
+        print(f"phase 17 stream_frames: 3 batches equal the unsharded calls at 0 LSB, each part "
+              f"sent to its shard and kept there")
+    finally:
+        for m in (one, four, rows):
+            m.close()
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -3939,6 +4128,10 @@ def main() -> None:
     # -- 16. the entry points: the selftest, the CLI's batch and single-image
     # modes, card against CPU
     entry_points(smi, drive)
+
+    # -- 17. the mesh: batch and row sharding, the pooled hist-eq, the spatial
+    # twins and stream_frames(mesh=), four shards on the one card
+    mesh_sharding(smi, drive, dev)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -9,6 +9,7 @@ a run can show that it went through the kernels.
 
 from __future__ import annotations
 
+import threading
 import weakref
 
 import torch
@@ -39,8 +40,10 @@ def check_kernel_input(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-# (tensor id, key) -> (weak reference, version, value): see host_derived
+# (tensor id, key) -> (weak reference, version, value): see host_derived.
+# Shard threads (parallel/mesh.py) share it: every access holds the lock.
 _HOST_CACHE: dict[tuple, tuple] = {}
+_HOST_LOCK = threading.Lock()
 
 
 def host_derived(t: torch.Tensor, key: str, fn):
@@ -48,14 +51,16 @@ def host_derived(t: torch.Tensor, key: str, fn):
     (and its version counter) and ``key``: a wrapper that needs a table's
     values on the host copies it once, not once per call, which would wait
     for the stream."""
-    hit = _HOST_CACHE.get((id(t), key))
+    with _HOST_LOCK:
+        hit = _HOST_CACHE.get((id(t), key))
     if hit is not None and hit[0]() is t and hit[1] == t._version:
         return hit[2]
-    value = fn(t.detach().cpu().numpy())
-    if len(_HOST_CACHE) > 64:
-        for k in [k for k, v in _HOST_CACHE.items() if v[0]() is None]:
-            del _HOST_CACHE[k]
-    _HOST_CACHE[(id(t), key)] = (weakref.ref(t), t._version, value)
+    value = fn(t.detach().cpu().numpy())  # outside the lock: it waits for the stream
+    with _HOST_LOCK:
+        if len(_HOST_CACHE) > 64:
+            for k in [k for k, v in _HOST_CACHE.items() if v[0]() is None]:
+                del _HOST_CACHE[k]
+        _HOST_CACHE[(id(t), key)] = (weakref.ref(t), t._version, value)
     return value
 
 
@@ -66,8 +71,10 @@ def stream_handle(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index) if device.type == "cuda" else 0
 
 
-# (device, stream, zeroed) -> the stream's int32 buffer: see stream_workspace
+# (device, stream, zeroed) -> the stream's int32 buffer: see stream_workspace;
+# shard threads share it, every access holds the lock
 _WORKSPACES: dict[tuple, torch.Tensor] = {}
+_WORKSPACE_LOCK = threading.Lock()
 _WORKSPACE_KEYS = 128  # the most buffers kept: two a stream
 
 
@@ -81,11 +88,12 @@ def stream_workspace(device: torch.device, n: int, zeroed: bool) -> torch.Tensor
     beyond ``_WORKSPACE_KEYS`` is dropped (the caching allocator reuses its
     memory only on its own stream, after the launches queued there)."""
     key = (device, stream_handle(device), zeroed)
-    t = _WORKSPACES.pop(key, None)
-    if t is None or t.numel() < n:
-        size = max(n, 1024, 0 if t is None else 2 * t.numel())
-        t = (torch.zeros if zeroed else torch.empty)(size, dtype=torch.int32, device=device)
-    _WORKSPACES[key] = t  # the most recently used last
-    while len(_WORKSPACES) > _WORKSPACE_KEYS:
-        del _WORKSPACES[next(iter(_WORKSPACES))]
+    with _WORKSPACE_LOCK:
+        t = _WORKSPACES.pop(key, None)
+        if t is None or t.numel() < n:
+            size = max(n, 1024, 0 if t is None else 2 * t.numel())
+            t = (torch.zeros if zeroed else torch.empty)(size, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = t  # the most recently used last
+        while len(_WORKSPACES) > _WORKSPACE_KEYS:
+            del _WORKSPACES[next(iter(_WORKSPACES))]
     return t

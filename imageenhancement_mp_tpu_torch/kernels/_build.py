@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -69,12 +70,15 @@ _SIGNATURES = {
 }
 
 # One plain integer per kernel wrapper: the launches made in this process.
+# Shard threads launch at once (parallel/mesh.py): every update holds the lock.
 launch_counts: dict[str, int] = {name[3:]: 0 for name in _SIGNATURES}
+_COUNTS_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _COUNTS_LOCK:
+        for name in launch_counts:
+            launch_counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -97,9 +101,18 @@ def _source_digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source hash has none."""
+    """The loaded kernel library, built first if this source hash has none.
+    Threads that ask at once wait for one build."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     sources = sorted(CSRC.glob("*.cu"))
     out_dir = BUILD_ROOT / _source_digest(sources + sorted(CSRC.glob("*.cuh")))
     so = out_dir / "libie_kernels.so"
@@ -149,4 +162,5 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err} ({lib.ie_error_string(err).decode()})")
-    launch_counts[name] += 1
+    with _COUNTS_LOCK:
+        launch_counts[name] += 1

@@ -40,9 +40,9 @@ PRESETS: dict[str, list] = {
 }
 
 
-def get_preset(name: str, mesh=None):
-    """Build the pipeline of a named preset.  ``mesh`` (multi-GPU) is
-    ROADMAP Queue 1 item 12 and raises."""
+def get_preset(name: str, mesh=None, shard: str = "batch", axis_name: str | None = None):
+    """Build the pipeline of a named preset; ``mesh``, ``shard`` and
+    ``axis_name`` shard it over a device mesh (``pipeline.make_pipeline``)."""
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
-    return make_pipeline(PRESETS[name], mesh=mesh)
+    return make_pipeline(PRESETS[name], mesh=mesh, shard=shard, axis_name=axis_name)

@@ -36,7 +36,7 @@ from imageenhancement_mp_tpu_torch.kernels.clahe import (
     tile_luts256,
 )
 
-__all__ = ["clahe_planes", "clahe_tile_luts", "blend_tile_luts", "tile_geometry"]
+__all__ = ["clahe_planes", "clahe_tile_luts", "blend_tile_luts", "tile_geometry", "coord_rows"]
 
 
 def _interp_coords(n: int, tile: int, ntiles: int):
@@ -59,6 +59,18 @@ def _coord_tables(n: int, tile: int, ntiles: int,
     i0, i1, frac = _interp_coords(n, tile, ntiles)
     return (torch.from_numpy(np.stack([i0, i1])).to(device),
             torch.from_numpy(frac).to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def coord_rows(n: int, tile: int, ntiles: int, start: int, count: int,
+               device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Entries ``[start, start + count)`` of :func:`_coord_tables`, as
+    contiguous tensors made once per geometry and slice: the rows of a
+    shard of a row-sharded frame, so the blend's plans, derived once per
+    table, are derived once per shard."""
+    idx, frac = _coord_tables(n, tile, ntiles, device)
+    return (idx[:, start:start + count].contiguous(),
+            frac[start:start + count].contiguous())
 
 
 def tile_geometry(H: int, W: int, tile_grid: tuple[int, int]) -> tuple[int, int, int, int]:

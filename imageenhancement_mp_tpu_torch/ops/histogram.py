@@ -5,7 +5,8 @@ The counterpart of the JAX package's ``ops/histogram.py`` (:53-182).  u8
 planes take one route for every size: per frame, the histogram kernel with
 its equalize-LUT epilogue, then the LUT-apply kernel; pooled, the
 histogram kernel, the equalize-LUT kernel on the pooled counts, then the
-LUT-apply kernel (``kernels/hist.py``).  u16
+LUT-apply kernel (``kernels/hist.py``), the counts pooled across a mesh
+axis with a ``psum`` where one is named.  u16
 histograms are one ``torch.bincount`` over plane-offset indices on both
 devices, as the JAX package scatters them in XLA.
 """
@@ -20,6 +21,7 @@ from imageenhancement_mp_tpu_torch.kernels.hist import (
     hist256,
     hist256_equalize_lut,
 )
+from imageenhancement_mp_tpu_torch.parallel.mesh import axis_size, psum
 
 __all__ = ["histogram_256", "equalize_lut", "equalize_hist_planes", "equalize_hist_global_planes"]
 
@@ -72,29 +74,32 @@ def _check_pool_total(total: int) -> None:
 
 
 def equalize_hist_global_planes(planes: torch.Tensor, channels: int = 1,
-                                axis_name: str | None = None) -> torch.Tensor:
+                                axis_name=None) -> torch.Tensor:
     """Video-consistent hist-eq: ONE LUT per channel from the histogram
     pooled over all frames of ``[B, H, W]`` u8 planes.
 
     ``channels`` says the stack is ``B = N·channels`` planes in (frame-major,
     channel-minor) order, the ``as_planes`` layout of ``[N, H, W, C]``; each
     channel pools its own histogram across the N frames.  ``channels=1``
-    pools one histogram over every plane.  Three launches on CUDA: hist256,
-    equalize_lut256, apply_lut256.  ``axis_name`` (pooling across GPUs) is
-    ROADMAP Queue 1 item 12 and raises."""
+    pools one histogram over every plane.  Inside a sharded call
+    (``parallel.mesh.run_sharded``) ``axis_name`` pools across the shards
+    along that mesh axis too, with one ``psum``; the int32 cdf check counts
+    the pixels of every shard.  Three launches on CUDA: hist256,
+    equalize_lut256, apply_lut256."""
     _check_u8(planes)
-    if axis_name is not None:
-        raise NotImplementedError(
-            "equalize_hist_global(axis_name=...) is ROADMAP Queue 1 item 12")
     B, H, W = planes.shape
     channels = max(int(channels), 1)
     if B % channels:
         raise ValueError(f"plane count {B} not divisible by channels={channels}")
     n = B // channels
     total = n * H * W
+    if axis_name is not None:
+        total *= axis_size(axis_name)
     _check_pool_total(total)
     planes = planes.contiguous()
     hists = hist256(planes).reshape(n, channels, 256).sum(dim=0, dtype=torch.int32)
+    if axis_name is not None:
+        hists = psum(hists, axis_name)
     luts = equalize_lut256(hists, total)  # [C, 256]
     if channels == 1:
         return apply_lut256(planes, luts[0])

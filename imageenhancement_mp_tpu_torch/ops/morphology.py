@@ -126,12 +126,17 @@ def morphology_planes(planes: torch.Tensor, op: str = "open", ksize=3, iteration
     def D(v):
         return _filter(v, ksize, iterations, kernel, "max", dtype)
 
+    return _narrow(compose(op, x, E, D, dtype), dtype)
+
+
+def compose(op: str, x: torch.Tensor, E, D, dtype: torch.dtype) -> torch.Tensor:
+    """``cv2.morphologyEx``'s ``op`` from the erosion ``E`` and dilation
+    ``D`` of widened planes ``x`` (the module doc's laws)."""
     def sat_sub(a, b):
         if dtype == torch.float32:
             return a - b
         return (a - b).clamp(*int_bounds(dtype))
 
-    out = {"erode": lambda: E(x), "dilate": lambda: D(x), "open": lambda: D(E(x)),
-           "close": lambda: E(D(x)), "gradient": lambda: sat_sub(D(x), E(x)),
-           "tophat": lambda: sat_sub(x, D(E(x))), "blackhat": lambda: sat_sub(E(D(x)), x)}[op]()
-    return _narrow(out, dtype)
+    return {"erode": lambda: E(x), "dilate": lambda: D(x), "open": lambda: D(E(x)),
+            "close": lambda: E(D(x)), "gradient": lambda: sat_sub(D(x), E(x)),
+            "tophat": lambda: sat_sub(x, D(E(x))), "blackhat": lambda: sat_sub(E(D(x)), x)}[op]()

@@ -32,7 +32,7 @@ from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
 from imageenhancement_mp_tpu_torch.utils.shapes import host_array
 
 __all__ = ["apply_lut_planes", "gamma_planes", "log_planes", "convert_scale_abs_planes",
-           "contrast_stretch_planes", "stretch_luts_from_minmax", "add_weighted_arrays",
+           "contrast_stretch_planes", "plane_minmax", "stretch_planes", "stretch_luts_from_minmax", "add_weighted_arrays",
            "integral_planes", "apply_color_map_planes", "calc_back_project_planes"]
 
 F32, F64 = torch.float32, torch.float64
@@ -125,21 +125,33 @@ def contrast_stretch_planes(planes: torch.Tensor,
     across arbitrary float ranges.  The range is sorted (the plane's minimum
     maps to min(α, β)); a constant plane maps to α.  float32: cv2's float
     path, no rounding."""
+    lo, hi = plane_minmax(planes)
+    return stretch_planes(planes, lo, hi, out_range)
+
+
+def plane_minmax(planes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each plane's ``[B]`` minimum and maximum, as :func:`stretch_planes`
+    takes them: f32 for f32 planes, int32 for u16, the planes' dtype else."""
+    if planes.dtype != F32 and planes.dtype not in _INT_RANGE:
+        raise TypeError(f"contrast_stretch takes uint8/uint16/int16/float32, got {planes.dtype}")
+    flat = planes.reshape(planes.shape[0], -1)
+    # torch's CPU min/max has no uint16
+    return torch.aminmax(flat.to(torch.int32) if planes.dtype == torch.uint16 else flat, dim=1)
+
+
+def stretch_planes(planes: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   out_range: tuple[float, float] = (0.0, 255.0)) -> torch.Tensor:
+    """:func:`contrast_stretch_planes` with each plane's ``[B]`` minimum
+    ``lo`` and maximum ``hi`` given (:func:`plane_minmax`), as a row-sharded
+    frame pools them across its shards."""
     a, b = sorted((float(out_range[0]), float(out_range[1])))
-    B = planes.shape[0]
     if planes.dtype == F32:
-        lo, hi = torch.aminmax(planes.reshape(B, -1), dim=1)
         lo, hi = lo[:, None, None], hi[:, None, None]
         # tensor / tensor: one IEEE division, as JAX's f32 (b − a) / d
         scale = torch.full_like(lo, b - a) / torch.clamp_min(hi - lo, 1e-45)
         out = (planes - lo) * scale + a
         return torch.where(hi == lo, a, out)
-    if planes.dtype not in _INT_RANGE:
-        raise TypeError(f"contrast_stretch takes uint8/uint16/int16/float32, got {planes.dtype}")
     minv, maxv = _INT_RANGE[planes.dtype]
-    flat = planes.reshape(B, -1)
-    # torch's CPU min/max has no uint16
-    lo, hi = torch.aminmax(flat.to(torch.int32) if planes.dtype == torch.uint16 else flat, dim=1)
     luts = stretch_luts_from_minmax(lo, hi, a, b, maxv, planes.dtype, minv)
     if planes.dtype == torch.uint8:
         return apply_lut_planes(planes, luts)  # the LUT kernel on CUDA

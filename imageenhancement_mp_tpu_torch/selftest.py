@@ -7,8 +7,9 @@ wrapper runs its plain PyTorch version, and the card must reproduce the CPU
 within the row's budget: 0 LSB for every integer path, and the limits that
 ``chip_smoke.py`` holds the float paths to (:data:`BUDGETS`).  The rows
 are the JAX selftest's, by name and on the same arrays (drawn in its order
-from ``np.random.default_rng(seed)``), less ``spatial/cfg5`` (spatial
-sharding is not ported), plus rows on a 128x256 image that reach the conv
+from ``np.random.default_rng(seed)``; ``spatial/cfg5`` row-shards config 5
+over a 1-device mesh of the run's device), plus rows on a 128x256 image that
+reach the conv
 kernel's k 3/5/7, runtime and wide instances, ``equalize_unsharp`` and the u8
 and u16 CLAHE blends.  The tests hold the plain path to the NumPy oracle.
 
@@ -100,6 +101,17 @@ def selftest_rows(size=(128, 131), seed: int = 0) -> list:
         [(0, 0), (w - 1.0, 0), (w - 1.0, h - 1.0), (0, h - 1.0)],
         [(3.5, 2.0), (w - 5.0, 4.5), (w - 2.0, h - 3.0), (1.0, h - 6.5)])
     swirl = (img, a["swirl_x"], a["swirl_y"])
+
+    def spatial_cfg5(x):
+        """Config 5 row-sharded on a 1-device mesh: the halo self-border,
+        the psum and all_gather and the sharded call, end to end."""
+        from imageenhancement_mp_tpu_torch.parallel.mesh import Mesh
+        from imageenhancement_mp_tpu_torch.parallel.spatial import make_spatial_pipeline
+
+        pipe = make_spatial_pipeline([("median_blur", {"ksize": 3}),
+                                      ("clahe", {"clip_limit": 2.0, "tile_grid": (4, 4)}),
+                                      ("unsharp_mask", {"amount": 1.0})], Mesh([x.device], ("y",)))
+        return pipe(x[: h - h % 4, : w - w % 4][None])[0]
 
     def crop(c):
         return c[:mh, :mw].contiguous()
@@ -213,6 +225,7 @@ def selftest_rows(size=(128, 131), seed: int = 0) -> list:
         ("stretch/i16", lambda x: ie.contrast_stretch(x, (-20.5, 512.0)), (imgs16,)),
         ("gauss5/i16", lambda x: ie.gaussian_blur(x, 5), (imgs16,)),
         ("lap_sharp/i16", ie.laplacian_sharpen, (imgs16,)),
+        ("spatial/cfg5", spatial_cfg5, (img,)),
         # pooled (video-mode) equalization: per-channel LUTs across frames
         ("equalize/pool", lambda v: ie.equalize_hist(v, per_frame=False), (a["vid"],)),
         ("subpix/u8", lambda x, cs: ie.get_rect_sub_pix(x, (5, 4), cs), (img, a["sp_cs"])),

@@ -180,7 +180,8 @@ def test_equalize_hist_pooled_api_matches_jax(shape, per_channel):
 def test_equalize_hist_pooled_rejects():
     """JAX's ValueError past 2^31 pooled pixels (checked from the shape,
     before any pixel is read), a plane count not divisible by channels,
-    pooling across GPUs (Queue 1 item 12), non-u8 planes."""
+    an axis_name outside a sharded call (as JAX's unbound axis), non-u8
+    planes."""
     big = torch.zeros((1, 1, 1), dtype=torch.uint8).expand(1024, 1024, 2048)
     with pytest.raises(ValueError, match="2\\^31"):
         thist.equalize_hist_global_planes(big)
@@ -188,7 +189,7 @@ def test_equalize_hist_pooled_rejects():
         jax.eval_shape(jax_eq_global, jax.ShapeDtypeStruct((1024, 1024, 2048), jnp.uint8))
     with pytest.raises(ValueError):
         thist.equalize_hist_global_planes(torch.zeros((4, 3, 3), dtype=torch.uint8), 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NameError, match="unbound axis name"):
         thist.equalize_hist_global_planes(torch.zeros((3, 3, 3), dtype=torch.uint8),
                                           axis_name="x")
     with pytest.raises(TypeError):
