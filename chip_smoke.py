@@ -303,6 +303,17 @@
    through stream_frames(mesh=), each output sharded and equal to the
    unsharded call; back-to-back ms and host us a call of the unsharded call,
    the 1-device mesh and the four shards on one card (not a scaling figure).
+   The geometry twins on the 4320x7680 frame, row-sharded over the 4-entry
+   mesh: resize to 2160x3840 (nearest, linear, cubic, Lanczos-4, area) and
+   to 1728x3072 (the general area downscale), u16 linear; warpAffine rot15
+   x0.9 into a centred 2160x3840 window in u8 linear and nearest
+   (warp_gather_u8's matrix route with each shard's first row: once per
+   shard), u16 linear, i16 linear and f32
+   cubic; u8 remap on maps split by rows and warpPolar forward and inverse
+   (its maps route, once per shard); Canny (3, L1) and (5, L2); each equal
+   to the unsharded call at 0 LSB (f32 bit for bit) and timed beside it.
+   The matrix route with a first row other than 0 is held against its plain
+   version.
 18. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
@@ -2655,7 +2666,7 @@ def entry_points(smi: str, drive, sizes: dict = P16) -> None:
 # one 8K scan or aerial tile row-sharded (u8 and u16), the spatial twins on
 # a 4K frame, and three streamed batches of four 4K frames
 P17 = {"batch": (4, 2160, 3840), "pool": (8, 1080, 1920), "scan": (4320, 7680),
-       "twin": (2160, 3840)}
+       "twin": (2160, 3840), "half": (2160, 3840), "area": (1728, 3072)}
 SHARDS = 4
 # the non-pointwise spatial twins, one stage each (parallel/spatial.py)
 TWINS17 = (("gaussian_blur", {"ksize": 5}), ("unsharp_mask", {"amount": 1.0}),
@@ -2702,7 +2713,114 @@ def host_us(dev: torch.device, fn, calls: int = 10, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> None:
+def geometry_twins(smi: str, drive, dev: torch.device, rows, sizes: dict) -> int:
+    """Phase 17's geometry twins on the scan frame over the row mesh
+    ``rows``: each equal to the unsharded call (bit for bit), with its
+    launches counted and its time beside the unsharded call's.  Returns
+    warp_gather_u8's largest error against its plain version on the matrix
+    route with a first row other than 0."""
+    import imageenhancement_mp_tpu_torch as port
+    from imageenhancement_mp_tpu_torch.kernels import warp as kwarp
+    from imageenhancement_mp_tpu_torch.ops import warp as twarp
+    from imageenhancement_mp_tpu_torch.parallel import mesh as pmesh
+    from imageenhancement_mp_tpu_torch.parallel import spatial as psp
+    from imageenhancement_mp_tpu_torch.utils.warp_coords import (get_rotation_matrix_2d,
+                                                                  invert_affine)
+
+    t0 = time.perf_counter()
+    Hs, Ws = sizes["scan"]
+    x8 = noisy((), Hs, Ws, (), 1705, 10.0)
+    rng = np.random.default_rng(1706)
+    frames = {"u8": x8, "u16": x8.astype(np.uint16) * 256 + rng.integers(0, 256, (Hs, Ws),
+                                                                        dtype=np.uint16),
+              "i16": (x8.astype(np.int16) - 128) * 200,
+              "f32": x8.astype(np.float32) * np.float32(1 / 255.0)}
+    frames = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
+    half, area = sizes["half"], sizes["area"]
+    # rot15 x0.9 about the frame's centre, into a window of half its size
+    # centred on it (the host-table routes build a coordinate a pixel)
+    M = get_rotation_matrix_2d((Ws / 2, Hs / 2), 15.0, 0.9)
+    M[:, 2] -= ((Ws - half[1]) / 2, (Hs - half[0]) / 2)
+    polar_args = ((Ws // 2, Hs // 2), (Ws / 2, Hs / 2), float(min(Hs, Ws)) / 2)
+    mx = (torch.rand((Hs, Ws), generator=torch.Generator(device=dev).manual_seed(1707),
+                     device=dev) * (Ws + 4) - 2).contiguous()
+    my = (torch.rand((Hs, Ws), generator=torch.Generator(device=dev).manual_seed(1708),
+                     device=dev) * (Hs + 4) - 2).contiguous()
+
+    def stage(name: str, dt: str, **kw) -> tuple:
+        one = [(name, kw)]
+        return (dt, lambda g: port.make_pipeline(one)(g),
+                lambda g: port.make_pipeline(one, mesh=rows, shard="spatial")(g))
+
+    polar = {inv: (lambda g, inv=inv: twarp.warp_polar_planes(g[None], *polar_args, False,
+                                                              inv)[0],
+                   lambda g, inv=inv: psp.shard_spatial(lambda p: psp.warp_polar_spatial(
+                       p, *polar_args, False, inv), rows)(g[None])[0]) for inv in (False, True)}
+    remap_rows = pmesh.run_sharded(lambda p, a, b: psp.remap_spatial(p, a, b), rows,
+                                   [(None, "y"), ("y",), ("y",)], (None, "y"))
+    cases = {
+        **{f"resize {i} -> {half[0]}x{half[1]} u8": stage("resize", "u8", dsize=half,
+                                                          interpolation=i)
+           for i in ("nearest", "linear", "cubic", "lanczos4", "area")},
+        f"resize area -> {area[0]}x{area[1]} u8 (general)": stage("resize", "u8", dsize=area,
+                                                                  interpolation="area"),
+        f"resize linear -> {half[0]}x{half[1]} u16": stage("resize", "u16", dsize=half),
+        **{f"warpAffine rot15 x0.9 {i} {dt}": stage("warp_affine", dt, M=M, dsize=half,
+                                                    interpolation=i)
+           for i, dt in (("linear", "u8"), ("nearest", "u8"), ("linear", "u16"),
+                         ("linear", "i16"), ("cubic", "f32"))},
+        "remap u8, maps split by rows": (
+            "u8", lambda g: twarp.remap_planes(g[None], mx, my)[0],
+            lambda g: remap_rows(g[None], mx, my)[0]),
+        "warpPolar u8": ("u8", *polar[False]),
+        "warpPolar inverse u8": ("u8", *polar[True]),
+        "Canny (3, L1) u8": stage("canny", "u8", threshold1=50.0, threshold2=150.0),
+        "Canny (5, L2) u8": stage("canny", "u8", threshold1=400.0, threshold2=1200.0,
+                                  aperture_size=5, l2_gradient=True),
+    }
+    kernel_paths = {"warpAffine rot15 x0.9 linear u8", "warpAffine rot15 x0.9 nearest u8",
+                    "remap u8, maps split by rows", "warpPolar u8", "warpPolar inverse u8"}
+    for label, (dt, unsharded, sharded) in cases.items():
+        g = frames[dt]
+        want, counts = _launches(dev, lambda: unsharded(g))
+        on_card = dev.type == "cuda" and label in kernel_paths  # a CPU tensor launches nothing
+        if counts != ({"warp_gather_u8": 1} if on_card else {}):
+            raise AssertionError(f"phase 17 {label}: unsharded launches {counts}")
+        got, _ = drive(f"phase 17 spatial {label}, {SHARDS} shards", lambda: sharded(g),
+                       {k: SHARDS * c for k, c in counts.items()})
+        if isinstance(got, pmesh.ShardedTensor):
+            got = got.gather()
+        # f32 compared through its bits
+        e = max_err(*(t.view(torch.int32) if t.dtype == torch.float32 else t
+                      for t in (got, want)))
+        if e or got.device != want.device:
+            raise AssertionError(f"phase 17 spatial {label}: {e} off the unsharded call")
+        ms1, _ = time_ms(lambda: unsharded(g), runs=3, calls=1, warmups=1)
+        ms4, _ = time_ms(lambda: sharded(g), runs=3, calls=1, warmups=1)
+        print(f"  spatial {label} {Hs}x{Ws} -> {tuple(want.shape)}: 0 LSB; unsharded {ms1:.4f} ms, "
+              f"{SHARDS} shards on one card {ms4:.4f} ms a call back to back, host "
+              f"{host_us(dev, lambda: sharded(g), 1, 3):.1f} us a call  [{smi}]")
+    # the matrix route with each shard's first row against its plain version
+    err, n = 0, 0
+    oloc, Mi, g = half[0] // SHARDS, invert_affine(M), frames["u8"][None]
+    for idx in range(1, SHARDS):
+        for nearest in (False, True):
+            for border, bv in (("constant", 9), ("replicate", 0)):
+                args = (g, Mi, oloc, half[1], False, nearest, border, bv, idx * oloc)
+                err = max(err, max_err(kwarp.warp_matrix_u8(*args),
+                                       kwarp.warp_matrix_u8_plain(*args)))
+                n += 1
+    if err:
+        raise AssertionError(f"warp_gather_u8 matrix route with row0: {err} LSB off its plain "
+                             "version")
+    print(f"phase 17 spatial geometry: {len(cases)} twins on {Hs}x{Ws} over {SHARDS} shards at "
+          f"0 LSB against the unsharded calls; warp_gather_u8's matrix route at first rows "
+          f"{oloc}..{(SHARDS - 1) * oloc} 0 LSB against its plain version over {n} cases "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> int:
     """Phase 17: the port's mesh (parallel/).  One card, so the 4-entry mesh
     names it four times: every split, halo, psum and gather runs on the
     card's kernels, four shards on one card, not a scaling figure."""
@@ -2808,6 +2926,9 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> None
               f"0 LSB against the unsharded calls ({time.perf_counter() - t0:.1f} s)")
         del gt, want, got
 
+        # -- the geometry twins on the 8K frame
+        row0_err = geometry_twins(smi, drive, dev, rows, sizes)
+
         # -- three batches through stream_frames(mesh=)
         stream = [noisy((N,), H, W, (), 1710 + i, 10.0) for i in range(3)]
         spipe5 = port.get_preset(config5, mesh=four)
@@ -2826,6 +2947,7 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> None
         for m in (one, four, rows):
             m.close()
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return row0_err
 
 
 def main() -> None:
@@ -4130,8 +4252,9 @@ def main() -> None:
     entry_points(smi, drive)
 
     # -- 17. the mesh: batch and row sharding, the pooled hist-eq, the spatial
-    # twins and stream_frames(mesh=), four shards on the one card
-    mesh_sharding(smi, drive, dev)
+    # twins (the geometry twins too) and stream_frames(mesh=), four shards on
+    # the one card
+    err["warp_gather_u8"] = max(err["warp_gather_u8"], mesh_sharding(smi, drive, dev))
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -61,8 +61,8 @@ _SIGNATURES = {
                        _I32, _P, _I32, _I32, _I32, _P),
     "ie_bilateral": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _P),
     "ie_athresh": (_P, _P, _P, _I64, _I64, _I64, _P, _I32, _I32, _I32, _I32, _F32, _I32, _P),
-    "ie_warp_gather_u8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
-                          *(_F32,) * 9, _P),
+    "ie_warp_gather_u8": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32,
+                          _I32, *(_F32,) * 9, _P),
     "ie_take_table": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P),
     "ie_apply_lut256_wide": (_P, _P, _I64, _P, _I64, _I64, _I32, _P),
     "ie_apply_luts_multi": (_P, _P, _I64, _P, _I64, _I64, _I32, _P),

@@ -24,7 +24,10 @@
 //  * perspective: three such forms nx, ny, den, then sx = nx / den (one IEEE
 //    f32 division; den == 0 gives 0), sy likewise.
 // Each pixel's coordinates are computed once for all planes of its group, so
-// the matrix routes read no field from device memory.
+// the matrix routes read no field from device memory.  On the matrix routes
+// output row `row` takes y = row0 + row: a row-sharded warp (each shard
+// rendering rows [row0, row0 + oh) of the frame's output) gets the rows of
+// the unsharded call.
 //
 // The sampling law is the JAX XLA path's (ops/warp.py _gather +
 // _bilinear_fma_device), which the TPU kernel equals bitwise:
@@ -104,6 +107,7 @@ struct Matrix {  // the f32 inverse matrix, row-major: 2x3 (affine) or 3x3
 struct Geometry {
   int64_t B, npix, plane_px;
   int H, W, oh, ow;
+  int row0;  // the frame row of output row 0 (matrix routes)
   int64_t tiles_x, ntiles;
   int replicate, bval;
 };
@@ -231,7 +235,7 @@ warp_gather_u8_kernel(const uint8_t* __restrict__ x, const float* __restrict__ s
       int ix[kPx], iy[kPx];
       float fxs[kPx], fys[kPx];
       {
-        const float yf = float(row);
+        const float yf = float(g.row0 + row);
         const float* m = mat.m;
         FormRow fx_row, fy_row, fd_row;
         if (kSource != kMaps) {
@@ -312,22 +316,26 @@ void launch_source(cudaStream_t stream, bool nearest, const uint8_t* x, const fl
 
 extern "C" {
 
-// x: [B, H, W] u8 contiguous; out: [B, oh, ow] u8 contiguous; nearest 0/1;
+// x: [B, H, W] u8 contiguous; out: [B, oh, ow] u8 contiguous; row0: the frame
+// row of output row 0 on the matrix routes (0 for a whole output; sources 1
+// and 2 only, 0 <= row0, row0 + oh <= 2^31 - 65); nearest 0/1;
 // replicate 0/1 (0 = constant border with value bval, 0..255).  source 0:
 // sx, sy are [oh, ow] f32 contiguous maps shared by all planes and m0..m8
 // are unused; 1: the affine inverse matrix m0..m5 (f32, row-major); 2: the
 // perspective inverse matrix m0..m8; sx and sy are then unused.
 int ie_warp_gather_u8(const uint8_t* x, const float* sx, const float* sy, uint8_t* out, int64_t B,
-                      int64_t H, int64_t W, int64_t oh, int64_t ow, int32_t nearest,
+                      int64_t H, int64_t W, int64_t oh, int64_t ow, int64_t row0, int32_t nearest,
                       int32_t replicate, int32_t bval, int32_t source, float m0, float m1,
                       float m2, float m3, float m4, float m5, float m6, float m7, float m8,
                       cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || H > 0x7fffffffLL || W > 0x7fffffffLL || oh < 1 || ow < 1 ||
       oh > 0x7fffffffLL - 64 || ow > 0x7fffffffLL - 64 || (nearest != 0 && nearest != 1) ||
       (replicate != 0 && replicate != 1) || bval < 0 || bval > 255 || source < kMaps ||
-      source > kPerspective || (source == kMaps && (sx == nullptr || sy == nullptr)))
+      source > kPerspective || (source == kMaps && (sx == nullptr || sy == nullptr)) ||
+      row0 < 0 || row0 > 0x7fffffffLL - 64 - oh || (source == kMaps && row0 != 0))
     return int(cudaErrorInvalidValue);
-  const Geometry g{B, oh * ow, H * W, int(H), int(W), int(oh), int(ow), 0, 0, replicate, bval};
+  const Geometry g{B,      oh * ow, H * W, int(H), int(W), int(oh), int(ow), int(row0),
+                   0,      0,       replicate, bval};
   const Matrix m{{m0, m1, m2, m3, m4, m5, m6, m7, m8}};
   if (source == kMaps)
     launch_source<kMaps>(stream, nearest, x, sx, sy, out, g, m);

@@ -84,16 +84,19 @@ def bilinear_fma(sample: Callable[[int, int], torch.Tensor], tx: torch.Tensor,
 
 # -- coordinate fields ----------------------------------------------------------
 
-def _hybrid_form(a, b, c, oh: int, ow: int, device) -> torch.Tensor:
+def _hybrid_form(a, b, c, oh: int, ow: int, device, row0: int = 0) -> torch.Tensor:
     """One linear form ``a·x + b·y + c`` (f32 coefficients) of cv2 5.0's
-    hybrid coordinate field → f32 ``(oh, ow)`` on ``device``
-    (``ref/ops.py::warp_affine_coords_f32``'s law for one row of M).  The
-    kernel's matrix routes compute the same law per pixel."""
+    hybrid coordinate field at rows ``y`` in ``[row0, row0 + oh)`` → f32
+    ``(oh, ow)`` on ``device`` (``ref/ops.py::warp_affine_coords_f32``'s law
+    for one row of M).  The kernel's matrix routes compute the same law per
+    pixel."""
     a, b, c = (float(np.float32(v)) for v in (a, b, c))
     nb = ow - ow % 16
     # the per-row f32 table f32(b·y), made on the device (a host table would
-    # cost a synchronising copy per call)
-    by = torch.arange(oh, dtype=torch.float32, device=device) * b
+    # cost a synchronising copy per call); y = f32(row), as the kernel
+    # converts it
+    ys = torch.arange(row0, row0 + oh, dtype=torch.float64, device=device).float()
+    by = ys * b
     # f64 product of two f32 values is exact; the f64 add and the f32 cast
     # round as ref/ops.py::_fma32 does
     ax = torch.arange(ow, dtype=torch.float64, device=device) * a
@@ -104,28 +107,32 @@ def _hybrid_form(a, b, c, oh: int, ow: int, device) -> torch.Tensor:
     return torch.cat([body, tail], dim=1)
 
 
-def affine_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def affine_field(Mi, oh: int, ow: int, device,
+                 row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """cv2 5.0's f32 destination→source field of the inverse affine ``Mi``
     on ``device``, clipped to ±2e9: ``(sx, sy)``, each f32 ``(oh, ow)``,
-    equal to ``ref/ops.py::warp_affine_coords_f32`` bit for bit."""
+    equal to ``ref/ops.py::warp_affine_coords_f32`` bit for bit.  ``row0``:
+    the output rows ``[row0, row0 + oh)`` of a taller field (a row shard)."""
     Mf = np.asarray(Mi, np.float64).reshape(2, 3).astype(np.float32)
     out = []
     for a, b, c in Mf:
-        s = _hybrid_form(a, b, c, oh, ow, device)
+        s = _hybrid_form(a, b, c, oh, ow, device, row0)
         # |a·x + b·y + c| is largest at a corner: below this bound (a few f32
         # roundings included) no coordinate reaches the clip
-        if abs(a) * (ow - 1) + abs(b) * (oh - 1) + abs(c) > 0.9 * COORD_LIMIT:
+        if abs(a) * (ow - 1) + abs(b) * (row0 + oh - 1) + abs(c) > 0.9 * COORD_LIMIT:
             s = s.clamp_(-COORD_LIMIT, COORD_LIMIT)
         out.append(s)
     return out[0], out[1]
 
 
-def perspective_field(Mi, oh: int, ow: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def perspective_field(Mi, oh: int, ow: int, device,
+                      row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The f32 field of the inverse homography ``Mi`` on ``device``, clipped
     to ±2e9 (``ref/ops.py::warp_perspective_coords_f32``): three hybrid
-    forms, then one f32 division per axis; a zero denominator gives 0."""
+    forms, then one f32 division per axis; a zero denominator gives 0.
+    ``row0`` as in :func:`affine_field`."""
     Mf = np.asarray(Mi, np.float64).reshape(3, 3).astype(np.float32)
-    nx, ny, den = (_hybrid_form(*Mf[r], oh, ow, device) for r in (0, 1, 2))
+    nx, ny, den = (_hybrid_form(*Mf[r], oh, ow, device, row0) for r in (0, 1, 2))
     nz = den != 0
     return tuple(torch.where(nz, n / den, 0.0).clamp_(-COORD_LIMIT, COORD_LIMIT)
                  for n in (nx, ny))
@@ -193,35 +200,41 @@ def warp_gather_u8(planes: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     if out.numel() == 0:
         return out
     launch("warp_gather_u8", planes.device, planes.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-           out.data_ptr(), B, H, W, oh, ow, int(nearest), int(border == "replicate"),
+           out.data_ptr(), B, H, W, oh, ow, 0, int(nearest), int(border == "replicate"),
            border_value, _MAPS, *([0.0] * 9))
     return out
 
 
 def warp_matrix_u8_plain(planes: torch.Tensor, Mi, oh: int, ow: int, perspective: bool = False,
                          nearest: bool = False, border: str = "constant",
-                         border_value: int = 0) -> torch.Tensor:
+                         border_value: int = 0, row0: int = 0) -> torch.Tensor:
     field = perspective_field if perspective else affine_field
-    return warp_gather_u8_plain(planes, *field(Mi, oh, ow, planes.device), nearest, border,
-                                border_value)
+    return warp_gather_u8_plain(planes, *field(Mi, oh, ow, planes.device, row0), nearest,
+                                border, border_value)
 
 
 def warp_matrix_u8(planes: torch.Tensor, Mi, oh: int, ow: int, perspective: bool = False,
                    nearest: bool = False, border: str = "constant",
-                   border_value: int = 0) -> torch.Tensor:
+                   border_value: int = 0, row0: int = 0) -> torch.Tensor:
     """Sample u8 ``planes [B, H, W]`` at the coordinates of the inverse
     matrix ``Mi`` (2×3 affine, or 3×3 with ``perspective``) → u8
     ``[B, oh, ow]``: :func:`warp_gather_u8` at ``affine_field(Mi, oh, ow)``
     (or ``perspective_field``), with the field computed per pixel inside the
-    kernel instead of read from device memory."""
-    nearest, border_value, oh, ow = bool(nearest), int(border_value), int(oh), int(ow)
+    kernel instead of read from device memory.  ``row0``: output rows
+    ``[row0, row0 + oh)`` of the warp (a row shard's block); 0 renders the
+    whole output."""
+    nearest, border_value, oh, ow, row0 = (bool(nearest), int(border_value), int(oh), int(ow),
+                                           int(row0))
     _check_planes(planes, border, border_value)
     if oh < 1 or ow < 1:
         raise ValueError(f"warp_matrix_u8: invalid output size {(oh, ow)}")
+    if row0 < 0:
+        raise ValueError(f"warp_matrix_u8: negative first row {row0}")
     # the inverse matrix as the kernel takes it: f32, 2×3 or 3×3
     Mf = np.asarray(Mi, np.float64).reshape((3, 3) if perspective else (2, 3)).astype(np.float32)
     if not on_cuda(planes, "warp_gather_u8"):
-        return warp_matrix_u8_plain(planes, Mf, oh, ow, perspective, nearest, border, border_value)
+        return warp_matrix_u8_plain(planes, Mf, oh, ow, perspective, nearest, border, border_value,
+                                    row0)
     check_kernel_input("warp_gather_u8", planes)
     B, H, W = planes.shape
     out = torch.empty((B, oh, ow), dtype=torch.uint8, device=planes.device)
@@ -229,6 +242,6 @@ def warp_matrix_u8(planes: torch.Tensor, Mi, oh: int, ow: int, perspective: bool
         return out
     coeffs = [float(v) for v in Mf.reshape(-1)] + [0.0] * (9 - Mf.size)
     launch("warp_gather_u8", planes.device, planes.data_ptr(), None, None, out.data_ptr(), B, H,
-           W, oh, ow, int(nearest), int(border == "replicate"), border_value,
+           W, oh, ow, row0, int(nearest), int(border == "replicate"), border_value,
            _PERSPECTIVE if perspective else _AFFINE, *coeffs)
     return out

@@ -36,8 +36,8 @@ import torch
 from imageenhancement_mp_tpu_torch.ops.filters import _pad
 from imageenhancement_mp_tpu_torch.utils.taps import deriv_kernels
 
-__all__ = ["canny_planes", "canny_candidates", "hysteresis", "connected_components_planes",
-           "CHECK_EVERY"]
+__all__ = ["canny_planes", "canny_candidates", "check_canny", "magnitude", "hysteresis",
+           "connected_components_planes", "CHECK_EVERY"]
 
 _TG22 = 13573
 _SHIFT = 15
@@ -59,9 +59,13 @@ def _sobel_replicate(planes: torch.Tensor, dx: int, dy: int, ksize: int) -> torc
     return raw.clamp(-32768, 32767)
 
 
-def _nms_keep(mag: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """cv2's fixed-point non-maximum suppression, zero border."""
-    mp = torch.nn.functional.pad(mag, (1, 1, 1, 1))
+def _nms_keep(magv: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """cv2's fixed-point non-maximum suppression of the ``h`` rows of
+    ``gx, gy`` over a magnitude extended by one row a side, ``magv = [B, h +
+    2, W]``: the zero border above and below the frame, or on a row shard
+    the neighbour shards' boundary rows.  The zero column border is padded
+    here."""
+    mp = torch.nn.functional.pad(magv, (1, 1))
     c = mp[:, 1:-1, 1:-1]
     left, right = mp[:, 1:-1, :-2], mp[:, 1:-1, 2:]
     up, down = mp[:, :-2, 1:-1], mp[:, 2:, 1:-1]
@@ -78,27 +82,36 @@ def _nms_keep(mag: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Te
                        torch.where(ay > tg67x, (c > up) & (c >= down), (c > d1) & (c > d2)))
 
 
-def canny_candidates(planes: torch.Tensor, threshold1: float, threshold2: float,
-                     aperture_size: int = 3,
-                     l2_gradient: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(keep, strong)``: the pixels that survive non-maximum suppression
-    above the low threshold, and those of them above the high one."""
+def check_canny(planes: torch.Tensor, aperture_size: int) -> None:
     if planes.dtype != torch.uint8:
         raise TypeError(f"cv2.Canny requires uint8 input, got {planes.dtype}")
     if aperture_size not in (3, 5, 7):
         raise ValueError(f"aperture_size must be 3, 5 or 7, got {aperture_size}")
-    gx = _sobel_replicate(planes, 1, 0, aperture_size)
-    gy = _sobel_replicate(planes, 0, 1, aperture_size)
+
+
+def magnitude(gx: torch.Tensor, gy: torch.Tensor, threshold1: float, threshold2: float,
+              aperture_size: int, l2_gradient: bool) -> tuple[torch.Tensor, int, int]:
+    """The gradient magnitude (L1, or L2 squared) and the low and high
+    thresholds it is compared with, as integers."""
     lo_t, hi_t = sorted((float(threshold1), float(threshold2)))
     if aperture_size == 7:
         lo_t, hi_t = lo_t / 16.0, hi_t / 16.0
     if l2_gradient:
         mag = gx * gx + gy * gy  # int16-saturated gradients: inside int32
-        lo_i, hi_i = int(np.floor(lo_t * lo_t)), int(np.floor(hi_t * hi_t))
-    else:
-        mag = gx.abs() + gy.abs()
-        lo_i, hi_i = int(np.floor(lo_t)), int(np.floor(hi_t))
-    keep = _nms_keep(mag, gx, gy) & (mag > lo_i)
+        return mag, int(np.floor(lo_t * lo_t)), int(np.floor(hi_t * hi_t))
+    return gx.abs() + gy.abs(), int(np.floor(lo_t)), int(np.floor(hi_t))
+
+
+def canny_candidates(planes: torch.Tensor, threshold1: float, threshold2: float,
+                     aperture_size: int = 3,
+                     l2_gradient: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(keep, strong)``: the pixels that survive non-maximum suppression
+    above the low threshold, and those of them above the high one."""
+    check_canny(planes, aperture_size)
+    gx = _sobel_replicate(planes, 1, 0, aperture_size)
+    gy = _sobel_replicate(planes, 0, 1, aperture_size)
+    mag, lo_i, hi_i = magnitude(gx, gy, threshold1, threshold2, aperture_size, l2_gradient)
+    keep = _nms_keep(torch.nn.functional.pad(mag, (0, 0, 1, 1)), gx, gy) & (mag > lo_i)
     return keep, keep & (mag > hi_i)
 
 
@@ -111,7 +124,8 @@ def _dilate8(mask: torch.Tensor) -> torch.Tensor:
 def hysteresis(keep: torch.Tensor, strong: torch.Tensor) -> tuple[torch.Tensor, int]:
     """The 8-connected fixpoint from ``strong`` through ``keep``, and the
     steps it ran (a multiple of :data:`CHECK_EVERY`, the last block of them
-    changing nothing)."""
+    changing nothing).  A row shard floods its block with it, from the
+    edges it has so far (``parallel/spatial.py::canny_spatial``)."""
     out, steps = strong, 0
     while True:
         before = out

@@ -18,9 +18,15 @@ tables, copied), once per geometry and device, and gathered with
   int vertical wraps.  Other dtypes: ``ref/``'s f32 sums in tap order.
 * area: integer factors as a sum over each cell (the 2×2 case half up,
   ``(s + 2) >> 2``, else ``cvRound(s·f32(1/(f1·f2)))``); any other
-  downscale as two weight matmuls, ``Wy · img · Wx``, in f64 (``ref/`` sums
-  each cell in f64; the JAX package's f32 matmuls are its stand-in); an
-  upscale axis the linear machinery with INTER_AREA coordinates.
+  downscale as two banded weighted sums in f64, rows then columns, each
+  output line summing the input lines it overlaps in a fixed order (``ref/``
+  sums each cell in f64; the JAX package's f32 matmuls are its stand-in);
+  an upscale axis the linear machinery with INTER_AREA coordinates.
+
+Row sharding (``parallel/spatial.py::resize_spatial``) runs the same code on
+a shard's halo-extended row block with its rows of the y tables
+(:func:`shard_row_tables`, indices rebased onto the block), so each shard's
+output rows are the unsharded op's bit for bit.
 
 Flip, rotate and transpose return contiguous tensors; uint16 planes flip
 through their int16 view (torch has no ``flip`` for uint16 on the CPU).
@@ -39,10 +45,15 @@ from imageenhancement_mp_tpu_torch.utils.resize_tables import (cubic_weights, la
                                                                resize_lanczos_tables,
                                                                resize_lin_tables)
 
-__all__ = ["resize_planes", "flip_planes", "rotate_planes", "transpose_planes", "INTERPOLATIONS"]
+__all__ = ["resize_planes", "flip_planes", "rotate_planes", "transpose_planes", "INTERPOLATIONS",
+           "check_resize", "row_kind", "row_reach", "shard_row_tables", "resize_rows"]
 
 INTERPOLATIONS = ("nearest", "linear", "cubic", "lanczos4", "area")
+_DTYPES = (torch.uint8, torch.uint16, torch.int16, torch.float32)
 _RESIZE_SCALE = 1 << 11
+# per-shard y tables kept on their device: 4 shards of 8 geometries, apart
+# from the unsharded tables' own cache
+_SHARD_TABLES = 32
 F32, F64, I32, I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
 
@@ -51,8 +62,12 @@ def _fixed_coeffs(frac: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return _RESIZE_SCALE - c2, c2
 
 
+@functools.lru_cache(maxsize=16)
 def _host_tables(kind: str, n: int, on: int) -> tuple[np.ndarray, ...]:
-    """One axis's host tables: indices first, then coefficients."""
+    """One axis's host tables: indices first, then coefficients.  Linear
+    and nearest tables are ``(on,)``; the tap kinds (cubic, Lanczos-4 and
+    the area band) are stored transposed, taps × output lines.  Shared:
+    do not write to them."""
     if kind in ("lin", "area_lin"):
         i0, i1, r = resize_lin_tables(n, on, kind == "area_lin")
         c1, c2 = _fixed_coeffs(r)
@@ -68,7 +83,7 @@ def _host_tables(kind: str, n: int, on: int) -> tuple[np.ndarray, ...]:
         flt = np.stack([w(float(t)) for t in r]).astype(np.float32)
         return idx.T.copy(), fixed.T.copy(), flt.T.copy()
     if kind == "area":
-        return (_area_weights(n, on),)
+        return _area_band(n, on)
     raise ValueError(kind)
 
 
@@ -80,15 +95,26 @@ def _tables(kind: str, n: int, on: int, device: torch.device) -> tuple[torch.Ten
                  for t in _host_tables(kind, n, on))
 
 
-def _area_weights(n: int, on: int) -> np.ndarray:
-    """``(on, n)`` f64 area-overlap weights of each output cell."""
+def _area_band(n: int, on: int) -> tuple[np.ndarray, np.ndarray]:
+    """The area-overlap band of each output cell along one axis (a
+    downscale): ``(idx, w)``, each ``(K, on)`` with K the widest band, the
+    input lines each output line overlaps and their f64 weights, in
+    ``ref/``'s order.  A shorter band is padded with its last line at
+    weight 0, so every padded term reads a line the band already reads."""
     scale = n / on
-    w = np.zeros((on, n), np.float64)
+    bands = []
     for d in range(on):
         lo, hi = d * scale, min((d + 1) * scale, n)
         cells = np.arange(int(np.floor(lo)), min(int(np.ceil(hi)), n))
-        w[d, cells] = np.minimum(cells + 1, hi) - np.maximum(cells, lo)
-    return w
+        bands.append((cells, np.minimum(cells + 1, hi) - np.maximum(cells, lo)))
+    K = max(len(c) for c, _ in bands)
+    idx = np.empty((K, on), np.int64)
+    w = np.zeros((K, on), np.float64)
+    for d, (cells, wd) in enumerate(bands):
+        idx[:, d] = cells[-1]
+        idx[:len(cells), d] = cells
+        w[:len(cells), d] = wd
+    return idx, w
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,11 +125,11 @@ def _cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.index_select(-1, idx)
 
 
-def _linear(planes: torch.Tensor, oh: int, ow: int, area: bool) -> torch.Tensor:
-    H, W = planes.shape[-2], planes.shape[-1]
-    kind = "area_lin" if area else "lin"
-    iy0, iy1, cy1, cy2, ry0, ry1 = _tables(kind, H, oh, planes.device)
-    ix0, ix1, cx1, cx2, rx0, rx1 = _tables(kind, W, ow, planes.device)
+def _linear(planes: torch.Tensor, ow: int, kind: str, ytab: tuple) -> torch.Tensor:
+    """Linear (or INTER_AREA-coordinate linear) resize through the y tables
+    ``ytab`` (``_host_tables`` order, one entry an output row)."""
+    iy0, iy1, cy1, cy2, ry0, ry1 = ytab
+    ix0, ix1, cx1, cx2, rx0, rx1 = _tables(kind, planes.shape[-1], ow, planes.device)
     if planes.dtype == torch.uint8:
         a = planes.to(I32)
         sh = _cols(a, ix0) * cx1 + _cols(a, ix1) * cx2            # scale 2^11
@@ -124,12 +150,12 @@ def _round_cast(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.round(v).clamp(minv, maxv).to(I32).to(dtype)
 
 
-def _taps(planes: torch.Tensor, oh: int, ow: int, kind: str) -> torch.Tensor:
-    """Cubic (4 taps) or Lanczos-4 (8 taps) resize, horizontal pass first."""
-    H, W = planes.shape[-2], planes.shape[-1]
-    yi, yc, yf = _tables(kind, H, oh, planes.device)
-    xi, xc, xf = _tables(kind, W, ow, planes.device)
-    n = yi.shape[0]
+def _taps(planes: torch.Tensor, ow: int, kind: str, ytab: tuple) -> torch.Tensor:
+    """Cubic (4 taps) or Lanczos-4 (8 taps) resize through the y tables
+    ``ytab`` (taps × output rows), horizontal pass first."""
+    yi, yc, yf = ytab
+    xi, xc, xf = _tables(kind, planes.shape[-1], ow, planes.device)
+    n, oh = yi.shape
     if planes.dtype == torch.uint8 and kind == "cubic":
         a = planes.to(I64)
         S = sum(_cols(a, xi[k]) * xc[k] for k in range(n))                 # scale 2^11
@@ -156,50 +182,120 @@ def _taps(planes: torch.Tensor, oh: int, ow: int, kind: str) -> torch.Tensor:
     return _round_cast(v, planes.dtype)
 
 
-def _area(planes: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+def _area_cells(planes: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """Area downscale by integer factors: a sum over each cell."""
     B, H, W = planes.shape
-    if H % oh == 0 and W % ow == 0:
-        f1, f2 = H // oh, W // ow
-        cells = planes.reshape(B, oh, f1, ow, f2)
-        if planes.dtype == F32:
-            s = cells.to(F64).sum((2, 4)).to(F32)
-            return s * torch.tensor(np.float32(1.0 / (f1 * f2)))
-        minv, maxv = int_bounds(planes.dtype)
-        s = cells.to(I32).sum((2, 4), dtype=I32)
-        if (f1, f2) == (2, 2):
-            out = (s + 2) >> 2
-        else:
-            out = torch.round(s.to(F32) * torch.tensor(np.float32(1.0 / (f1 * f2))))
-        return out.clamp(minv, maxv).to(I32).to(planes.dtype)
-    (wy,), (wx,) = _tables("area", H, oh, planes.device), _tables("area", W, ow, planes.device)
-    cell = float(np.float32(1.0 / ((H / oh) * (W / ow))))
-    v = torch.matmul(torch.matmul(wy, planes.to(F64)), wx.T) * cell
-    return _round_cast(v, planes.dtype)
+    f1, f2 = H // oh, W // ow
+    cells = planes.reshape(B, oh, f1, ow, f2)
+    if planes.dtype == F32:
+        s = cells.to(F64).sum((2, 4)).to(F32)
+        return s * torch.tensor(np.float32(1.0 / (f1 * f2)))
+    minv, maxv = int_bounds(planes.dtype)
+    s = cells.to(I32).sum((2, 4), dtype=I32)
+    if (f1, f2) == (2, 2):
+        out = (s + 2) >> 2
+    else:
+        out = torch.round(s.to(F32) * torch.tensor(np.float32(1.0 / (f1 * f2))))
+    return out.clamp(minv, maxv).to(I32).to(planes.dtype)
 
 
-def resize_planes(planes: torch.Tensor, dsize, interpolation: str = "linear") -> torch.Tensor:
-    """``cv2.resize`` per plane on ``[B, H, W]``; ``dsize`` is (oh, ow)."""
-    if planes.dtype not in (torch.uint8, torch.uint16, torch.int16, F32):
+def _area_band_sum(planes: torch.Tensor, H: int, oh: int, ow: int, ytab: tuple) -> torch.Tensor:
+    """Area downscale of the frame ``H`` rows high to ``oh`` rows through the
+    band tables ``ytab`` (``_area_band``'s, one column an output row): f64
+    weighted sums of the band's rows, then of the columns, each term added
+    in band order, then times cvRound's f32 ``1/cell area``."""
+    yi, yw = ytab
+    xi, xw = _tables("area", planes.shape[-1], ow, planes.device)
+    a = planes.to(F64)
+    v = _rows(a, yi[0]) * yw[0][:, None]
+    for k in range(1, yi.shape[0]):
+        v = v + _rows(a, yi[k]) * yw[k][:, None]
+    s = _cols(v, xi[0]) * xw[0]
+    for k in range(1, xi.shape[0]):
+        s = s + _cols(v, xi[k]) * xw[k]
+    cell = float(np.float32(1.0 / ((H / oh) * (planes.shape[-1] / ow))))
+    return _round_cast(s * cell, planes.dtype)
+
+
+def check_resize(planes: torch.Tensor, dsize) -> tuple[int, int]:
+    """The dtype check of ``resize_planes`` and its ``(oh, ow)``."""
+    if planes.dtype not in _DTYPES:
         raise TypeError(f"expected uint8/uint16/int16/float32, got {planes.dtype}")
     oh, ow = int(dsize[0]), int(dsize[1])
     if oh < 1 or ow < 1:
         raise ValueError(f"invalid output size {(oh, ow)}")
-    H, W = planes.shape[-2], planes.shape[-1]
-    if interpolation == "nearest":
-        (ys,), (xs,) = _tables("nearest", H, oh, planes.device), _tables("nearest", W, ow,
-                                                                          planes.device)
-        return _cols(_rows(planes, ys), xs)
-    if interpolation == "linear":
-        return _linear(planes, oh, ow, area=False)
-    if interpolation == "cubic":
-        return _taps(planes, oh, ow, "cubic")
-    if interpolation == "lanczos4":
-        return _taps(planes, oh, ow, "lanczos")
+    return oh, ow
+
+
+def row_kind(interpolation: str, H: int, W: int, oh: int, ow: int) -> str | None:
+    """The kind of y tables that resizing ``(H, W)`` to ``(oh, ow)`` reads,
+    or None for the area downscale by integer factors, which reads none."""
     if interpolation == "area":
         if H >= oh and W >= ow:
-            return _area(planes, oh, ow)
-        return _linear(planes, oh, ow, area=True)
-    raise ValueError(f"unknown interpolation {interpolation!r}")
+            return None if H % oh == 0 and W % ow == 0 else "area"
+        return "area_lin"
+    kinds = {"nearest": "nearest", "linear": "lin", "cubic": "cubic", "lanczos4": "lanczos"}
+    if interpolation not in kinds:
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    return kinds[interpolation]
+
+
+def row_reach(kind: str, H: int, oh: int) -> tuple[np.ndarray, np.ndarray]:
+    """The least and greatest input row that each output row reads, ``(oh,)``
+    each (host NumPy)."""
+    tabs = _host_tables(kind, H, oh)
+    if kind in ("lin", "area_lin"):
+        return np.minimum(tabs[0], tabs[1]), np.maximum(tabs[0], tabs[1])
+    if kind == "nearest":
+        return tabs[0], tabs[0]
+    return tabs[0].min(axis=0), tabs[0].max(axis=0)
+
+
+@functools.lru_cache(maxsize=_SHARD_TABLES)
+def shard_row_tables(kind: str, H: int, oh: int, n: int, idx: int, r: int,
+                     device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Shard ``idx`` of ``n``'s y tables on ``device``: the rows ``[idx·oh/n,
+    (idx+1)·oh/n)`` of ``_host_tables(kind, H, oh)`` (the second axis of the
+    tap kinds' taps × rows tables), their indices rebased onto the shard's
+    block extended by ``r`` halo rows a side (its first row is frame row
+    ``idx·H/n − r``).  Copied to the device once: a host copy made per call
+    would wait for the device's stream."""
+    oloc, off = oh // n, idx * (H // n) - r
+    rows = slice(idx * oloc, (idx + 1) * oloc)
+    tabs = _host_tables(kind, H, oh)
+    if kind == "nearest":
+        cut = [tabs[0][rows] - off]
+    elif kind in ("lin", "area_lin"):
+        cut = [tabs[0][rows] - off, tabs[1][rows] - off] + [t[rows] for t in tabs[2:]]
+    else:
+        cut = [tabs[0][:, rows] - off] + [t[:, rows] for t in tabs[1:]]
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in cut)
+
+
+def resize_rows(planes: torch.Tensor, H: int, oh: int, ow: int, kind: str,
+                ytab: tuple) -> torch.Tensor:
+    """Resize ``planes`` to ``ow`` columns and one row per entry of the y
+    tables ``ytab`` (of ``kind``, indices into ``planes``' rows), for a frame
+    of ``H`` rows resized to ``oh``: the whole frame with its own tables, or
+    a shard's halo block with :func:`shard_row_tables`."""
+    if kind == "nearest":
+        return _cols(_rows(planes, ytab[0]), _tables("nearest", planes.shape[-1], ow,
+                                                     planes.device)[0])
+    if kind in ("lin", "area_lin"):
+        return _linear(planes, ow, kind, ytab)
+    if kind in ("cubic", "lanczos"):
+        return _taps(planes, ow, kind, ytab)
+    return _area_band_sum(planes, H, oh, ow, ytab)
+
+
+def resize_planes(planes: torch.Tensor, dsize, interpolation: str = "linear") -> torch.Tensor:
+    """``cv2.resize`` per plane on ``[B, H, W]``; ``dsize`` is (oh, ow)."""
+    oh, ow = check_resize(planes, dsize)
+    H, W = planes.shape[-2], planes.shape[-1]
+    kind = row_kind(interpolation, H, W, oh, ow)
+    if kind is None:
+        return _area_cells(planes, oh, ow)
+    return resize_rows(planes, H, oh, ow, kind, _tables(kind, H, oh, planes.device))
 
 
 def _flip(planes: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:

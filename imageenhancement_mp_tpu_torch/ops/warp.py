@@ -50,8 +50,9 @@ from imageenhancement_mp_tpu_torch.utils.warp_coords import (
     warp_affine_nn_coords_int, warp_perspective_coords_cubic_f32, warp_perspective_coords_int,
     warp_perspective_nn_coords_int, warp_tab_int)
 
-__all__ = ["warp_affine_planes", "warp_perspective_planes", "remap_planes", "undistort_planes",
-           "warp_polar_planes", "affine_field", "perspective_field", "polar_maps"]
+__all__ = ["warp_affine_planes", "warp_affine_rows", "warp_perspective_planes", "remap_planes",
+           "undistort_planes", "warp_polar_planes", "affine_field", "perspective_field",
+           "polar_maps"]
 
 _DTYPES = (torch.uint8, torch.uint16, torch.int16, torch.float32)
 _INTERPOLATIONS = ("nearest", "linear", "cubic", "lanczos4")
@@ -285,22 +286,35 @@ def warp_affine_planes(planes: torch.Tensor, M, dsize, interpolation: str = "lin
     oh, ow = _dsize(dsize)
     Mi = (np.asarray(M, np.float64).reshape(2, 3) if inverse_map
           else invert_affine(np.asarray(M, np.float64)))
-    bv = _border_value(planes.dtype, border_value)
+    return warp_affine_rows(planes, Mi, oh, ow, 0, oh, interpolation, border,
+                            _border_value(planes.dtype, border_value))
+
+
+def warp_affine_rows(planes: torch.Tensor, Mi: np.ndarray, oh: int, ow: int, row0: int,
+                     rows: int, interpolation: str, border: str, bv: float) -> torch.Tensor:
+    """Output rows ``[row0, row0 + rows)`` of the ``(oh, ow)`` warp of
+    ``planes`` by the inverse matrix ``Mi`` (checked arguments, ``bv``
+    saturated): the rows of :func:`warp_affine_planes`' result bit for bit.
+    u8 linear and nearest pass ``row0`` to the kernel's matrix route; the
+    other routes build only those rows of their host tables or torch field
+    (each row's coordinates depend on that row alone)."""
     dev = planes.device
     if interpolation == "lanczos4":
-        return _lanczos4_static(planes, *warp_affine_coords_int(Mi, oh, ow), border, bv)
+        return _lanczos4_static(planes, *warp_affine_coords_int(Mi, rows, ow, row0), border, bv)
     if interpolation == "cubic":
-        sx, sy = (torch.from_numpy(m).to(dev) for m in warp_affine_coords_cubic_f32(Mi, oh, ow))
+        sx, sy = (torch.from_numpy(m).to(dev)
+                  for m in warp_affine_coords_cubic_f32(Mi, rows, ow, row0))
         return _sample_cubic(planes, sx, sy, border, bv, keys=True)
     if planes.dtype == torch.int16:
         if interpolation == "nearest":
-            iy, ix = _host_ints(planes, *warp_affine_nn_coords_int(Mi, oh, ow))
+            iy, ix = _host_ints(planes, *warp_affine_nn_coords_int(Mi, rows, ow, row0))
             return gather(planes, iy, ix, border, bv)
-        return _tab_bilinear_static(planes, *warp_affine_coords_int(Mi, oh, ow), border, bv)
+        return _tab_bilinear_static(planes, *warp_affine_coords_int(Mi, rows, ow, row0), border,
+                                    bv)
     if planes.dtype == torch.uint8:
-        return warp_matrix_u8(planes.contiguous(), Mi, oh, ow, False,
-                              interpolation == "nearest", border, int(bv))
-    sx, sy = affine_field(Mi, oh, ow, dev)
+        return warp_matrix_u8(planes.contiguous(), Mi, rows, ow, False,
+                              interpolation == "nearest", border, int(bv), row0)
+    sx, sy = affine_field(Mi, rows, ow, dev, row0)
     return _sample_field(planes, sx, sy, interpolation == "nearest", border, bv)
 
 

@@ -474,24 +474,36 @@ def _place(views: list, mesh: Mesh, spec: Spec) -> ShardedTensor:
                                       for v, d in zip(views, mesh.device_list)])
 
 
-def run_sharded(fn: Callable[[torch.Tensor], torch.Tensor], mesh: Mesh, in_spec: Spec,
-                out_spec: Spec) -> Callable:
+def run_sharded(fn: Callable, mesh: Mesh, in_spec, out_spec: Spec) -> Callable:
     """``fn`` over ``mesh``, as ``shard_map``: the returned callable takes a
     tensor (or NumPy array), splits it along ``in_spec``, calls ``fn`` on
     each shard's part on its device and assembles the parts of the result
     along ``out_spec`` into one tensor on the mesh's first device.  Given a
     :class:`ShardedTensor` split along ``in_spec`` it uses the parts where
-    they lie and returns the result as a :class:`ShardedTensor`."""
+    they lie and returns the result as a :class:`ShardedTensor`.
+
+    ``in_spec`` a list of specs, one an input (as ``shard_map``'s
+    ``in_specs``): the callable takes that many inputs and ``fn`` gets each
+    shard's part of each; the result is a :class:`ShardedTensor` when every
+    input is one.  A tuple is one spec."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"expected a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    specs = in_spec if isinstance(in_spec, list) else [in_spec]
 
-    def call(x):
+    def parts(x, spec) -> list:
         if isinstance(x, ShardedTensor):
-            if x.mesh is not mesh or x.spec != _spec(in_spec, x.ndim):
+            if x.mesh is not mesh or x.spec != _spec(spec, x.ndim):
                 raise ValueError(f"input split as {x.spec} over {x.mesh}; this call takes "
-                                 f"{_spec(in_spec, x.ndim)} over {mesh}")
-            return ShardedTensor(mesh, out_spec, mesh._run(fn, x.blocks))
-        return ShardedTensor(mesh, out_spec, mesh._run(fn, device_put(x, mesh, in_spec).blocks)
-                             ).gather()
+                                 f"{_spec(spec, x.ndim)} over {mesh}")
+            return x.blocks
+        return device_put(x, mesh, spec).blocks
+
+    def call(*xs):
+        if len(xs) != len(specs):
+            raise TypeError(f"this sharded call takes {len(specs)} inputs, got {len(xs)}")
+        blocks = [parts(x, spec) for x, spec in zip(xs, specs)]
+        outs = mesh._run(lambda own: fn(*own), list(zip(*blocks)))
+        result = ShardedTensor(mesh, out_spec, outs)
+        return result if all(isinstance(x, ShardedTensor) for x in xs) else result.gather()
 
     return call

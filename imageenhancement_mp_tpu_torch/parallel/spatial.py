@@ -1,10 +1,10 @@
 """Spatial sharding: one frame's rows split across a mesh axis.
 
-The counterpart of the JAX package's ``parallel/spatial.py`` up to its
-geometry section.  Batch sharding (``parallel/sharding.py``) scales
-throughput; row sharding scales the frame: a gigapixel scan or an 8K aerial
-tile is split into row blocks, one a shard, and three collective patterns
-keep every op equal to its unsharded twin bit for bit:
+The counterpart of the JAX package's ``parallel/spatial.py``.  Batch
+sharding (``parallel/sharding.py``) scales throughput; row sharding scales
+the frame: a gigapixel scan or an 8K aerial tile is split into row blocks,
+one a shard, and three collective patterns keep every op equal to its
+unsharded twin bit for bit:
 
 * stencils exchange their ``r`` boundary rows with the neighbour shards
   (:func:`halo_exchange`, both shifts in one exchange); the top and bottom
@@ -16,14 +16,18 @@ keep every op equal to its unsharded twin bit for bit:
 * CLAHE computes the LUTs of its own tile rows, ``all_gather``s the
   ``[gh·gw, S]`` table and blends its rows with the global row coordinates.
 
+The geometry twins resample, so each shard owns an equal block of OUTPUT
+rows, ``[idx·oh/n, (idx+1)·oh/n)``, and fetches the input rows they read:
+resize through a halo whose radius the host row tables give, warpAffine,
+remap and warpPolar from the ``all_gather``ed frame (a map can read any
+row), Canny through halos and a hysteresis that floods across shards until
+a ``psum`` says no shard grew.
+
 Each twin runs the port's own planes op, so the kernels that op launches
 run on each shard's block.  The local functions take ``axis_name`` and run
 inside a sharded call; :func:`shard_spatial` makes one.  A 2-D mesh with
 axes ``("batch", "y")`` and ``batch_axis="batch"`` shards planes and rows
 at once, the row collectives staying within each batch shard's group.
-
-The geometry twins (resize, warpAffine, remap, Canny) are not ported: they
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12c).
 """
 
 from __future__ import annotations
@@ -31,12 +35,15 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable
 
+import numpy as np
 import torch
 
 from imageenhancement_mp_tpu_torch.kernels.clahe import (HIST_SIZE, clahe_blend, hist65536_tiles,
                                                         tile_luts256)
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_offsets, bilateral_planes
+from imageenhancement_mp_tpu_torch.ops.canny import (_dilate8, _nms_keep, _sobel_replicate,
+                                                    check_canny, hysteresis, magnitude)
 from imageenhancement_mp_tpu_torch.ops.clahe import _coord_tables, clahe_tile_luts, coord_rows
 from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.filters import (box_blur_planes, gaussian_blur_planes,
@@ -49,12 +56,17 @@ from imageenhancement_mp_tpu_torch.ops.morphology import (MORPH_OPS, _identity, 
                                                           _narrow, _widen, compose)
 from imageenhancement_mp_tpu_torch.ops.pointwise import (convert_scale_abs_planes, gamma_planes,
                                                          log_planes, plane_minmax, stretch_planes)
+from imageenhancement_mp_tpu_torch.ops.resize import (check_resize, resize_planes, resize_rows,
+                                                      row_kind, row_reach, shard_row_tables)
 from imageenhancement_mp_tpu_torch.ops.threshold import adaptive_threshold_planes, threshold_planes
+from imageenhancement_mp_tpu_torch.ops.warp import (_border_value, _check, polar_maps, remap_planes,
+                                                    warp_affine_rows)
 from imageenhancement_mp_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, all_gather,
                                                          axis_index, axis_size, device_put, pmax,
                                                          pmin, psum, run_sharded, shift)
 from imageenhancement_mp_tpu_torch.utils.shapes import host_array
 from imageenhancement_mp_tpu_torch.utils.taps import deriv_kernels, gaussian_axes
+from imageenhancement_mp_tpu_torch.utils.warp_coords import invert_affine
 
 __all__ = [
     "shard_spatial", "device_put_spatial", "halo_exchange",
@@ -62,8 +74,8 @@ __all__ = [
     "adaptive_threshold_spatial", "erode_spatial", "dilate_spatial", "morphology_spatial",
     "sobel_spatial", "filter2d_spatial", "unsharp_mask_spatial", "median_blur_spatial",
     "laplacian_sharpen_spatial", "equalize_hist_spatial", "contrast_stretch_spatial",
-    "clahe_spatial", "SPATIAL_OP_REGISTRY", "GEOMETRY_OPS", "spatial_chain",
-    "make_spatial_pipeline",
+    "clahe_spatial", "resize_spatial", "warp_affine_spatial", "remap_spatial", "canny_spatial",
+    "SPATIAL_OP_REGISTRY", "spatial_chain", "make_spatial_pipeline",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -310,6 +322,130 @@ def clahe_spatial(local: torch.Tensor, clip_limit: float = 40.0,
     return clahe_blend(local, luts.reshape(B * gh * gw, S), gh, gw, yidx, fy, xidx, fx)
 
 
+# -- geometry: each shard renders an equal block of output rows ----------------
+
+def _geom_split(local: torch.Tensor, dsize, axis_name: str) -> tuple:
+    """``(n, idx, h, H, oh, ow, oloc)``: the shard count and this shard's
+    index, the local and frame heights, the output size and the output rows
+    a shard renders."""
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    h = local.shape[1]
+    oh, ow = int(dsize[0]), int(dsize[1])
+    if oh % n:
+        raise ValueError(
+            f"spatial geometry needs the output height {oh} divisible by the "
+            f"{n}-shard mesh axis (pad dsize or reshard)")
+    return n, idx, h, h * n, oh, ow, oh // n
+
+
+def _vhalo(lo, hi, n: int, h: int, oloc: int) -> int:
+    """The halo radius: how far any shard's output block reaches past its
+    own input rows, from each output row's least and greatest input row."""
+    r = 0
+    for s in range(n):
+        o0, o1 = s * oloc, (s + 1) * oloc
+        r = max(r, s * h - int(lo[o0:o1].min()), int(hi[o0:o1].max()) - ((s + 1) * h - 1))
+    return r
+
+
+def resize_spatial(local: torch.Tensor, dsize, interpolation: str = "linear",
+                   axis_name: str = "y") -> torch.Tensor:
+    """``cv2.resize`` on row-sharded planes, equal bit for bit to
+    ``resize_planes`` on the gathered frame.  Each shard renders its output
+    rows from its block extended by a replicate halo as deep as its rows
+    reach (``_vhalo`` of the host row tables), through its rows of the y
+    tables rebased onto that block (``ops/resize.py::shard_row_tables``).
+    The area downscale by integer factors needs neither: no cell straddles
+    two shards."""
+    n, idx, h, H, oh, ow, oloc = _geom_split(local, dsize, axis_name)
+    check_resize(local, dsize)
+    kind = row_kind(interpolation, H, local.shape[2], oh, ow)
+    if kind is None:
+        return resize_planes(local, (oloc, ow), "area")
+    r = _vhalo(*row_reach(kind, H, oh), n, h, oloc)
+    ext = halo_exchange(local, r, axis_name, "edge")
+    return resize_rows(ext, H, oh, ow, kind, shard_row_tables(kind, H, oh, n, idx, r, local.device))
+
+
+def warp_affine_spatial(local: torch.Tensor, M, dsize, interpolation: str = "linear",
+                        border: str = "constant", border_value: float = 0.0,
+                        inverse_map: bool = False, axis_name: str = "y") -> torch.Tensor:
+    """``cv2.warpAffine`` on row-sharded planes, equal bit for bit to
+    ``warp_affine_planes`` on the gathered frame.  An affine map reads rows
+    from anywhere, so the frame is ``all_gather``ed and each shard renders
+    its own output rows (``ops/warp.py::warp_affine_rows``): u8 linear and
+    nearest through ``warp_gather_u8``'s matrix route with the shard's first
+    row, the other routes from their rows of the coordinate tables."""
+    n, idx, h, H, oh, ow, oloc = _geom_split(local, dsize, axis_name)
+    _check(local, interpolation, border)
+    Mi = (np.asarray(M, np.float64).reshape(2, 3) if inverse_map
+          else invert_affine(np.asarray(M, np.float64)))
+    full = all_gather(local, axis_name, axis=1, tiled=True)
+    return warp_affine_rows(full, Mi, oh, ow, idx * oloc, oloc, interpolation, border,
+                            _border_value(local.dtype, border_value))
+
+
+def remap_spatial(local: torch.Tensor, map_x, map_y, interpolation: str = "linear",
+                  border: str = "constant", border_value: float = 0.0,
+                  axis_name: str = "y") -> torch.Tensor:
+    """``cv2.remap`` on row-sharded planes.  ``map_x``/``map_y`` are this
+    shard's output-row block of the maps (split them as the output is split,
+    e.g. ``run_sharded(fn, mesh, [(None, "y"), ("y",), ("y",)], ...)``); the
+    frame is ``all_gather``ed, as a map can read any row.  Equal bit for bit
+    to ``remap_planes`` on the gathered frame and maps."""
+    full = all_gather(local, axis_name, axis=1, tiled=True)
+    return remap_planes(full, map_x, map_y, interpolation, border, border_value)
+
+
+def warp_polar_spatial(local: torch.Tensor, dsize, center, max_radius: float,
+                       log: bool = False, inverse: bool = False, interpolation: str = "linear",
+                       axis_name: str = "y") -> torch.Tensor:
+    """``cv2.warpPolar`` on row-sharded planes, equal bit for bit to
+    ``warp_polar_planes`` on the gathered frame: each shard samples the
+    ``all_gather``ed frame (with the inverse's one-row angular wrap pad) at
+    its rows of the polar maps (``ops/warp.py::polar_maps``, kept on the
+    device).  ``dsize`` is cv2's (width, height)."""
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    H, W = local.shape[1] * n, local.shape[2]
+    dh = int(dsize[1])
+    if dh % n:
+        raise ValueError(f"output height {dh} must divide the {n}-shard axis")
+    mx, my = polar_maps(H, W, dsize, center, max_radius, log, inverse, local.device)
+    rows = slice(idx * (dh // n), (idx + 1) * (dh // n))
+    full = all_gather(local, axis_name, axis=1, tiled=True)
+    if inverse:
+        full = torch.cat([full[:, -1:], full, full[:, :1]], dim=1)
+    return remap_planes(full, mx[rows], my[rows], interpolation, "constant", 0.0)
+
+
+def canny_spatial(local: torch.Tensor, threshold1: float, threshold2: float,
+                  aperture_size: int = 3, l2_gradient: bool = False,
+                  axis_name: str = "y") -> torch.Tensor:
+    """``cv2.Canny`` on row-sharded u8 planes, equal bit for bit to
+    ``canny_planes`` on the gathered frame.  Sobel reads a replicate halo of
+    the aperture's radius, non-maximum suppression a zero halo of one
+    magnitude row.  Hysteresis is a fixpoint across shards: each round every
+    shard floods its block (``ops/canny.py::hysteresis``), takes one edge row
+    from each neighbour and grows from it, and a ``psum`` of "grew" says
+    whether another round runs (two collectives a round)."""
+    check_canny(local, aperture_size)
+    r = aperture_size // 2
+    ext = halo_exchange(local, r, axis_name, "edge")
+    gx = _sobel_replicate(ext, 1, 0, aperture_size)[:, r:-r, :]
+    gy = _sobel_replicate(ext, 0, 1, aperture_size)[:, r:-r, :]
+    mag, lo_i, hi_i = magnitude(gx, gy, threshold1, threshold2, aperture_size, l2_gradient)
+    keep = _nms_keep(halo_exchange(mag, 1, axis_name, "const", 0), gx, gy) & (mag > lo_i)
+    edges = keep & (mag > hi_i)
+    while True:
+        edges, _ = hysteresis(keep, edges)
+        ext = halo_exchange(edges, 1, axis_name, "const", False)
+        grown = edges | (keep & _dilate8(ext)[:, 1:-1, :])
+        grew = psum(torch.any(grown != edges).to(torch.int32), axis_name)
+        edges = grown
+        if not int(grew):
+            return edges.to(torch.uint8) * 255
+
+
 def _local_op(fn: Callable) -> Callable:
     """A pointwise planes op (no state across rows or shards) in the
     registry's signature: it ignores ``axis_name``."""
@@ -325,19 +461,24 @@ def _equalize_hist_global_spatial(local, axis_name: str = "y", **kw):
     return equalize_hist_global_planes(local, axis_name=axis_name, **kw)
 
 
-# ROADMAP Queue 1 item 12c: they need per-shard row tables in ops/resize.py
-GEOMETRY_OPS = ("resize", "warp_affine", "remap", "canny")
-
-
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"spatial {name!r} (a geometry twin) is ROADMAP Queue 1 item 12c")
-
-
-def _geometry_twin(name: str) -> Callable:
-    def run(local, axis_name: str = "y", **kw):
-        raise _unported(name)
-
-    return run
+def _remap_stage(local: torch.Tensor, map_x, map_y, interpolation: str = "linear",
+                 border: str = "constant", border_value: float = 0.0,
+                 axis_name: str = "y") -> torch.Tensor:
+    """The registry's ``remap`` stage: it takes the WHOLE ``(oh, ow)`` maps,
+    as the unsharded ``remap`` does, and each shard renders its own rows of
+    them, so a pipeline's ``remap`` stage equals the unsharded op.  (The JAX
+    package's stage passes the whole maps to ``remap_spatial``, which reads
+    them as each shard's block: every shard renders every row, ``n·oh`` rows
+    in all; ROADMAP R12.)"""
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    maps = [m if isinstance(m, torch.Tensor) else np.asarray(m) for m in (map_x, map_y)]
+    oh = maps[0].shape[0]
+    if oh % n:
+        raise ValueError(f"spatial remap needs the maps' {oh} rows divisible by the "
+                         f"{n}-shard mesh axis")
+    rows = slice(idx * (oh // n), (idx + 1) * (oh // n))
+    return remap_spatial(local, *(m[rows] for m in maps), interpolation, border, border_value,
+                         axis_name)
 
 
 SPATIAL_OP_REGISTRY: dict[str, Callable] = {
@@ -363,7 +504,11 @@ SPATIAL_OP_REGISTRY: dict[str, Callable] = {
     "laplacian_sharpen": laplacian_sharpen_spatial,
     "unsharp_mask": unsharp_mask_spatial,
     "median_blur": median_blur_spatial,
-    **{name: _geometry_twin(name) for name in GEOMETRY_OPS},
+    # geometry: output rows split across the shards
+    "resize": resize_spatial,
+    "warp_affine": warp_affine_spatial,
+    "remap": _remap_stage,
+    "canny": canny_spatial,
 }
 
 
@@ -371,14 +516,13 @@ def spatial_chain(stages, axis_name: str = "y") -> Callable[[torch.Tensor], torc
     """The local function of a row-sharded stage chain: stage specs
     ``name`` or ``(name, kwargs)`` from :data:`SPATIAL_OP_REGISTRY`, run in
     order on a shard's ``[B, h, W]`` block.  Validated here: an unknown
-    name raises ``KeyError``, a geometry name ``NotImplementedError``."""
+    name raises ``KeyError``.  A geometry stage changes the block's height
+    and width; its output height must divide by the shard count."""
     chain = []
     for s in stages:
         name, kwargs = (s, {}) if isinstance(s, str) else s
         if name not in SPATIAL_OP_REGISTRY:
             raise KeyError(f"unknown spatial op {name!r}; available: {sorted(SPATIAL_OP_REGISTRY)}")
-        if name in GEOMETRY_OPS:
-            raise _unported(name)
         kwargs = dict(kwargs)
         if "backend" in kwargs:
             raise TypeError(f"stage {name!r}: the port's ops take no 'backend' argument")

@@ -99,29 +99,34 @@ def warp_tab_int() -> np.ndarray:
     return tab
 
 
-def warp_affine_coords_int(Mi: np.ndarray, oh: int, ow: int):
+def warp_affine_coords_int(Mi: np.ndarray, oh: int, ow: int, row0: int = 0):
     """cv2's fixed-point dst→src coordinate tables for the i16 path:
     ``X = (round(Mi01·y + Mi02)·2^10 + 2^4 + round(Mi00·x·2^10)) >> 5``
-    at scale 2^5 (adelta per column, X0 per row)."""
+    at scale 2^5 (adelta per column, X0 per row).  ``row0``: the tables'
+    rows ``[row0, row0 + oh)`` of a taller output (each row's values are its
+    own: a row shard's block of the whole tables)."""
     AB = 1 << _WARP_AB_BITS
     RD = 1 << (_WARP_AB_BITS - _WARP_INTER_BITS - 1)
+    ys = np.arange(row0, row0 + oh)
     adelta = np.round(Mi[0, 0] * np.arange(ow) * AB).astype(np.int64)
     bdelta = np.round(Mi[1, 0] * np.arange(ow) * AB).astype(np.int64)
-    X0 = (np.round((Mi[0, 1] * np.arange(oh) + Mi[0, 2]) * AB).astype(np.int64) + RD)
-    Y0 = (np.round((Mi[1, 1] * np.arange(oh) + Mi[1, 2]) * AB).astype(np.int64) + RD)
+    X0 = (np.round((Mi[0, 1] * ys + Mi[0, 2]) * AB).astype(np.int64) + RD)
+    Y0 = (np.round((Mi[1, 1] * ys + Mi[1, 2]) * AB).astype(np.int64) + RD)
     X = (X0[:, None] + adelta[None, :]) >> (_WARP_AB_BITS - _WARP_INTER_BITS)
     Y = (Y0[:, None] + bdelta[None, :]) >> (_WARP_AB_BITS - _WARP_INTER_BITS)
     return X, Y
 
 
-def warp_affine_nn_coords_int(Mi: np.ndarray, oh: int, ow: int):
+def warp_affine_nn_coords_int(Mi: np.ndarray, oh: int, ow: int, row0: int = 0):
     """cv2's i16 NEAREST coordinate maps: AB fixed point rounded at
-    scale 2^10 (shared by the oracle and the device op)."""
+    scale 2^10 (shared by the oracle and the device op).  ``row0`` as in
+    :func:`warp_affine_coords_int`."""
     AB = 1 << _WARP_AB_BITS
+    ys = np.arange(row0, row0 + oh)
     ad = np.round(Mi[0, 0] * np.arange(ow) * AB).astype(np.int64)
     bd = np.round(Mi[1, 0] * np.arange(ow) * AB).astype(np.int64)
-    X0 = np.round((Mi[0, 1] * np.arange(oh) + Mi[0, 2]) * AB).astype(np.int64)
-    Y0 = np.round((Mi[1, 1] * np.arange(oh) + Mi[1, 2]) * AB).astype(np.int64)
+    X0 = np.round((Mi[0, 1] * ys + Mi[0, 2]) * AB).astype(np.int64)
+    Y0 = np.round((Mi[1, 1] * ys + Mi[1, 2]) * AB).astype(np.int64)
     ix = (X0[:, None] + ad[None, :] + (AB >> 1)) >> _WARP_AB_BITS
     iy = (Y0[:, None] + bd[None, :] + (AB >> 1)) >> _WARP_AB_BITS
     return iy, ix
@@ -155,17 +160,18 @@ def warp_affine_coords_f32(Mi: np.ndarray, oh: int, ow: int):
     return out[0], out[1]
 
 
-def warp_affine_coords_cubic_f32(Mi: np.ndarray, oh: int, ow: int):
+def warp_affine_coords_cubic_f32(Mi: np.ndarray, oh: int, ow: int, row0: int = 0):
     """cv2 5.0's new warp-kernel coordinate field (INTER_CUBIC path) —
     plain f32 row-constant law, NO fma and NO SIMD body/tail split
     (unlike the linear path's hybrid ``warp_affine_coords_f32``):
     ``s = f32(f32(a*x) + f32(f32(b*y) + c))``.  Pinned bitwise through
     the end-to-end cubic kernel (0 mismatches on all interior pixels
-    over 30 random warps x 2 border modes)."""
+    over 30 random warps x 2 border modes).  ``row0`` as in
+    :func:`warp_affine_coords_int` (y = f32(row))."""
     f32 = np.float32
     Mf = np.asarray(Mi, np.float64).astype(f32)
     xs = np.arange(ow, dtype=f32)
-    ys = np.arange(oh, dtype=f32)
+    ys = np.arange(row0, row0 + oh).astype(f32)
     out = []
     for r in (0, 1):
         a, b, c = Mf[r]

@@ -10,9 +10,10 @@ not start at 0, where JAX's twin is one ulp off JAX's own unsharded op
 0 LSB on meshes of 1, 2 and 8 entries.  JAX's outputs come from one
 shard_map program per dtype, computed once per module: each compile costs
 seconds.  Also: the halo exchange stitched against np.pad, the 2-D
-batch × rows mesh, the registry, and the errors (halo height, CLAHE
-geometry, geometry names, collectives outside a sharded call, a shard's
-exception reaching the caller)."""
+batch × rows mesh, the registry (all 24 names run), and the errors (halo
+height, CLAHE geometry, collectives outside a sharded call, a shard's
+exception reaching the caller).  The geometry twins are in
+tests/test_torch_spatial_geom.py."""
 
 import threading
 
@@ -242,19 +243,27 @@ def test_batch_times_rows_on_a_2d_mesh(jax_2d):
         mesh.close()
 
 
-def test_registry_names():
-    """JAX's 24 names: 20 that run and 4 geometry names that raise."""
+# a stage's arguments where the op has required ones
+_STAGE_KW = {
+    "gamma": {"gamma": 0.8}, "threshold": {"thresh": 100.0}, "filter2d": {"kernel": K3},
+    "resize": {"dsize": (32, 40), "interpolation": "cubic"},
+    "warp_affine": {"M": ((0.9, 0.1, 3.0), (-0.1, 0.9, 5.0)), "dsize": (48, 56)},
+    "remap": {"map_x": np.tile(np.linspace(-1.0, 57.0, 60, dtype=np.float32), (40, 1)),
+              "map_y": np.tile(np.linspace(-1.0, 65.0, 40, dtype=np.float32)[:, None], (1, 60))},
+    "canny": {"threshold1": 50.0, "threshold2": 150.0},
+}
+
+
+def test_registry_names(meshes):
+    """JAX's 24 names, and every one runs: its one-stage pipeline on a mesh
+    of 2 equals the unsharded op of the same name."""
     assert set(tsp.SPATIAL_OP_REGISTRY) == set(jsp.SPATIAL_OP_REGISTRY)
     assert len(tsp.SPATIAL_OP_REGISTRY) == 24
-    assert set(tsp.GEOMETRY_OPS) == {"resize", "warp_affine", "remap", "canny"}
-
-
-@pytest.mark.parametrize("name", ["resize", "warp_affine", "remap", "canny"])
-def test_geometry_names_raise(name, meshes):
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tsp.make_spatial_pipeline([name], meshes[2])
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tsp.SPATIAL_OP_REGISTRY[name](torch.zeros((1, 4, 4), dtype=torch.uint8))
+    x = torch.from_numpy(PLANES["u8"])
+    for name in tsp.SPATIAL_OP_REGISTRY:
+        kw = _STAGE_KW.get(name, {})
+        got = tsp.make_spatial_pipeline([(name, kw)], meshes[2])(x)
+        assert torch.equal(got, OP_REGISTRY[name](x, **kw)), name
 
 
 def test_spatial_pipeline_stage_errors(meshes):

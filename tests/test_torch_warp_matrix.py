@@ -175,13 +175,13 @@ def test_matrix_route_launches_once_without_a_field(monkeypatch, name):
     kernel, device, *args = launches[0]
     assert kernel == "warp_gather_u8" and device == x.device
     assert args[1] is None and args[2] is None  # no maps
-    assert tuple(args[4:9]) == (3, 10, 12, 9, 11)
-    assert tuple(args[9:13]) == (nearest, replicate, bval, source)
+    assert tuple(args[4:10]) == (3, 10, 12, 9, 11, 0)  # B, H, W, oh, ow, row0
+    assert tuple(args[10:14]) == (nearest, replicate, bval, source)
     M = np.asarray(ROT31 if source == 1 else HOMOGRAPHY, np.float64)
     Mi = ref.invert_affine(M) if source == 1 else ref.invert_perspective(M)
     want = list(np.asarray(Mi, np.float64).astype(np.float32).reshape(-1))
     want += [0.0] * (9 - len(want))
-    assert args[13:] == [float(v) for v in want]
+    assert args[14:] == [float(v) for v in want]
 
 
 @pytest.mark.parametrize("interp", ["linear", "nearest"])

@@ -2,9 +2,12 @@
 """Phase 17 of chip_smoke.py alone: the port's mesh (parallel/).  Config 5
 batch-sharded over a 1-device mesh and over four shards on the one card,
 the pooled equalize, config 5 row-sharded on an 8K frame (u8 and u16), the
-16 non-pointwise spatial twins on a 4K frame and stream_frames(mesh=), each
-held to the unsharded call at 0 LSB with its launches counted, and the
-back-to-back ms and host us a call of the unsharded and sharded calls.
+16 non-pointwise spatial twins on a 4K frame, the geometry twins (resize,
+warpAffine, remap, warpPolar, Canny) on the 8K frame and stream_frames(mesh=),
+each held to the unsharded call at 0 LSB with its launches counted, the
+back-to-back ms and host us a call of the unsharded and sharded calls, and
+warp_gather_u8's matrix route with a shard's first row against its plain
+version.
 
     python3 tools/torch_phase17.py              # on one GPU
     python3 tools/torch_phase17.py --rehearse   # on the CPU, small sizes
@@ -25,7 +28,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-SMALL = {"batch": (4, 64, 96), "pool": (8, 27, 48), "scan": (128, 192), "twin": (64, 96)}
+SMALL = {"batch": (4, 64, 96), "pool": (8, 27, 48), "scan": (128, 192), "twin": (64, 96),
+         "half": (64, 96), "area": (48, 80)}
 
 
 def rehearse() -> None:
@@ -36,6 +40,7 @@ def rehearse() -> None:
         return out, {}
 
     cs.time_ms = lambda fn, runs=0, calls=0, warmups=0: (fn(), 1.0, 0.0)[1:]
+    cs.host_us = lambda dev, fn, calls=0, rounds=0: (fn(), 1.0)[1]
     t0 = time.perf_counter()
     cs.mesh_sharding("cpu rehearsal", drive, torch.device("cpu"), SMALL)
     print(f"torch_phase17 --rehearse: {time.perf_counter() - t0:.1f} s")
