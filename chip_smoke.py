@@ -314,13 +314,25 @@
    to the unsharded call at 0 LSB (f32 bit for bit) and timed beside it.
    The matrix route with a first row other than 0 is held against its plain
    version.
-18. Prints a one-line JSON per-kernel summary (launches on the main paths,
+18. The port's clock (profiling.py) on equalize_unsharp 8x1080x1920, config
+   2 (get_preset("gamma_stretch") on 32x1080x1920x3), config 3
+   (make_pipeline(config3_stages(5)) on 8x1080x1920) and config 5
+   (get_preset("denoise_clahe_sharpen") on 2x2160x3840): each path's chain
+   replayed as CUDA graphs equal to the eager chain on the card (n 2 and 5)
+   and, on 2x270x480, to the CPU plain chain (n 1, 2 and 5), at 0; then
+   time_op (blocked), time_op_chained (target 0.25 s), the back-to-back and
+   sleep-paced event clocks, torch.profiler's kernel sum a call and the
+   bytes bound on one line, failing if the chained time is below the
+   bound, with whether the sleep outlasts the host's enqueue; Otsu, which
+   reads the host, must make time_op_chained raise.
+19. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
    the timed shape, and the time of one PyTorch call computing the same
    function where there is one), then, as the last line,
    {"ok": true, "device": {...}}.
 
-Every check raises on failure; nothing is caught.  Imports nothing of JAX.
+Every check raises on failure; nothing is caught but the one refusal phase 18
+expects (and fails without).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2797,9 +2809,12 @@ def geometry_twins(smi: str, drive, dev: torch.device, rows, sizes: dict) -> int
             raise AssertionError(f"phase 17 spatial {label}: {e} off the unsharded call")
         ms1, _ = time_ms(lambda: unsharded(g), runs=3, calls=1, warmups=1)
         ms4, _ = time_ms(lambda: sharded(g), runs=3, calls=1, warmups=1)
+        was = (" (the band sums by rows, then columns, before the pairwise cells: 1.3512 ms "
+               "unsharded on an NVIDIA H100 80GB HBM3 at 700 W)"
+               if "(general)" in label else "")
         print(f"  spatial {label} {Hs}x{Ws} -> {tuple(want.shape)}: 0 LSB; unsharded {ms1:.4f} ms, "
               f"{SHARDS} shards on one card {ms4:.4f} ms a call back to back, host "
-              f"{host_us(dev, lambda: sharded(g), 1, 3):.1f} us a call  [{smi}]")
+              f"{host_us(dev, lambda: sharded(g), 1, 3):.1f} us a call{was}  [{smi}]")
     # the matrix route with each shard's first row against its plain version
     err, n = 0, 0
     oloc, Mi, g = half[0] // SHARDS, invert_affine(M), frames["u8"][None]
@@ -2948,6 +2963,100 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> int:
             m.close()
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
     return row0_err
+
+
+# phase 18's sizes: the four main paths at their full widths (the north
+# star, configs 2, 3 and 5) and the size their CPU chains run at
+P18 = {"equalize_unsharp": (8, 1080, 1920), "config 2": (32, 1080, 1920, 3),
+       "config 3": (8, 1080, 1920), "config 5": (2, 2160, 3840), "small": (2, 270, 480)}
+# the device-paced figures' sleep (tools/torch_*_profile.py): about 2 ms at
+# 1.98 GHz, which must outlast the host's enqueue of a run's calls
+P18_SLEEP_CYCLES = 4_000_000
+P18_TARGET_SECS = 0.25
+
+
+def the_clock(smi: str, dev: torch.device, sizes: dict = P18) -> None:
+    """Phase 18: the port's clock (``profiling.py``) on the four main paths.
+    For each path the CUDA-graph chain's scalar equals the eager chain's on
+    the card at full width (n = 2 and 5) and the CPU plain chain's at the
+    small size (n = 1, 2 and 5), all at 0; then the path's blocked
+    ``time_op``, its ``time_op_chained``, the back-to-back and sleep-paced
+    event clocks, torch.profiler's kernel sum and the bytes bound (input
+    read once, output written once) on one line.  A chained time below the
+    bound fails the phase: a clock that beats the memory cannot be right.
+    Last, a call that reads the host (Otsu) must refuse to be chained."""
+    import imageenhancement_mp_tpu_torch as port
+    from imageenhancement_mp_tpu_torch import profiling as prof
+
+    t_phase = time.perf_counter()
+    on_cuda = dev.type == "cuda"
+    sleep = P18_SLEEP_CYCLES / (sm_clock_max_mhz() * 1e3) if on_cuda else 0.0  # ms
+    paths = [("equalize_unsharp", sizes["equalize_unsharp"],
+              lambda x: port.equalize_unsharp(x, 1.0, 5, 0.0)),
+             ("config 2 get_preset('gamma_stretch')", sizes["config 2"],
+              port.get_preset("gamma_stretch")),
+             ("config 3 make_pipeline(config3_stages(5))", sizes["config 3"],
+              port.make_pipeline(config3_stages(5))),
+             ("config 5 get_preset('denoise_clahe_sharpen')", sizes["config 5"],
+              port.get_preset("denoise_clahe_sharpen"))]
+    for i, (label, shape, fn) in enumerate(paths):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(1800 + i)
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        g = torch.from_numpy(x).to(dev)
+        for n in (2, 5):  # time_op_chained's n_lo and a longer chain
+            graph = int(prof._chain_program(fn, g, n)(g).item())
+            eager = int(prof._chain_eager(fn, g, n).item())
+            if graph != eager:
+                raise AssertionError(f"phase 18 {label}: the chain of {n} replayed {graph}, "
+                                     f"eager {eager}")
+        small = sizes["small"] + tuple(shape[3:])
+        xs = rng.integers(0, 256, small, dtype=np.uint8)
+        for n in (1, 2, 5):
+            gs = torch.from_numpy(xs).to(dev)
+            card = int(prof._chain_program(fn, gs, n)(gs).item())
+            cpu = int(prof._chain_program(fn, torch.from_numpy(xs), n)(torch.from_numpy(xs)))
+            if card != cpu:
+                raise AssertionError(f"phase 18 {label} {small}: the chain of {n} on the card "
+                                     f"{card}, on the CPU {cpu}")
+        mode = "refeed" if prof._chain_step(fn, g, "auto")[1] else "auto"
+        blocked = prof.time_op(fn, g, iters=20, warmup=3) * 1e3
+        chained = prof.time_op_chained(fn, g, target_secs=P18_TARGET_SECS) * 1e3
+        b2b, iqr = time_ms(lambda: fn(g))
+        paced = paced_ms(lambda: fn(g), P18_SLEEP_CYCLES)
+        busy, _, _ = device_split(lambda: fn(g))
+        bound, _ = bound_ms(2 * g.numel())
+        enqueue = host_us(dev, lambda: fn(g)) * CALLS_PER_RUN / 1e3
+        # the profiler keeps fewer kernel events inside the whole script, at
+        # times none: the ratio is printed, never asserted
+        ratio = (f"{busy / 1e3:.4f} ms a call (chained / kernel sum {chained * 1e3 / busy:.3f})"
+                 if busy else "not measured (no kernel event kept)")
+        print(f"phase 18 {label} {'x'.join(map(str, shape))} u8: time_op {blocked:.4f} ms "
+              f"(blocked, median of 20), time_op_chained {chained:.4f} ms "
+              f"({mode}, {prof.throughput_gpixs(shape, chained / 1e3):.2f} GPix/s), back to back "
+              f"{b2b:.4f} ms (IQR {iqr:.4f}), sleep-paced {paced:.4f} ms, torch.profiler kernel "
+              f"sum {ratio}, bytes bound {bound:.4f} ms; the sleep "
+              f"{sleep:.2f} ms {'covers' if sleep > enqueue else 'does not cover'} the host's "
+              f"enqueue of {CALLS_PER_RUN} calls, {enqueue:.2f} ms; graph = eager at 0 (n 2, 5), "
+              f"card = CPU at 0 on {'x'.join(map(str, small))} (n 1, 2, 5) "
+              f"({time.perf_counter() - t0:.1f} s)  [{smi}]")
+        if chained < bound:
+            raise AssertionError(f"phase 18 {label}: time_op_chained {chained:.4f} ms is below "
+                                 f"the bytes bound {bound:.4f} ms")
+        del g
+    if on_cuda:
+        planes = torch.from_numpy(np.random.default_rng(1810).integers(
+            0, 256, (2, 64, 64), dtype=np.uint8)).to(dev)
+        try:
+            prof.time_op_chained(lambda p: port.threshold(p, method="otsu")[1], planes, n_hi=4)
+        except RuntimeError as e:
+            print(f"phase 18 Otsu (reads the host): time_op_chained refused, {str(e)[:160]}")
+        else:
+            raise AssertionError("phase 18: time_op_chained chained Otsu, which reads the host")
+        want = port.equalize_hist(planes.cpu())
+        if max_err(port.equalize_hist(planes).cpu(), want):
+            raise AssertionError("phase 18: the card's results changed after a refused capture")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -4255,6 +4364,10 @@ def main() -> None:
     # twins (the geometry twins too) and stream_frames(mesh=), four shards on
     # the one card
     err["warp_gather_u8"] = max(err["warp_gather_u8"], mesh_sharding(smi, drive, dev))
+
+    # -- 18. the port's clock (profiling.py): CUDA-graph chains held to eager
+    # and CPU chains, and every clock of the four main paths beside the bound
+    the_clock(smi, dev)
 
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the

@@ -17,7 +17,7 @@ import torch
 from imageenhancement_mp_tpu_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["launch_counts", "reset_launch_counts", "on_cuda", "check_kernel_input",
-           "host_derived", "stream_handle", "stream_workspace"]
+           "host_derived", "stream_handle", "stream_workspace", "stream_workspaces"]
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -97,3 +97,13 @@ def stream_workspace(device: torch.device, n: int, zeroed: bool) -> torch.Tensor
         while len(_WORKSPACES) > _WORKSPACE_KEYS:
             del _WORKSPACES[next(iter(_WORKSPACES))]
     return t
+
+
+def stream_workspaces(device: torch.device) -> list[torch.Tensor]:
+    """The buffers :func:`stream_workspace` keeps for ``device``'s current
+    stream.  A CUDA graph captured on that stream writes them at every
+    replay: its holder keeps these references, so the LRU cannot free them
+    under it."""
+    handle = stream_handle(device)
+    with _WORKSPACE_LOCK:
+        return [t for (d, s, _), t in _WORKSPACES.items() if d == device and s == handle]

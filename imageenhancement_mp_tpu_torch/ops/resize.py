@@ -18,9 +18,8 @@ tables, copied), once per geometry and device, and gathered with
   int vertical wraps.  Other dtypes: ``ref/``'s f32 sums in tap order.
 * area: integer factors as a sum over each cell (the 2×2 case half up,
   ``(s + 2) >> 2``, else ``cvRound(s·f32(1/(f1·f2)))``); any other
-  downscale as two banded weighted sums in f64, rows then columns, each
-  output line summing the input lines it overlaps in a fixed order (``ref/``
-  sums each cell in f64; the JAX package's f32 matmuls are its stand-in);
+  downscale as ``ref/``'s f64 cell sums: the cell's terms ``x·(wy·wx)`` in
+  NumPy's pairwise order (the JAX package's f32 matmuls are its stand-in);
   an upscale axis the linear machinery with INTER_AREA coordinates.
 
 Row sharding (``parallel/spatial.py::resize_spatial``) runs the same code on
@@ -39,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from imageenhancement_mp_tpu_torch.kernels import host_derived
 from imageenhancement_mp_tpu_torch.utils.ranges import int_bounds
 from imageenhancement_mp_tpu_torch.utils.resize_tables import (cubic_weights, lanczos4_weights,
                                                                resize_cubic_tables,
@@ -54,6 +54,8 @@ _RESIZE_SCALE = 1 << 11
 # per-shard y tables kept on their device: 4 shards of 8 geometries, apart
 # from the unsharded tables' own cache
 _SHARD_TABLES = 32
+# f64 terms of the general area downscale held at once (128 MiB)
+_AREA_TERMS = 1 << 24
 F32, F64, I32, I64 = torch.float32, torch.float64, torch.int32, torch.int64
 
 
@@ -199,22 +201,71 @@ def _area_cells(planes: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     return out.clamp(minv, maxv).to(I32).to(planes.dtype)
 
 
+def _pairwise_sum(terms: list) -> torch.Tensor:
+    """The sum of ``terms`` (equal-shaped f64 tensors) in NumPy's pairwise
+    order for one contiguous run of that many values: fewer than 8 in turn;
+    up to 128 as eight strided partials, ``((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7))``,
+    then the tail in turn; more split at half the count, rounded down to a
+    multiple of 8, each half summed the same way."""
+    n = len(terms)
+    if n < 8:
+        s = terms[0]
+        for t in terms[1:]:
+            s = s + t
+        return s
+    if n <= 128:
+        body = n - n % 8
+        r = list(terms[:8])
+        for i in range(8, body, 8):
+            r = [a + b for a, b in zip(r, terms[i:i + 8])]
+        s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+        for t in terms[body:]:
+            s = s + t
+        return s
+    half = n // 2 - (n // 2) % 8
+    return _pairwise_sum(terms[:half]) + _pairwise_sum(terms[half:])
+
+
+def _band_groups(w: torch.Tensor) -> list:
+    """The output lines of the band table ``w`` (``(K, on)``, padded with
+    weight 0, every real weight above 0) grouped by their band's length:
+    ``[(length, lines on w's device)]``, computed once per table."""
+    def groups(wh: np.ndarray) -> list:
+        lengths = (wh != 0).sum(0)
+        return [(int(k), torch.from_numpy(np.flatnonzero(lengths == k)).to(w.device))
+                for k in np.unique(lengths)]
+    return host_derived(w, "area_groups", groups)
+
+
 def _area_band_sum(planes: torch.Tensor, H: int, oh: int, ow: int, ytab: tuple) -> torch.Tensor:
     """Area downscale of the frame ``H`` rows high to ``oh`` rows through the
-    band tables ``ytab`` (``_area_band``'s, one column an output row): f64
-    weighted sums of the band's rows, then of the columns, each term added
-    in band order, then times cvRound's f32 ``1/cell area``."""
+    band tables ``ytab`` (``_area_band``'s, one column an output row), each
+    cell as ``ref/`` computes it: the f64 terms ``x · (wy·wx)`` (the outer
+    weight rounded first) in row-major order of the cell, summed in NumPy's
+    pairwise order for their count (:func:`_pairwise_sum`), then times
+    cvRound's f32 ``1/cell area``.  Cells are taken by band lengths (the
+    order depends on the count) and output rows in chunks of at most
+    ``_AREA_TERMS`` terms."""
     yi, yw = ytab
     xi, xw = _tables("area", planes.shape[-1], ow, planes.device)
     a = planes.to(F64)
-    v = _rows(a, yi[0]) * yw[0][:, None]
-    for k in range(1, yi.shape[0]):
-        v = v + _rows(a, yi[k]) * yw[k][:, None]
-    s = _cols(v, xi[0]) * xw[0]
-    for k in range(1, xi.shape[0]):
-        s = s + _cols(v, xi[k]) * xw[k]
+    B = a.shape[0]
+    out = torch.empty((B, yi.shape[1], ow), dtype=F64, device=a.device)
+    for ny, rows in _band_groups(yw):
+        for nx, cols in _band_groups(xw):
+            step = max(1, _AREA_TERMS // (B * len(cols) * ny * nx))
+            for r0 in range(0, len(rows), step):
+                r = rows[r0:r0 + step]
+                terms = []
+                for ky in range(ny):
+                    band = _rows(a, yi[ky][r])
+                    for kx in range(nx):
+                        w = yw[ky][r][:, None] * xw[kx][cols]
+                        terms.append(_cols(band, xi[kx][cols]) * w)
+                # NumPy's reduction starts from +0.0: no cell sums to -0.0
+                out[:, r[:, None], cols] = _pairwise_sum(terms) + 0.0
     cell = float(np.float32(1.0 / ((H / oh) * (planes.shape[-1] / ow))))
-    return _round_cast(s * cell, planes.dtype)
+    return _round_cast(out * cell, planes.dtype)
 
 
 def check_resize(planes: torch.Tensor, dsize) -> tuple[int, int]:

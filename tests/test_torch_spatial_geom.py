@@ -200,7 +200,7 @@ def _tolerance(case: str, want: np.ndarray) -> float:
     """tests/test_spatial_geom.py's bound for the case.  Its resize cases have
     no general area downscale: there JAX sums in f32 matmuls and the port in
     f64, ±1 (tests/test_torch_resize.py's bound), and the port is held to
-    ref/ by :func:`_assert_area_matches_ref`."""
+    ref/ at 0 by :func:`_assert_area_matches_ref`."""
     dtype = CASES[case][0]
     kind, interp = case.split("/")[:2]
     if case.startswith("resize/area/general/") and dtype != "f32":
@@ -224,22 +224,87 @@ def test_twin_matches_the_jax_twin_on_eight_devices(case, meshes, jax_outputs):
         _assert_area_matches_ref(_input(case), got, (24, 20))
 
 
-def _assert_area_matches_ref(x: np.ndarray, got: np.ndarray, dsize) -> None:
-    """The general area downscale against ref/: equal but where the cell's
-    weighted mean lies within 1e-9 of a half (ref/ and the port add the same
-    f64 terms in other orders, and round such a tie either way), there ±1."""
-    want = np.stack([ref.resize(p, dsize, "area") for p in x])
-    (oh, ow), (H, W) = dsize, x.shape[1:]
+def _area_cells(shape: tuple, dsize) -> list:
+    """ref/'s cells of the general area downscale of ``shape`` (H, W) to
+    ``dsize``: ``(dy, dx, ys, xs, outer weights)`` each."""
+    (oh, ow), (H, W) = dsize, shape
     sy, sx = H / oh, W / ow
-    cell = float(np.float32(1.0 / (sy * sx)))
-    for b, dy, dx in np.argwhere(got != want):
+    cells = []
+    for dy in range(oh):
         ys = np.arange(int(np.floor(dy * sy)), min(int(np.ceil((dy + 1) * sy)), H))
-        xs = np.arange(int(np.floor(dx * sx)), min(int(np.ceil((dx + 1) * sx)), W))
         wy = np.minimum(ys + 1, min((dy + 1) * sy, H)) - np.maximum(ys, dy * sy)
-        wx = np.minimum(xs + 1, min((dx + 1) * sx, W)) - np.maximum(xs, dx * sx)
-        mean = float(np.sum(x[b][np.ix_(ys, xs)] * np.outer(wy, wx), dtype=np.longdouble)) * cell
-        assert abs(mean - np.floor(mean) - 0.5) < 1e-9, (b, dy, dx, mean)
-        assert abs(int(got[b, dy, dx]) - int(want[b, dy, dx])) == 1
+        for dx in range(ow):
+            xs = np.arange(int(np.floor(dx * sx)), min(int(np.ceil((dx + 1) * sx)), W))
+            wx = np.minimum(xs + 1, min((dx + 1) * sx, W)) - np.maximum(xs, dx * sx)
+            cells.append((dy, dx, ys, xs, np.outer(wy, wx)))
+    return cells
+
+
+def _tie_count(x: np.ndarray, dsize) -> int:
+    """The cells whose weighted mean lies within 1e-9 of a half: there the
+    order of the f64 sum decides the rounding."""
+    H, W = x.shape[1:]
+    cell = float(np.float32(1.0 / ((H / dsize[0]) * (W / dsize[1]))))
+    n = 0
+    for p in x:
+        for _, _, ys, xs, w in _area_cells((H, W), dsize):
+            mean = float(np.sum(p[np.ix_(ys, xs)] * w, dtype=np.longdouble)) * cell
+            n += abs(mean - np.floor(mean) - 0.5) < 1e-9
+    return n
+
+
+def _assert_area_matches_ref(x: np.ndarray, got: np.ndarray, dsize) -> None:
+    """The general area downscale against ref/ at 0: the port sums each cell's
+    terms in ref/'s order, ties included."""
+    want = np.stack([ref.resize(p, dsize, "area") for p in x])
+    np.testing.assert_array_equal(got, want)
+
+
+# general area downscales with cells of 4-9, 12-20 and 130-140 terms, each to
+# its mesh sizes (the output rows divide among the shards)
+TIE_GEOMETRIES = {"64x80->40x32": ((64, 80), (40, 32), (2, 8)),
+                  "80x64->32x20": ((80, 64), (32, 20), (2, 8)),
+                  "128x80->10x8": ((128, 80), (10, 8), (2,))}
+
+
+def _tie_planes(dtype: str, shape: tuple, dsize, seed: int) -> np.ndarray:
+    """Two planes built so that most area cells tie: values that are
+    multiples of 10 (each term's exact value a whole number), then, cell by
+    cell, the pixel of the largest weight set to the value of its type,
+    among 1024, that puts the cell's exact mean on a half."""
+    np_dtype = {"u8": np.uint8, "u16": np.uint16, "i16": np.int16}[dtype]
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(info.min // 10, info.max // 10, (2, *shape), endpoint=True) * 10)
+    area = (shape[0] / dsize[0]) * (shape[1] / dsize[1])
+    lo = max(info.min, -512)
+    cand = np.arange(lo, min(info.max, lo + 1023) + 1, dtype=np.longdouble)
+    for p in x:
+        for _, _, ys, xs, w in _area_cells(shape, dsize):
+            k = np.unravel_index(np.argmax(w), w.shape)
+            y, xx = ys[k[0]], xs[k[1]]
+            p[y, xx] = 0
+            rest = np.sum(p[np.ix_(ys, xs)] * w, dtype=np.longdouble)
+            mean = (rest + cand * np.longdouble(w[k])) / np.longdouble(area)
+            off = np.abs(mean - np.floor(mean) - 0.5)
+            p[y, xx] = int(cand[np.argmin(off)])
+    return x.astype(np_dtype)
+
+
+@pytest.mark.parametrize("dtype", ["u8", "u16", "i16"])
+@pytest.mark.parametrize("geometry", list(TIE_GEOMETRIES))
+def test_general_area_ties_match_ref(geometry, dtype, meshes):
+    """On planes built to tie, the general area downscale equals ref/ at 0,
+    unsharded and row-sharded."""
+    shape, dsize, sizes = TIE_GEOMETRIES[geometry]
+    x = _tie_planes(dtype, shape, dsize, 2500 + len(dtype) + shape[0])
+    assert _tie_count(x, dsize) >= x.shape[0] * dsize[0] * dsize[1] // 4
+    got = OP_REGISTRY["resize"](torch.from_numpy(x), dsize, "area").numpy()
+    _assert_area_matches_ref(x, got, dsize)
+    for n in sizes:
+        run = tmesh.run_sharded(lambda p: tsp.resize_spatial(p, dsize, "area"), meshes[n],
+                                [(None, "y")], (None, "y"))
+        np.testing.assert_array_equal(run(torch.from_numpy(x)).numpy(), got)
 
 
 @pytest.mark.parametrize("perspective", [False, True])

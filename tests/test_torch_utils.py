@@ -110,7 +110,8 @@ def test_fma32_matches_jax_and_exact():
 
 
 def test_import_pulls_no_jax():
-    code = ("import sys, imageenhancement_mp_tpu_torch, imageenhancement_mp_tpu_torch.interop; "
+    code = ("import sys, imageenhancement_mp_tpu_torch, imageenhancement_mp_tpu_torch.interop, "
+            "imageenhancement_mp_tpu_torch.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'imageenhancement_mp_tpu' or m.startswith('imageenhancement_mp_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
