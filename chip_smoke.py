@@ -26,7 +26,9 @@
    u8 values upsampled bilinearly, plus +-2 noise) and constant (all 255)
    planes, each at odd widths and misaligned by one byte, and on
    [1, 2_200_000, 8], and timed on each kind of plane.  u16 CLAHE's stage A
-   (hist65536_tiles) and blend are held on random, smooth, constant, 12-bit
+   (hist65536_tiles), stages A and B in one launch (tile_luts65536: the
+   cluster kernel with stage B in its epilogue) and the blend are held on
+   random, smooth, constant, 12-bit
    (values below 4096) and two-extreme ({0, 65535}) planes at eleven
    geometries (divisible and not, tiles of a few pixels, one tile column,
    the 164x164 grid 2x2 one, 1079x1917, 4K), each also at a storage offset
@@ -67,9 +69,10 @@
    2x2160x3840 u16, median_blur(5) on u16 and i16, each path with counters
    of its own; fails unless each path launched exactly its kernels (median,
    tile_luts256, clahe_blend, sep_conv_u8 once per batch through the
-   preset; tile_luts256 and clahe_blend for u8 clahe, hist65536_tiles,
-   clahe_lut and clahe_blend for u16; median for median_blur) and no other;
-   hist256_tiles, stage A alone, is driven by itself once.
+   preset; tile_luts256 and clahe_blend for u8 clahe, tile_luts65536 and
+   clahe_blend for u16; median for median_blur) and no other; hist256_tiles
+   and hist65536_tiles (stage A alone) and clahe_lut at S = 65536 (stage B
+   alone), on no path, are each driven by itself once.
    Before the paths, holds the median kernel (the schedules of
    median_networks.cuh) against its plain networks at 0 LSB, k 3 and 5, u8,
    u16 and i16: each residue of the thread and block tiles (1x1, 2x3, 5x7,
@@ -159,8 +162,10 @@
    network cases of phase 5 on u8) and median_unsharp against the
    median -> sep_conv_u8 chain; then drives config 2
    (get_preset("gamma_stretch") on 32x1080x1920x3: exactly 2 apply_lut256
-   launches), equalize_hist(per_frame=False) on 8x1080x1920x3 (one hist256,
-   equalize_lut256 and apply_lut256), apply_lut_planes with [8, 256] f32
+   launches), equalize_hist(per_frame=False) on 8x1080x1920x3 (one
+   hist256_lut pooling a group a channel, one apply_lut256; the grouped
+   LUTs held against their plain version first at C = 1, 3 and B on 8 1080p
+   frames), apply_lut_planes with [8, 256] f32
    tables (one apply_lut256_wide), apply_luts_multi K = 9 (one launch) and
    median_unsharp(5, 1.0, 5) at 2x2160x3840 (one launch, equal to the chain),
    each against the plain path on the card and on the CPU; then times the
@@ -297,7 +302,8 @@
    four kernels once per shard), equal to the unsharded call at 0 LSB and a
    frame equal to the CPU plain path; the pooled equalize over the 4-entry
    mesh on 8x1080x1920 (channels 1 and 3: hist256, equalize_lut256 and
-   apply_lut256 once per shard); config 5 row-sharded on one 4320x7680 frame,
+   apply_lut256 once per shard; unsharded, hist256_lut and apply_lut256
+   once); config 5 row-sharded on one 4320x7680 frame,
    u8 and u16; each of the 16 non-pointwise spatial twins on a 2160x3840
    frame, every kernel of the unsharded call once per shard; three batches
    through stream_frames(mesh=), each output sharded and equal to the
@@ -323,7 +329,10 @@
    time_op (blocked), time_op_chained (target 0.25 s), the back-to-back and
    sleep-paced event clocks, torch.profiler's kernel sum a call and the
    bytes bound on one line, failing if the chained time is below the
-   bound, with whether the sleep outlasts the host's enqueue; Otsu, which
+   bound, with whether the sleep outlasts the host's enqueue; time_op on
+   merge_mertens over a list of three 2160x3840x3 exposures and in a
+   closure that returns nothing, each failing if it reads less than the
+   call's device time (its kernels under torch.profiler); Otsu, which
    reads the host, must make time_op_chained raise.
 19. Prints a one-line JSON per-kernel summary (launches on the main paths,
    max_abs_err, kernel and plain ms, the bound from bytes or operations at
@@ -354,20 +363,21 @@ PKG = "imageenhancement_mp_tpu_torch"
 MAIN_KERNELS = ("hist256_lut", "apply_lut256", "sep_conv_u8")
 CONFIG5_KERNELS = ("median", "tile_luts256", "clahe_blend", "sep_conv_u8")
 SLICE3_KERNELS = ("bilateral", "athresh")
-# held in phase 3; hist256 serves Otsu and pooled equalize_hist, hist256_tiles
-# is stage A alone, equalize_lut256 serves pooled equalize_hist, clahe_lut u16
-# clahe
+# held in phase 3; hist256 serves Otsu and the mesh's pooled equalize_hist,
+# hist256_tiles is stage A alone, equalize_lut256 serves the mesh's pooled
+# equalize_hist, clahe_lut (stage B alone) no path
 SCAN_KERNELS = ("hist256", "equalize_lut256", "hist256_tiles", "clahe_lut")
 KERNELS = MAIN_KERNELS + CONFIG5_KERNELS[:-1] + SCAN_KERNELS + SLICE3_KERNELS
 WARP_KERNELS = ("warp_gather_u8",)
 TAKE_KERNELS = ("take_table",)
 LUT_KERNELS = ("apply_lut256_wide", "apply_luts_multi", "median_unsharp")
-U16_KERNELS = ("hist65536_tiles",)
+U16_KERNELS = ("hist65536_tiles", "tile_luts65536")
 # the summary line's order: every kernel of earlier slices as before, the
 # fused ones last
 ALL_KERNELS = (("hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8", "median",
                 "hist256_tiles", "clahe_lut", "clahe_blend") + SLICE3_KERNELS + WARP_KERNELS
-               + TAKE_KERNELS + LUT_KERNELS + U16_KERNELS + ("hist256_lut", "tile_luts256"))
+               + TAKE_KERNELS + LUT_KERNELS + U16_KERNELS[:1] + ("hist256_lut", "tile_luts256")
+               + U16_KERNELS[1:])
 SOURCES = {
     "hist256": f"{PKG}/kernels/csrc/hist.cu",
     "equalize_lut256": f"{PKG}/kernels/csrc/hist.cu",
@@ -387,6 +397,7 @@ SOURCES = {
     "hist65536_tiles": f"{PKG}/kernels/csrc/clahe.cu",
     "hist256_lut": f"{PKG}/kernels/csrc/hist.cu",
     "tile_luts256": f"{PKG}/kernels/csrc/clahe.cu",
+    "tile_luts65536": f"{PKG}/kernels/csrc/clahe.cu",
 }
 REPLACES = {
     "hist256": "imageenhancement_mp_tpu/kernels/hist.py:156",
@@ -407,6 +418,7 @@ REPLACES = {
     "hist65536_tiles": "imageenhancement_mp_tpu/ops/clahe.py:55-61 (an XLA stage; no Pallas kernel)",
     "hist256_lut": "imageenhancement_mp_tpu/kernels/hist.py:572 (equalize_hist_pallas's histogram and LUT phases) and imageenhancement_mp_tpu/kernels/hist.py:156",
     "tile_luts256": "imageenhancement_mp_tpu/kernels/hist.py:156 via imageenhancement_mp_tpu/ops/clahe.py:212, and imageenhancement_mp_tpu/ops/clahe.py:74 (an XLA stage)",
+    "tile_luts65536": "imageenhancement_mp_tpu/ops/clahe.py:55-61 and :74-97 (XLA stages)",
 }
 # each timed run is CALLS_PER_RUN back-to-back calls between two CUDA events:
 # the steady state of a stream of batches, which an isolated call (whose
@@ -1026,10 +1038,20 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
             check("median_unsharp", kfused.median_unsharp(x, km, amount, ksize),
                   kconv.sep_conv_u8(kmedian.median_blur(x, km), taps, taps, amount),
                   f"{shape} km={km} amount={amount} ksize={ksize} against the two-kernel chain")
+    # pooled equalizeHist's LUTs in one count launch: hist256_lut with C
+    # groups (plane b in group b % C) on 8 1080p frames, gray (C = 1) and
+    # RGB planes (C = 3), and C = B (one LUT a plane)
+    for shape, groups in (((8, 1080, 1920), (1, 8)), ((24, 1080, 1920), (3, 1, 24))):
+        x = rand_u8(shape)
+        for C in groups:
+            check("hist256_lut", khist.hist256_equalize_lut(x, C),
+                  khist.hist256_equalize_lut_plain(x, C), f"{shape} in {C} pooled groups")
     torch.cuda.synchronize()
     for name in counted:
         if launch_counts[name] <= before[name]:
             raise AssertionError(f"{name}: the comparison phase launched no kernel")
+    print("hist256_lut with pooled groups vs plain on the card: 0 LSB on 8x1080x1920 (C 1, 8) "
+          "and 24x1080x1920 (C 3, 1, 24)")
     print(f"LUT family and fused kernels vs plain on the card, bit for bit: {counted} cases "
           "(u8, u16, i16, i32 and f32 tables, shared and per plane, i32 at +-(2^31-1), f32 "
           "inf/NaN/-0.0/subnormals and NaN payloads, K in {1, 9, 64}, km 3/5, amounts 1, 1.5, "
@@ -1042,14 +1064,16 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
     @contextlib.contextmanager
     def plain_luts():
         counts = dict(launch_counts)
-        saved = (tpoint.apply_lut256, thist.hist256, thist.equalize_lut256, thist.apply_lut256)
+        saved = (tpoint.apply_lut256, thist.hist256, thist.equalize_lut256, thist.apply_lut256,
+                 thist.hist256_equalize_lut)
         tpoint.apply_lut256 = thist.apply_lut256 = khist.apply_lut256_plain
         thist.hist256, thist.equalize_lut256 = khist.hist256_plain, khist.equalize_lut256_plain
+        thist.hist256_equalize_lut = khist.hist256_equalize_lut_plain
         try:
             yield
         finally:
             (tpoint.apply_lut256, thist.hist256, thist.equalize_lut256,
-             thist.apply_lut256) = saved
+             thist.apply_lut256, thist.hist256_equalize_lut) = saved
         if dict(launch_counts) != counts:
             raise AssertionError("the plain path launched a kernel")
 
@@ -1071,7 +1095,7 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
          {"apply_lut256": 2}, plain(lambda: pipe2(g)), "one frame"),
         ("equalize_hist(per_frame=False) 8x1080x1920x3 u8", x_eq,
          lambda x: port.equalize_hist(x, per_frame=False),
-         {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1},
+         {"hist256_lut": 1, "apply_lut256": 1},
          plain(lambda: port.equalize_hist(g, per_frame=False)), "the whole batch"),
         ("apply_lut_planes 8x1080x1920 u8, [8, 256] f32 tables", x8,
          lambda x: tpoint.apply_lut_planes(x, lut_f32[:x.shape[0]].to(x.device)),
@@ -1088,8 +1112,7 @@ def lut_family_and_fused(port, dev, smi, gen, on_card, misaligned, check, drive,
     for label, x, fn, expect, plain_run, cpu_part in paths:
         g = on_card(x)
         out, got = drive(label, lambda: fn(g), expect)
-        path_launches.update({n: got[n] for n in LUT_KERNELS + ("equalize_lut256",)
-                              if n in expect})
+        path_launches.update({n: got[n] for n in LUT_KERNELS if n in expect})
         want = plain_run()
         cpu_in = x if cpu_part == "the whole batch" else x[:1]
         cpu = fn(torch.from_numpy(cpu_in))
@@ -2544,7 +2567,7 @@ WIDE_LAUNCHES = {"wide/gauss3": {"sep_conv_u8": 1}, "wide/gauss5": {"sep_conv_u8
                  "wide/gauss37/s6": {"sep_conv_u8": 1},
                  "wide/eq_unsharp": {"hist256_lut": 1, "sep_conv_u8": 1},
                  "wide/clahe": {"tile_luts256": 1, "clahe_blend": 1},
-                 "wide/clahe/u16": {"hist65536_tiles": 1, "clahe_lut": 1, "clahe_blend": 1}}
+                 "wide/clahe/u16": {"tile_luts65536": 1, "clahe_blend": 1}}
 
 
 def _batch_split(label: str, s: dict, smi: str) -> None:
@@ -2892,12 +2915,15 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> int:
         for channels in (1, 3):
             xp = torch.from_numpy(rng.integers(0, 256, (Np * channels, Hp, Wp), dtype=np.uint8)
                                   ).to(dev)
-            pooled = {"hist256": 1, "equalize_lut256": 1, "apply_lut256": 1}
+            # unsharded: one grouped count (a group a channel) and the apply;
+            # across shards: a count a shard, a psum, the LUT kernel, the apply
             want, _ = drive(f"phase 17 pooled equalize unsharded, channels {channels}",
-                            lambda: equalize_hist_global_planes(xp, channels), pooled)
+                            lambda: equalize_hist_global_planes(xp, channels),
+                            {"hist256_lut": 1, "apply_lut256": 1})
             fn = psh.equalize_hist_global_sharded(four, channels=channels)
-            got, _ = drive(f"phase 17 pooled equalize, {SHARDS} shards, channels {channels}",
-                           lambda: fn(xp), {k: SHARDS for k in pooled})
+            got, pooled_launches = drive(
+                f"phase 17 pooled equalize, {SHARDS} shards, channels {channels}", lambda: fn(xp),
+                dict.fromkeys(("hist256", "equalize_lut256", "apply_lut256"), SHARDS))
             same(got, want, f"pooled equalize, channels {channels}")
         print(f"phase 17 pooled equalize {Np}x{Hp}x{Wp} (channels 1 and 3) over {SHARDS} shards: "
               "0 LSB against the unsharded call")
@@ -2931,7 +2957,8 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> int:
             stage = [(name, kw)]
             want, counts = _launches(dev, lambda: port.make_pipeline(stage)(gt))
             expect = {k: SHARDS * c for k, c in counts.items()}
-            if name == "equalize_hist":  # the frame's bins pool across the shards
+            if name in ("equalize_hist", "equalize_hist_global"):
+                # the bins pool across the shards (a psum), then the LUT kernel
                 expect = dict.fromkeys(("hist256", "equalize_lut256", "apply_lut256"), SHARDS)
             got, _ = drive(f"phase 17 spatial {name} {Ht}x{Wt}, {SHARDS} shards",
                            lambda: port.make_pipeline(stage, mesh=rows, shard="spatial")(gt),
@@ -2962,13 +2989,14 @@ def mesh_sharding(smi: str, drive, dev: torch.device, sizes: dict = P17) -> int:
         for m in (one, four, rows):
             m.close()
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
-    return row0_err
+    return row0_err, pooled_launches
 
 
 # phase 18's sizes: the four main paths at their full widths (the north
 # star, configs 2, 3 and 5) and the size their CPU chains run at
 P18 = {"equalize_unsharp": (8, 1080, 1920), "config 2": (32, 1080, 1920, 3),
-       "config 3": (8, 1080, 1920), "config 5": (2, 2160, 3840), "small": (2, 270, 480)}
+       "config 3": (8, 1080, 1920), "config 5": (2, 2160, 3840), "small": (2, 270, 480),
+       "bracket": (2160, 3840)}
 # the device-paced figures' sleep (tools/torch_*_profile.py): about 2 ms at
 # 1.98 GHz, which must outlast the host's enqueue of a run's calls
 P18_SLEEP_CYCLES = 4_000_000
@@ -2984,7 +3012,9 @@ def the_clock(smi: str, dev: torch.device, sizes: dict = P18) -> None:
     event clocks, torch.profiler's kernel sum and the bytes bound (input
     read once, output written once) on one line.  A chained time below the
     bound fails the phase: a clock that beats the memory cannot be right.
-    Last, a call that reads the host (Otsu) must refuse to be chained."""
+    Then ``time_op`` on ``merge_mertens`` with its frames in a list and in a
+    closure: each reading at least the call's device time.  Last, a call
+    that reads the host (Otsu) must refuse to be chained."""
     import imageenhancement_mp_tpu_torch as port
     from imageenhancement_mp_tpu_torch import profiling as prof
 
@@ -3044,6 +3074,25 @@ def the_clock(smi: str, dev: torch.device, sizes: dict = P18) -> None:
             raise AssertionError(f"phase 18 {label}: time_op_chained {chained:.4f} ms is below "
                                  f"the bytes bound {bound:.4f} ms")
         del g
+    # time_op blocks on a call's CUDA work wherever its tensors are: in a list
+    # argument (merge_mertens over three 4K exposures) and in a closure that
+    # returns nothing; each reading is at least the call's device time (the
+    # kernels of one eager call under torch.profiler, which cannot outlast
+    # the call's wall time; "not measured" when the profiler keeps no event)
+    t0 = time.perf_counter()
+    frames = [torch.from_numpy(f).to(dev) for f in exposure_bracket(*sizes["bracket"], 1811)]
+    device_ms = device_split(lambda: port.merge_mertens(frames), calls=2, warmups=1)[0] / 1e3
+    listed = prof.time_op(port.merge_mertens, frames, iters=5, warmup=1) * 1e3
+    closure = prof.time_op(lambda: (port.merge_mertens(frames), None)[1], iters=5, warmup=1) * 1e3
+    device = f"{device_ms:.4f} ms" if device_ms else "not measured (no kernel event kept)"
+    print(f"phase 18 time_op on merge_mertens 3x{'x'.join(map(str, sizes['bracket']))}x3 u8: "
+          f"{listed:.4f} ms with the frames in a list argument, {closure:.4f} ms in a closure "
+          f"that returns nothing; the call's device time (torch.profiler kernel sum) {device} "
+          f"({time.perf_counter() - t0:.1f} s)  [{smi}]")
+    if on_cuda and min(listed, closure) < device_ms:
+        raise AssertionError(f"phase 18: time_op read {min(listed, closure):.4f} ms for "
+                             f"merge_mertens, under its device time {device_ms:.4f} ms")
+    del frames
     if on_cuda:
         planes = torch.from_numpy(np.random.default_rng(1810).integers(
             0, 256, (2, 64, 64), dtype=np.uint8)).to(dev)
@@ -3360,6 +3409,8 @@ def main() -> None:
             check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo), hp, what)
         lut = kclahe.clahe_lut(hp, area, clip)
         check("clahe_lut", lut, kclahe.clahe_lut_plain(hp, area, clip), what)
+        if x.dtype == torch.uint16:
+            check("tile_luts65536", kclahe.tile_luts65536(x, *geo, clip), lut, what)
         tables = coord_tables(H, W, geo)
         check("clahe_blend", kclahe.clahe_blend(x, lut, geo[0], geo[1], *tables),
               kclahe.clahe_blend_plain(x, lut, geo[0], geo[1], *tables), what)
@@ -3549,7 +3600,10 @@ def main() -> None:
         geo = tclahe.tile_geometry(H, W, grid)
         hp = kclahe.tile_hists_plain(x, *geo)
         check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo), hp, what)
-        lut = kclahe.clahe_lut(hp, geo[2] * geo[3], 2.0)
+        lut = kclahe.clahe_lut_plain(hp, geo[2] * geo[3], 2.0)
+        for clip in (0.0, 2.0):
+            check("tile_luts65536", kclahe.tile_luts65536(x, *geo, clip),
+                  lut if clip else kclahe.clahe_lut_plain(hp, geo[2] * geo[3], clip), what)
         tables = coord_tables(H, W, geo)
         check("clahe_blend", kclahe.clahe_blend(x, lut, geo[0], geo[1], *tables),
               kclahe.clahe_blend_plain(x, lut, geo[0], geo[1], *tables), what)
@@ -3573,23 +3627,29 @@ def main() -> None:
             geo = (1, 1, shape[1], shape[2])
             check("hist65536_tiles", kclahe.hist65536_tiles(x, *geo),
                   kclahe.tile_hists_plain(x, *geo), f"{shape} all {v}: one bin per tile")
+            check("tile_luts65536", kclahe.tile_luts65536(x, *geo, 2.0),
+                  kclahe.tile_luts65536_plain(x, *geo, 2.0), f"{shape} all {v}: one bin per tile")
     # more planes than a grid axis holds (grid 1x1: 70000 tiles; the plain
     # versions on slices), and more rows
     many = on_card(u16_planes((70000, 8, 8), "random", urng))
     tables_many = coord_tables(8, 8, (1, 1, 8, 8))
     hk = kclahe.hist65536_tiles(many, 1, 1, 8, 8)
     lk = kclahe.clahe_lut(hk, 64, 2.0)
+    fk = kclahe.tile_luts65536(many, 1, 1, 8, 8, 2.0)
     bk = kclahe.clahe_blend(many, lk, 1, 1, *tables_many)
     for sl in (slice(0, 3), slice(-3, None)):
         what = f"u16 70000x8x8 grid 1x1, planes {sl.start}:{sl.stop}"
         check("hist65536_tiles", hk[sl], kclahe.tile_hists_plain(many[sl], 1, 1, 8, 8), what)
+        check("tile_luts65536", fk[sl], kclahe.tile_luts65536_plain(many[sl], 1, 1, 8, 8, 2.0),
+              what)
         check("clahe_blend", bk[sl], kclahe.clahe_blend_plain(many[sl], lk[sl], 1, 1, *tables_many),
               what)
-    del many, hk, lk, bk
+    del many, hk, lk, bk, fk
     check_u16(on_card(u16_planes((1, 2_200_000, 8), "random", urng)), (8, 8),
               "u16 1x2200000x8 grid 8x8")
     torch.cuda.synchronize()
-    print(f"hist65536_tiles and the u16 blend vs plain on the card: 0 LSB over {n_u16} cases "
+    print(f"hist65536_tiles, tile_luts65536 (clip 0 and 2) and the u16 blend vs plain on the "
+          f"card: 0 LSB over {n_u16} cases "
           f"({', '.join(U16_PLANES)} planes; offset 0 and 1), tiles of 65535 and 153600 equal "
           "pixels, [70000, 8, 8] and [1, 2200000, 8]")
     for name in KERNELS + U16_KERNELS:
@@ -3694,31 +3754,39 @@ def main() -> None:
     print(f"  clahe_blend u8 plan at (2, 2160, 3840) grid 8x8: "
           f"{kclahe.blend_chunk(tables5[2].cpu().numpy(), 8)} columns and "
           f"{kclahe.blend_band(tables5[0].cpu().numpy())} rows per block")
-    # u16 CLAHE's stage A (hist65536_tiles) and blend at the same geometry on
+    # u16 CLAHE's stage A (hist65536_tiles), stages A and B in one launch
+    # (tile_luts65536), stage B alone and the blend at the same geometry on
     # each kind of u16 plane, beside their bytes bounds (stage A: 2 B/px and
-    # the int32 tables written once; the blend: 4 B/px and the LUTs read
-    # once); stage A's library call: one torch.bincount over tile offsets
-    # made beforehand
+    # the int32 tables written once; stages A and B: 2 B/px and the u16 LUTs
+    # written once; the blend: 4 B/px and the LUTs read once); stage A's
+    # library call: one torch.bincount over tile offsets made beforehand
     n16, T16 = 2 * 2160 * 3840, 2 * geo5[0] * geo5[1]
     b16_hist, b16_blend = bound_ms(2 * n16 + T16 * 65536 * 4), bound_ms(4 * n16 + T16 * 65536 * 2)
+    b16_fused = bound_ms(2 * n16 + T16 * 65536 * 2)
     b16_lut = bound_ms(T16 * 65536 * (4 + 2))  # stage B: the histograms read, the LUTs written
     for kind in U16_PLANES:
         g16 = on_card(u16_planes((2, 2160, 3840), kind, urng))
         h16 = kclahe.hist65536_tiles(g16, *geo5)
-        check("hist65536_tiles", h16, kclahe.tile_hists_plain(g16, *geo5),
-              f"{kind} u16 (2, 2160, 3840) grid 8x8")
+        what = f"{kind} u16 (2, 2160, 3840) grid 8x8"
+        check("hist65536_tiles", h16, kclahe.tile_hists_plain(g16, *geo5), what)
         l16 = kclahe.clahe_lut(h16, area5, 2.0)
+        check("tile_luts65536", kclahe.tile_luts65536(g16, *geo5, 2.0),
+              kclahe.clahe_lut_plain(h16, area5, 2.0), what)
         h_ms, h_iqr = time_ms(lambda: kclahe.hist65536_tiles(g16, *geo5))
+        f_ms, f_iqr = time_ms(lambda: kclahe.tile_luts65536(g16, *geo5, 2.0))
         l_ms, l_iqr = time_ms(lambda: kclahe.clahe_lut(h16, area5, 2.0))
         b_ms, b_iqr = time_ms(lambda: kclahe.clahe_blend(g16, l16, 8, 8, *tables5))
         print(f"  u16 at (2, 2160, 3840) grid 8x8, {kind} plane: hist65536_tiles {h_ms:.4f} ms "
-              f"(IQR {h_iqr:.4f}), bound {b16_hist[0]:.4f} ms ({b16_hist[1]}); clahe_lut "
-              f"S=65536 {l_ms:.4f} ms (IQR {l_iqr:.4f}), bound {b16_lut[0]:.4f} ms "
+              f"(IQR {h_iqr:.4f}), bound {b16_hist[0]:.4f} ms ({b16_hist[1]}); tile_luts65536 "
+              f"{f_ms:.4f} ms (IQR {f_iqr:.4f}), bound {b16_fused[0]:.4f} ms ({b16_fused[1]}); "
+              f"clahe_lut S=65536 {l_ms:.4f} ms (IQR {l_iqr:.4f}), bound {b16_lut[0]:.4f} ms "
               f"({b16_lut[1]}); clahe_blend u16 {b_ms:.4f} ms (IQR {b_iqr:.4f}), bound "
               f"{b16_blend[0]:.4f} ms ({b16_blend[1]})  [{smi}]")
         if kind == "random":
             ms["hist65536_tiles"] = (h_ms, time_ms(lambda: kclahe.tile_hists_plain(g16, *geo5),
                                                    10, 3)[0])
+            ms["tile_luts65536"] = (f_ms, time_ms(
+                lambda: kclahe.tile_luts65536_plain(g16, *geo5, 2.0), 10, 3)[0])
             idx16 = ((torch.arange(2, device=dev)[:, None, None] * 64
                       + (torch.arange(2160, device=dev) // geo5[2])[None, :, None] * 8
                       + (torch.arange(3840, device=dev) // geo5[3])[None, None, :]) * 65536
@@ -3865,7 +3933,19 @@ def main() -> None:
         raise AssertionError("hist256_tiles alone differs from its plain version")
     del tiles4k
     clahe_u16, launches_u16 = drive("clahe 2x2160x3840 u16", lambda: port.clahe(g_u16, 2.0, (8, 8)),
-                                    {"hist65536_tiles": 1, "clahe_lut": 1, "clahe_blend": 1})
+                                    {"tile_luts65536": 1, "clahe_blend": 1})
+    # u16 stages A and B alone, on no path since tile_luts65536
+    hists16, launches_h16 = drive("hist65536_tiles (stage A alone) 2x2160x3840 u16",
+                                  lambda: kclahe.hist65536_tiles(g_u16, *geo4k),
+                                  {"hist65536_tiles": 1})
+    if max_err(hists16, kclahe.tile_hists_plain(g_u16, *geo4k)):
+        raise AssertionError("hist65536_tiles alone differs from its plain version")
+    luts16, launches_l16 = drive("clahe_lut S=65536 (stage B alone) 2x2160x3840 u16 tiles",
+                                 lambda: kclahe.clahe_lut(hists16, geo4k[2] * geo4k[3], 2.0),
+                                 {"clahe_lut": 1})
+    if max_err(luts16, kclahe.tile_luts65536_plain(g_u16, *geo4k, 2.0)):
+        raise AssertionError("clahe_lut alone differs from its plain version")
+    del hists16, luts16
     med_u16, _ = drive("median_blur(5) 2x2160x3840 u16", lambda: port.median_blur(g_u16, 5),
                        {"median": 1})
     med_i16, _ = drive("median_blur(5) 2x2160x3840 i16", lambda: port.median_blur(g_i16, 5),
@@ -4299,6 +4379,7 @@ def main() -> None:
         # output pixel
         "warp_gather_u8": bound_ms(2 * n5, 9.0 * n5),
         "hist65536_tiles": b16_hist,
+        "tile_luts65536": b16_fused,
         # the fused kernels: the planes read once, the LUT rows written once
         "hist256_lut": bound_ms(n8 + B8 * 256),
         "tile_luts256": bound_ms(n5 + T5 * 256),
@@ -4363,7 +4444,8 @@ def main() -> None:
     # -- 17. the mesh: batch and row sharding, the pooled hist-eq, the spatial
     # twins (the geometry twins too) and stream_frames(mesh=), four shards on
     # the one card
-    err["warp_gather_u8"] = max(err["warp_gather_u8"], mesh_sharding(smi, drive, dev))
+    row0_err, mesh_launches = mesh_sharding(smi, drive, dev)
+    err["warp_gather_u8"] = max(err["warp_gather_u8"], row0_err)
 
     # -- 18. the port's clock (profiling.py): CUDA-graph chains held to eager
     # and CPU chains, and every clock of the four main paths beside the bound
@@ -4372,17 +4454,21 @@ def main() -> None:
     # each kernel's launches from the path that runs it: the first main path's
     # three calls for its three kernels, get_preset's config 5 call for the
     # config 5 kernels, the bilateral -> adaptive_threshold pipeline for
-    # bilateral and athresh, Otsu for hist256, the pooled equalize_hist for
-    # equalize_lut256, u16 clahe for clahe_lut, hist256_tiles driven alone, the warp_affine rot15 call for warp_gather_u8,
-    # cvt_color rgb2lab for take_table, phase 10's paths for its three kernels
+    # bilateral and athresh, Otsu for hist256, the mesh's pooled equalize_hist
+    # (four shards) for equalize_lut256, u16 clahe for tile_luts65536,
+    # hist256_tiles, hist65536_tiles and clahe_lut driven alone, the
+    # warp_affine rot15 call for warp_gather_u8, cvt_color rgb2lab for
+    # take_table, phase 10's paths for its three kernels
     path_launches = {**{n: launches5[n] for n in CONFIG5_KERNELS},
                      **launches, **{n: launches3[n] for n in SLICE3_KERNELS},
                      "hist256": otsu_launches["hist256"],
                      "hist256_tiles": launches_tiles["hist256_tiles"],
-                     "clahe_lut": launches_u16["clahe_lut"],
+                     "clahe_lut": launches_l16["clahe_lut"],
+                     "hist65536_tiles": launches_h16["hist65536_tiles"],
+                     "tile_luts65536": launches_u16["tile_luts65536"],
                      **{n: warp_launches[n] for n in WARP_KERNELS},
                      **{n: take_launches[n] for n in TAKE_KERNELS}, **lut_launches,
-                     **{n: launches_u16[n] for n in U16_KERNELS}}
+                     "equalize_lut256": mesh_launches["equalize_lut256"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     summary = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],

@@ -45,7 +45,7 @@ _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c
 # C entry point -> argument types, the stream last.
 _SIGNATURES = {
     "ie_hist256": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P),
-    "ie_hist256_lut": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P),
+    "ie_hist256_lut": (_P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P),
     "ie_equalize_lut256": (_P, _P, _I64, _I64, _P),
     "ie_apply_lut256": (_P, _P, _I64, _P, _I64, _I64, _P),
     "ie_sep_conv_u8": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _P, _I32, _I32, _I32,
@@ -57,6 +57,7 @@ _SIGNATURES = {
                         _I64, _P, _P, _P),
     "ie_clahe_lut": (_P, _P, _I64, _I32, _I32, _F32, _P),
     "ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _P),
+    "ie_tile_luts65536": (_P, _P, _P, _I32, _F32, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _P),
     "ie_clahe_blend": (_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P, _I32,
                        _I32, _P, _I32, _I32, _I32, _P),
     "ie_bilateral": (_P, _P, _I64, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _P),

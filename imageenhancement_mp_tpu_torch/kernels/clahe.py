@@ -8,11 +8,17 @@ plain PyTorch version.
 * :func:`tile_luts256` — stages A and B for u8 in one launch: the same
   kernel as :func:`hist256_tiles`, whose epilogue runs stage B's S = 256 law
   on each tile's finished histogram and writes only the tile's LUT.
-* :func:`hist65536_tiles` — stage A for u16: the same walk, two blocks a
-  tile, each counting half the value range.  The JAX package computes this
-  stage in XLA, outside any Pallas kernel (ops/clahe.py:55-61, :213-216);
-  the plain version, :func:`tile_hists_plain`, is a ``bincount`` over
-  ``(plane·T + tile)·S + v`` offsets.
+* :func:`hist65536_tiles` — stage A for u16: the same walk, by a cluster
+  of two blocks a tile, each walking half the tile's rows into 16-bit
+  counters of the whole value range (rounds of at most 65535 pixels,
+  :func:`tile16_rounds`), then summing its half of the range over the
+  cluster through distributed shared memory.  The JAX package computes
+  this stage in XLA, outside any Pallas kernel (ops/clahe.py:55-61,
+  :213-216); the plain version, :func:`tile_hists_plain`, is a
+  ``bincount`` over ``(plane·T + tile)·S + v`` offsets.
+* :func:`tile_luts65536` — stages A and B for u16 in one launch: the same
+  kernel, whose epilogue runs stage B's S = 65536 law on the cluster's
+  sums and writes only the tile's u16 LUT.
 * :func:`clahe_lut` — stage B, the clipped tile LUTs of histograms held in
   memory (``ops/clahe.py::clahe_tile_luts``; XLA in the JAX package, no
   Pallas): one block per tile for S = 256, one cluster of 8 blocks per tile
@@ -47,7 +53,8 @@ from imageenhancement_mp_tpu_torch.kernels.hist import HIST_GRID_BLOCKS, MAX_GRI
 __all__ = [
     "HIST_SIZE",
     "hist256_tiles", "tile_hists_plain", "tile_band_plan", "tile_luts256", "tile_luts256_plain",
-    "hist65536_tiles",
+    "hist65536_tiles", "tile_luts65536", "tile_luts65536_plain", "tile16_rounds",
+    "HIST16_RANKS",
     "clahe_lut", "clahe_lut_plain", "clip_and_scale",
     "clahe_blend", "clahe_blend_plain", "column_cells", "blend_chunk", "blend_band",
     "blend16_pieces", "blend16_rows",
@@ -174,27 +181,80 @@ def tile_luts256(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
     return tile_luts256_plain(planes, gh, gw, th, tw, clip_limit) if out is None else out
 
 
+# u16 stage A's cluster (csrc/clahe.cu::kHist16Ranks blocks a tile) and
+# the most pixels a block counts into its 16-bit counters in one round
+HIST16_RANKS, ROUND_PIXELS = 2, 65535
+
+
+def tile16_rounds(th: int, tw: int) -> int:
+    """The rounds each block of a u16 tile's cluster counts in: its share of
+    the tile's rows, ``ceil(th / HIST16_RANKS)``, in bands of
+    ``ROUND_PIXELS // piece`` rows by column pieces of ``piece = min(tw,
+    ROUND_PIXELS)``, so no 16-bit counter passes 65535 (one round for tiles
+    of up to 2 x 65535 pixels)."""
+    share = -(-th // HIST16_RANKS)
+    piece = min(tw, ROUND_PIXELS)
+    return -(-tw // piece) * -(-share // (ROUND_PIXELS // piece))
+
+
+def _count_tiles16(name: str, planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                   clip_limit: float | None = None) -> torch.Tensor | None:
+    """Check, then on CUDA planes launch ``hist65536_tiles`` (``[B·gh·gw,
+    65536]`` int32 histograms) or, with a ``clip_limit``, ``tile_luts65536``
+    (u16 LUTs): one launch, the output written whole.  None on CPU planes."""
+    if planes.dtype != torch.uint16:
+        raise TypeError(f"{name} expects uint16 planes, got {planes.dtype}")
+    _check_planes(planes, name)
+    _check_geometry(planes, gh, gw, th, tw)
+    if not on_cuda(planes, name):
+        return None
+    check_kernel_input(name, planes)
+    B, H, W = planes.shape
+    if B * gh * gw > _INT32_MAX:
+        raise ValueError(f"{name}: {B * gh * gw} tiles overflow the grid")
+    if not (H and W):  # no pixels: empty histograms, and their LUTs
+        hists = torch.zeros((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
+        return hists if clip_limit is None else clahe_lut(hists, th * tw, clip_limit)
+    scratch = None
+    if clip_limit is None:
+        out = torch.empty((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
+        lut_args = ()
+    else:
+        out = torch.empty((B * gh * gw, 65536), dtype=torch.uint16, device=planes.device)
+        if tile16_rounds(th, tw) > 1:  # the earlier rounds' sums, written before read
+            scratch = torch.empty((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
+        clip_abs, scale = clip_and_scale(th * tw, clip_limit, 65536)
+        lut_args = (0 if scratch is None else scratch.data_ptr(), clip_abs, float(scale))
+    if out.numel():  # the kernel writes every entry
+        launch(name, planes.device, planes.data_ptr(), out.data_ptr(), *lut_args, B, H, W,
+               gh, gw, th, tw)
+    del scratch  # queued: the caching allocator reuses it in stream order
+    return out
+
+
 def hist65536_tiles(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int) -> torch.Tensor:
     """Stage A for u16: ``[B, H, W]`` → ``[B·gh·gw, 65536]`` int32, tile
     ``(ty, tx)`` covering padded rows ``ty·th ..`` and columns ``tx·tw ..``."""
-    if planes.dtype != torch.uint16:
-        raise TypeError(f"hist65536_tiles expects uint16 planes, got {planes.dtype}")
-    _check_planes(planes, "hist65536_tiles")
     gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
-    _check_geometry(planes, gh, gw, th, tw)
-    if not on_cuda(planes, "hist65536_tiles"):
-        return tile_hists_plain(planes, gh, gw, th, tw)
-    check_kernel_input("hist65536_tiles", planes)
-    B, H, W = planes.shape
-    if B * gh * gw > _INT32_MAX:
-        raise ValueError(f"hist65536_tiles: {B * gh * gw} tiles overflow the grid")
-    if not (H and W):
-        return torch.zeros((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
-    out = torch.empty((B * gh * gw, 65536), dtype=torch.int32, device=planes.device)
-    if out.numel():  # the kernel writes every bin
-        launch("hist65536_tiles", planes.device, planes.data_ptr(), out.data_ptr(), B, H, W,
-               gh, gw, th, tw)
-    return out
+    out = _count_tiles16("hist65536_tiles", planes, gh, gw, th, tw)
+    return tile_hists_plain(planes, gh, gw, th, tw) if out is None else out
+
+
+def tile_luts65536_plain(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                         clip_limit: float) -> torch.Tensor:
+    return clahe_lut_plain(tile_hists_plain(planes, gh, gw, th, tw), th * tw, clip_limit)
+
+
+def tile_luts65536(planes: torch.Tensor, gh: int, gw: int, th: int, tw: int,
+                   clip_limit: float) -> torch.Tensor:
+    """Stages A and B for u16: ``[B, H, W]`` → ``[B·gh·gw, 65536]`` u16 tile
+    LUTs, equal to ``clahe_lut(hist65536_tiles(planes, gh, gw, th, tw),
+    th·tw, clip_limit)``.  On CUDA one launch (``tile_luts65536``): each
+    tile's cluster runs stage B on the counters it holds; no histogram is
+    kept."""
+    gh, gw, th, tw = int(gh), int(gw), int(th), int(tw)
+    out = _count_tiles16("tile_luts65536", planes, gh, gw, th, tw, float(clip_limit))
+    return tile_luts65536_plain(planes, gh, gw, th, tw, clip_limit) if out is None else out
 
 
 # --- stage B ---------------------------------------------------------------

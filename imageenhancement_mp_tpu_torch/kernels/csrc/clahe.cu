@@ -2,8 +2,8 @@
 // stages: per-tile histograms (stage A: hist256_tiles for u8,
 // hist65536_tiles for u16), the clipped tile LUTs (stage B) and the bilinear
 // blend of the four neighbour LUTs (stage C: one kernel for u8, one for u16).
-// For u8, stage B runs in stage A's epilogue (tile_luts256), so the CLAHE
-// path makes two launches.
+// Stage B runs in stage A's epilogue (tile_luts256 for u8, tile_luts65536
+// for u16), so the CLAHE path makes two launches for either type.
 //
 // The tile geometry is cv2's: th x tw tiles on a gh x gw grid over the image
 // padded at the bottom and the right with REFLECT_101 when a dimension does
@@ -188,91 +188,6 @@ hist256_tiles_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
 }
 
 // ---------------------------------------------------------------------------
-// hist65536_tiles: stage A for u16.  The JAX package computes it in XLA
-// (ops/clahe.py:55-61: a byte-split MXU product on the TPU, a scatter
-// elsewhere); no Pallas kernel.  The torch route it replaces (kernels/
-// clahe.py::tile_hists_plain: int64 widening, two index copies and a
-// bincount into B*gh*gw*65536 bins) moves about 1.5 GB for 33 MB of pixels.
-// Bound by device memory: 2 B/px read and the [B*gh*gw, 65536] int32
-// output written once.
-//
-// 65536 int32 counters (256 KiB) do not fit a block's shared memory, so two
-// blocks count each tile (tiles on gridDim.x, gridDim.y = 2): block y owns
-// values [32768 y, 32768 y + 32768) with 32768 int32 counters in 128 KiB of
-// dynamic shared memory.  Each walks the whole tile with hist256_tiles' row
-// walk (count_tile_rows: rows read in place as 16-byte vectors of 8 pixels,
-// the pad through reflected indices), adds its half's pixels with one
-// shared atomic each (one per vector of 8 equal pixels), and stores its
-// half of the tile's bins whole: no zero fill and no global atomics, for
-// 4 B/px of reads.  Chosen by A/B (tools/torch_hist_profile.py --ab16,
-// PERF.md §6) over bands of at most 65535 pixels counted into 16-bit
-// halves of 32768 words and added into a zeroed output with global
-// atomics: 0.0906 against 0.0443 ms on random 4K planes (NVIDIA H100 80GB
-// HBM3, 700 W).
-// ---------------------------------------------------------------------------
-
-constexpr int kHist16Threads = 1024;
-constexpr int kHist16Loads = 2;
-
-struct CountHalf {
-  static constexpr int kSmemBytes = 32768 * 4;
-  uint32_t* w;
-  uint32_t half;
-
-  __device__ __forceinline__ void zero() {
-    uint4* z = reinterpret_cast<uint4*>(w);
-    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) z[i] = make_uint4(0, 0, 0, 0);
-  }
-  __device__ __forceinline__ void add_one(uint32_t v) {
-    if ((v >> 15) == half) atomicAdd(&w[v & 32767u], 1u);
-  }
-  __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
-    if (!valid) return;
-    const uint32_t b = v.x & 0xffffu;
-    if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
-      if ((b >> 15) == half) atomicAdd(&w[b & 32767u], 8u);
-      return;
-    }
-    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      add_one(q[i] & 0xffffu);
-      add_one(q[i] >> 16);
-    }
-  }
-  // the half's 32768 bins of the tile's output row; after a barrier that
-  // follows the last add
-  __device__ __forceinline__ void store(int32_t* __restrict__ o) const {
-    const uint4* src = reinterpret_cast<const uint4*>(w);
-    uint4* dst = reinterpret_cast<uint4*>(o + half * 32768);
-    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) dst[i] = src[i];
-  }
-};
-
-__global__ void __launch_bounds__(kHist16Threads, 1)
-hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
-                       int gh, int gw, int th, int tw) {
-  extern __shared__ __align__(16) uint32_t count_smem[];
-  CountHalf c;
-  c.w = count_smem;
-  c.half = blockIdx.y;
-  c.zero();
-  __syncthreads();
-
-  const int64_t tile = blockIdx.x;  // b * gh * gw + ty * gw + tx
-  const int ntiles = gh * gw;
-  const int64_t b = tile / ntiles;
-  const int t = int(tile - b * ntiles);
-  const int ty = t / gw, tx = t - (t / gw) * gw;
-  const uint16_t* plane = x + b * int64_t(H) * W;
-  const Piece pc = tile_piece(plane, W, tx * tw, tw);
-  count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(c, plane, H, W, ty * th, th, pc.c0,
-                                                              pc.len, pc.cp, pc.npad, pc.ragged);
-  __syncthreads();
-  c.store(out + tile * 65536);
-}
-
-// ---------------------------------------------------------------------------
 // clahe_lut: stage B.  The JAX package has no TPU kernel here: it is XLA
 // (the JAX package's ops/clahe.py::clahe_tile_luts, :74-97), about ten
 // small ops over [T, S]:
@@ -287,7 +202,8 @@ hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out
 //    The CLAHE path runs this law in hist256_tiles' epilogue instead
 //    (tile_luts256); this kernel serves callers that hold histograms.
 //  * S = 65536 (u16): clahe_lut16_kernel below, one cluster of blocks per
-//    tile.  Bound by device memory: 6 B per bin.
+//    tile.  Bound by device memory: 6 B per bin.  The CLAHE path runs its
+//    law in hist65536_tiles' epilogue instead (tile_luts65536).
 // ---------------------------------------------------------------------------
 
 // S = 256: one block of 256 threads a tile, one bin a thread, through
@@ -308,7 +224,8 @@ clahe_lut256_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ lut,
 // below S; none when resid = 0), and
 //   cdf(i) = Pc(i) + raise * (i + 1) + min(i / step + 1, resid).
 // So one read of a bin gives both its share of the excess and its clipped
-// value, and i / step is one division per thread and round, then a counter.
+// value, and i / step is one division per thread and round, then a counter
+// (lut16_octet, which the u16 tiles kernel's epilogue runs too).
 //
 // One cluster of kLut16Blocks blocks per tile (tiles stride over the
 // clusters of the grid): block `rank` owns bins [rank * 8192, rank * 8192 +
@@ -317,10 +234,11 @@ clahe_lut256_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ lut,
 // so a warp's loads cover 1 KiB and its store 512 contiguous bytes.  Each
 // block reduces its clipped sum and its excess into shared memory; after a
 // cluster barrier, warp 0 reads the cluster's pairs through distributed
-// shared memory: the tile's excess and the clipped sum of the lower ranks.
-// Each lane then scans its bins in registers.  The histograms are read
-// once and the LUTs written once, 6 B per bin, and a 4K frame pair on an
-// 8x8 grid gives 1024 blocks, where one block a tile gave 128 for 132 SMs.
+// shared memory: the tile's excess and the clipped sum of the lower ranks
+// (tile_context).  Each lane then scans its bins in registers.  The
+// histograms are read once and the LUTs written once, 6 B per bin, and a
+// 4K frame pair on an 8x8 grid gives 1024 blocks, where one block a tile
+// gave 128 for 132 SMs.
 // ---------------------------------------------------------------------------
 
 constexpr int kLut16Blocks = 8;  // a cluster: the most a launch may ask for without opting in
@@ -329,13 +247,22 @@ constexpr int kLut16Blocks = 8;  // a cluster: the most a launch may ask for wit
 // and 2 or 4 resident blocks a SM.
 constexpr int kLut16Threads = 512;
 constexpr int kLut16MinBlocks = 3;  // resident blocks a SM: at most 42 registers
-constexpr int kLut16Warps = kLut16Threads / 32;
 constexpr int kLut16Bins = 8;  // bins a lane takes in a round
-constexpr int kLut16Rounds = 65536 / (kLut16Blocks * kLut16Threads * kLut16Bins);
-constexpr int kLut16WarpBins = kLut16Rounds * 32 * kLut16Bins;
-static_assert(kLut16Rounds >= 1 &&
-              kLut16Rounds * kLut16Blocks * kLut16Threads * kLut16Bins == 65536,
-              "the cluster covers a tile's 65536 bins exactly");
+
+// The layout of a tile's 65536 bins over a cluster of kBlocks blocks of
+// kThreads threads: block `rank` owns 65536 / kBlocks of them, warp w
+// kWarpBins, and lane l in round r the 8 from first_bin(rank) + r * 256.
+template <int kBlocks, int kThreads>
+struct Lut16Layout {
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRounds = 65536 / (kBlocks * kThreads * kLut16Bins);
+  static constexpr int kWarpBins = kRounds * 32 * kLut16Bins;
+  static_assert(kRounds >= 1 && kRounds * kBlocks * kThreads * kLut16Bins == 65536,
+                "the cluster covers a tile's 65536 bins exactly");
+  static __device__ __forceinline__ int first_bin(int rank) {
+    return rank * (65536 / kBlocks) + (threadIdx.x >> 5) * kWarpBins + (threadIdx.x & 31) * kLut16Bins;
+  }
+};
 
 __device__ __forceinline__ int32_t warp_inclusive_scan(int32_t v) {
   const int lane = threadIdx.x & 31;
@@ -363,33 +290,92 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// The tile's context for the lanes of a block of a kBlocks cluster, from
+// each warp's clipped sum (wclip) and excess (ex), both uniform across the
+// warp: the tile's excess (x) and the clipped sum of the bins before this
+// lane's first bin (y: the lower ranks' and the lower warps' of this
+// block).  Each block publishes its pair in shared memory; after a cluster
+// barrier warp 0 reads the cluster's pairs through distributed shared
+// memory.  The caller calls cluster_arrive() once it reads no peer any more
+// (these words, or others), and cluster_wait() before these words are
+// written again or the block exits.
+template <int kBlocks, int kWarps>
+__device__ __forceinline__ int2 tile_context(int32_t wclip, int32_t ex, int rank,
+                                             cg::cluster_group& cluster) {
+  __shared__ int32_t warp_clip[kWarps], warp_ex[kWarps];
+  __shared__ int32_t block_pair[2];  // this block's clipped sum and excess, for the cluster
+  __shared__ int32_t tile_ctx[2];    // the tile's excess, the lower ranks' clipped sum
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_clip[warp] = wclip, warp_ex[warp] = ex;
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t a = warp_total(lane < kWarps ? warp_clip[lane] : 0);
+    const int32_t e = warp_total(lane < kWarps ? warp_ex[lane] : 0);
+    if (lane == 0) block_pair[0] = a, block_pair[1] = e;
+  }
+  cluster.sync();  // every block's pair is in its shared memory
+  if (warp == 0) {
+    int32_t a = 0, e = 0;
+    if (lane < kBlocks) {
+      const int32_t* peer = cluster.map_shared_rank(block_pair, lane);
+      e = peer[1];
+      a = lane < rank ? peer[0] : 0;
+    }
+    a = warp_total(a);
+    e = warp_total(e);
+    if (lane == 0) tile_ctx[0] = e, tile_ctx[1] = a;
+  }
+  __syncthreads();
+  int32_t before = tile_ctx[1];
+  for (int w = 0; w < warp; ++w) before += warp_clip[w];
+  return make_int2(tile_ctx[0], before);
+}
+
+// Stage B's law on the 8 bins i0 .. i0 + 7 of a tile, c their clipped
+// counts and `cum` the clipped sum of the bins before i0 (raised by the 8 on
+// return): cdf(i) = cum(i) + raise * (i + 1) + min(i / step + 1, resid),
+// with i / step from one division and a counter, then
+//   lut = clamp(rint(f32(cdf) * scale), 0, 65535),
+// packed as 8 u16 for one 16-byte store.  Written once for both kernels
+// that build u16 LUTs.
+__device__ __forceinline__ uint4 lut16_octet(const int32_t (&c)[kLut16Bins], int32_t& cum, int i0,
+                                             int32_t raise, int32_t resid, int step, float scale) {
+  int q = i0 / step, rem = i0 - q * step;  // i / step and i % step, carried below
+  uint32_t w[kLut16Bins / 2] = {};
+#pragma unroll
+  for (int j = 0; j < kLut16Bins; ++j) {
+    cum += c[j];
+    const int32_t cdf = cum + raise * (i0 + j + 1) + min(q + 1, resid);
+    const float f = rintf(__fmul_rn(__int2float_rn(cdf), scale));
+    w[j >> 1] |= uint32_t(__float2int_rn(fminf(fmaxf(f, 0.0f), 65535.0f))) << (16 * (j & 1));
+    if (++rem == step) rem = 0, ++q;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __global__ void __cluster_dims__(kLut16Blocks, 1, 1)
 __launch_bounds__(kLut16Threads, kLut16MinBlocks)
 clahe_lut16_kernel(const int32_t* __restrict__ hist, uint16_t* __restrict__ lut, int64_t T,
                    int32_t clip_abs, float scale) {
-  __shared__ int32_t warp_clip[kLut16Warps], warp_ex[kLut16Warps];
-  __shared__ int32_t block_pair[2];  // this block's clipped sum and excess, for the cluster
-  __shared__ int32_t tile_ctx[2];    // the tile's excess, the lower ranks' clipped sum
+  using L = Lut16Layout<kLut16Blocks, kLut16Threads>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = int(cluster.block_rank());
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this lane's first bin in round 0; round r adds r * 256
-  const int i_lane = rank * (65536 / kLut16Blocks) + warp * kLut16WarpBins + lane * kLut16Bins;
+  const int i_lane = L::first_bin(rank);  // this lane's first bin in round 0; round r adds r * 256
 
   for (int64_t tile = blockIdx.x / kLut16Blocks; tile < T; tile += gridDim.x / kLut16Blocks) {
     const int32_t* h = hist + tile * 65536 + i_lane;
-    int32_t c[kLut16Rounds][kLut16Bins];
+    int32_t c[L::kRounds][kLut16Bins];
 #pragma unroll
-    for (int r = 0; r < kLut16Rounds; ++r) {
+    for (int r = 0; r < L::kRounds; ++r) {
       const int4* p = reinterpret_cast<const int4*>(h + r * 32 * kLut16Bins);
       const int4 a = __ldg(p), b = __ldg(p + 1);
       c[r][0] = a.x, c[r][1] = a.y, c[r][2] = a.z, c[r][3] = a.w;
       c[r][4] = b.x, c[r][5] = b.y, c[r][6] = b.z, c[r][7] = b.w;
     }
     // clip in place; each round's clipped sum scanned over the warp's lanes
-    int32_t ex = 0, mine[kLut16Rounds], incl[kLut16Rounds];
+    int32_t ex = 0, mine[L::kRounds], incl[L::kRounds];
 #pragma unroll
-    for (int r = 0; r < kLut16Rounds; ++r) {
+    for (int r = 0; r < L::kRounds; ++r) {
       mine[r] = 0;
 #pragma unroll
       for (int j = 0; j < kLut16Bins; ++j) {
@@ -403,55 +389,263 @@ clahe_lut16_kernel(const int32_t* __restrict__ hist, uint16_t* __restrict__ lut,
     }
     int32_t wclip = 0;
 #pragma unroll
-    for (int r = 0; r < kLut16Rounds; ++r) wclip += __shfl_sync(0xffffffffu, incl[r], 31);
-    ex = warp_total(ex);
-    if (lane == 0) warp_clip[warp] = wclip, warp_ex[warp] = ex;
-    __syncthreads();
-    if (warp == 0) {
-      const int32_t a = warp_total(lane < kLut16Warps ? warp_clip[lane] : 0);
-      const int32_t e = warp_total(lane < kLut16Warps ? warp_ex[lane] : 0);
-      if (lane == 0) block_pair[0] = a, block_pair[1] = e;
-    }
-    cluster.sync();  // every block's pair is in its shared memory
-    if (warp == 0) {
-      int32_t a = 0, e = 0;
-      if (lane < kLut16Blocks) {
-        const int32_t* peer = cluster.map_shared_rank(block_pair, lane);
-        e = peer[1];
-        a = lane < rank ? peer[0] : 0;
-      }
-      a = warp_total(a);
-      e = warp_total(e);
-      if (lane == 0) tile_ctx[0] = e, tile_ctx[1] = a;
-    }
-    __syncthreads();
-    const int32_t excess = tile_ctx[0];
-    int32_t before = tile_ctx[1];  // clipped bins before this lane's in round 0
-    for (int w = 0; w < warp; ++w) before += warp_clip[w];
+    for (int r = 0; r < L::kRounds; ++r) wclip += __shfl_sync(0xffffffffu, incl[r], 31);
+    const int2 ctx = tile_context<kLut16Blocks, L::kWarps>(wclip, warp_total(ex), rank, cluster);
     cluster_arrive();  // this block is done with its peers' and its own shared memory
 
-    const int32_t raise = excess >> 16, resid = excess & 65535;
+    const int32_t raise = ctx.x >> 16, resid = ctx.x & 65535;
     const int step = max(65536 / max(resid, 1), 1);
+    int32_t before = ctx.y;  // clipped bins before this lane's in round 0
     uint16_t* o = lut + tile * 65536 + i_lane;
 #pragma unroll
-    for (int r = 0; r < kLut16Rounds; ++r) {
-      const int i0 = i_lane + r * 32 * kLut16Bins;
-      int q = i0 / step, rem = i0 - q * step;  // i / step and i % step, carried below
+    for (int r = 0; r < L::kRounds; ++r) {
       int32_t cum = before + incl[r] - mine[r];
-      uint32_t w[kLut16Bins / 2] = {};
-#pragma unroll
-      for (int j = 0; j < kLut16Bins; ++j) {
-        cum += c[r][j];
-        const int32_t cdf = cum + raise * (i0 + j + 1) + min(q + 1, resid);
-        const float f = rintf(__fmul_rn(__int2float_rn(cdf), scale));
-        w[j >> 1] |= uint32_t(__float2int_rn(fminf(fmaxf(f, 0.0f), 65535.0f))) << (16 * (j & 1));
-        if (++rem == step) rem = 0, ++q;
-      }
-      *reinterpret_cast<uint4*>(o + r * 32 * kLut16Bins) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(o + r * 32 * kLut16Bins) =
+          lut16_octet(c[r], cum, i_lane + r * 32 * kLut16Bins, raise, resid, step, scale);
       before += __shfl_sync(0xffffffffu, incl[r], 31);
     }
     cluster_wait();  // the cluster's reads of this block's pair are done
   }
+}
+
+// ---------------------------------------------------------------------------
+// hist65536_tiles and tile_luts65536: stage A for u16, and stages A and B
+// in one launch (one kernel, hist65536_tiles_kernel<kLut>).  The JAX package
+// computes stage A in XLA (ops/clahe.py:55-61: a byte-split MXU product on
+// the TPU, a scatter elsewhere; no Pallas kernel) and stage B too
+// (ops/clahe.py:74-97).  The torch route (kernels/clahe.py::
+// tile_hists_plain: int64 widening, two index copies and a bincount into
+// B*gh*gw*65536 bins) moves about 1.5 GB for 33 MB of pixels.  Bound by
+// device memory: 2 B/px read, and the [B*gh*gw, 65536] int32 histograms
+// (hist65536_tiles) or u16 LUTs (tile_luts65536) written once.
+//
+// 65536 int32 counters (256 KiB) do not fit a block's shared memory; 65536
+// 16-bit ones (128 KiB) do, and hold up to 65535 pixels.  So the
+// kHist16Ranks blocks of a tile (tiles on gridDim.x, ranks on gridDim.y)
+// form one thread-block cluster, the tile's padded rows are cut into
+// kHist16Ranks shares, and each block walks only its own share with
+// hist256_tiles' row walk (count_tile_rows: rows read in place as 16-byte
+// vectors of 8 pixels, the pad through reflected indices), so each pixel
+// is read by exactly one block of the cluster.  A block counts its pixels
+// into its own 16-bit counters of the whole value range (value v in half
+// v & 1 of word v >> 1; one shared atomic a pixel, one a vector of 8 equal
+// pixels), in rounds of at most 65535 pixels (kernels/clahe.py::
+// tile16_rounds; one round for tiles up to 2 x 65535 pixels, a 4K tile on
+// an 8x8 grid among them).  Then block `rank` owns values [rank *
+// kRankBins, ...): after a cluster barrier it sums their counters over the
+// cluster's blocks (its own, and its peers' through distributed shared
+// memory: 16-byte loads of 8 counters), so no atomic leaves its block.  Each
+// lane takes the 8 bins of Lut16Layout: lut16_octet's, 16 bytes of counters
+// from each block a round.
+//  * hist (kLut false): each block stores its range of the tile's int32
+//    bins whole;
+//  * lut (kLut true): stage B on those sums (the closed form of
+//    clahe_lut16_kernel, the same layout and the same law, lut16_octet),
+//    summed twice (once for the clipped sums and the excess, once for the
+//    entries) rather than held in registers; the blocks' (clipped, excess)
+//    pairs meet through distributed shared memory (tile_context), and each
+//    block writes its range of the tile's u16 LUT once.  No histogram goes
+//    to device memory unless the tile takes more than one round.
+// Between rounds each block adds its range's sums into `acc` (the output
+// histograms, or the LUT route's scratch), and re-zeroes its counters once
+// the cluster is past a second barrier (its peers' reads of them are done).
+// A block exits only after a last cluster barrier, once its peers have read
+// its counters and its pair.  Chosen by A/B (tools/torch_hist_profile.py --ab16,
+// PERF.md §6) over splitting the int32 counters by value among the ranks
+// and adding each pixel into its owner's counters, half of them a peer's
+// through distributed shared memory (2.9x slower on random planes), a
+// cluster of 4, 512 threads, 1 or 4 loads a group, constant-increment
+// adds, a vector of two values in two adds, and two blocks that each walk
+// the whole tile and count one half of the value range in int32 counters
+// (the tile read twice; stage B a second launch).
+// ---------------------------------------------------------------------------
+
+constexpr int kHist16Ranks = 2;         // blocks a tile: one cluster
+constexpr int kHist16Threads = 1024;
+constexpr int kHist16MinBlocks = 1;     // resident blocks a SM
+constexpr int kHist16Loads = 2;         // vectors a lane loads at a time
+constexpr int kRankBins = 65536 / kHist16Ranks;
+constexpr int kRoundPixels = 65535;     // the most a 16-bit counter holds
+static_assert(kRankBins * kHist16Ranks == 65536, "the ranks split the value range evenly");
+
+struct Count16 {
+  static constexpr int kSmemBytes = 65536 * 2;
+  uint32_t* w;  // value v: half v & 1 of word v >> 1
+
+  __device__ __forceinline__ void zero() {
+    uint4* z = reinterpret_cast<uint4*>(w);
+    for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  // One atomic whose increment depends on the half: lanes of a warp that
+  // add to one word take a step each.  (Constant increments, +1 in a low
+  // half and 1 << 16 in a high one, let the hardware sum a warp's +1 lanes
+  // into one word in one step, but cost two atomics a pixel under
+  // divergence: 8 % slower on random planes, PERF.md §6.)
+  __device__ __forceinline__ void add(uint32_t v, uint32_t n) {
+    atomicAdd(&w[v >> 1], n << ((v & 1u) << 4));
+  }
+  __device__ __forceinline__ void add_one(uint32_t v) { add(v, 1u); }
+  __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
+    if (!valid) return;
+    const uint32_t b = v.x & 0xffffu;
+    if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
+      add(b, 8u);
+      return;
+    }
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      add(q[i] & 0xffffu, 1u);
+      add(q[i] >> 16, 1u);
+    }
+  }
+};
+
+// A block's rounds: its share of the tile's rows (share rows, the last
+// rank's shorter or empty) in row bands by column pieces of at most
+// kRoundPixels pixels; every rank takes the same count of rounds.
+struct Rounds16 {
+  int share, piece_w, band_rows, pieces, bands;
+  __device__ __forceinline__ Rounds16(int th, int tw) {
+    share = th / kHist16Ranks + (th % kHist16Ranks != 0);
+    piece_w = min(tw, kRoundPixels);
+    band_rows = kRoundPixels / piece_w;
+    pieces = tw / piece_w + (tw % piece_w != 0);
+    bands = share / band_rows + (share % band_rows != 0);
+  }
+};
+
+// The 8 bins i0 .. i0 + 7 (i0 a multiple of 8) summed over the cluster's
+// blocks: 16 bytes of 16-bit counters from each (this block's own
+// directly, its peers' through distributed shared memory), plus acc's
+// int32 sums of the earlier rounds where acc is given.
+__device__ __forceinline__ void cluster_bins(int32_t (&c)[kLut16Bins], const uint32_t* w, int i0,
+                                             int rank, const int32_t* acc,
+                                             cg::cluster_group& cluster) {
+#pragma unroll
+  for (int j = 0; j < kLut16Bins; ++j) c[j] = 0;
+  const uint4* mine = reinterpret_cast<const uint4*>(w + (i0 >> 1));
+#pragma unroll
+  for (int q = 0; q < kHist16Ranks; ++q) {
+    const uint4 v = q == rank ? *mine : *cluster.map_shared_rank(mine, q);
+    const uint32_t d[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[2 * k] += int32_t(d[k] & 0xffffu);
+      c[2 * k + 1] += int32_t(d[k] >> 16);
+    }
+  }
+  if (acc) {
+    const int4 a = reinterpret_cast<const int4*>(acc + i0)[0], b = reinterpret_cast<const int4*>(acc + i0)[1];
+    c[0] += a.x, c[1] += a.y, c[2] += a.z, c[3] += a.w;
+    c[4] += b.x, c[5] += b.y, c[6] += b.z, c[7] += b.w;
+  }
+}
+
+template <bool kLut>
+__global__ void __cluster_dims__(1, kHist16Ranks, 1)
+__launch_bounds__(kHist16Threads, kHist16MinBlocks)
+hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ hist,
+                       uint16_t* __restrict__ lut, int32_t* __restrict__ scratch, int32_t clip_abs,
+                       float scale, int H, int W, int gh, int gw, int th, int tw) {
+  extern __shared__ __align__(16) uint32_t count_smem[];
+  using L = Lut16Layout<kHist16Ranks, kHist16Threads>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());  // blockIdx.y
+  Count16 c;
+  c.w = count_smem;
+
+  const int64_t tile = blockIdx.x;  // b * gh * gw + ty * gw + tx
+  const int ntiles = gh * gw;
+  const int64_t b = tile / ntiles;
+  const int t = int(tile - b * ntiles);
+  const int ty = t / gw, tx = t - (t / gw) * gw;
+  const uint16_t* plane = x + b * int64_t(H) * W;
+  const Rounds16 rd(th, tw);
+  const int64_t s0 = int64_t(rank) * rd.share;
+  const int r0 = s0 < th ? int(s0) : th;        // this block's share of the tile's rows
+  const int nrows = min(rd.share, th - r0);
+  const int i_lane = L::first_bin(rank);  // this lane's first bin in round 0; round r adds r * 256
+  int32_t* acc = (kLut ? scratch : hist) + tile * 65536;  // the earlier rounds' sums
+
+  const int nrounds = rd.pieces * rd.bands;
+  for (int round = 0; round < nrounds; ++round) {
+    c.zero();
+    __syncthreads();
+    const int piece = round / rd.bands, band = round - piece * rd.bands;
+    const int pc0 = piece * rd.piece_w;
+    const Piece pc = tile_piece(plane, W, tx * tw + pc0, min(rd.piece_w, tw - pc0));
+    const int q0 = band * rd.band_rows;
+    count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(
+        c, plane, H, W, ty * th + r0 + q0, min(rd.band_rows, nrows - q0), pc.c0, pc.len, pc.cp,
+        pc.npad, pc.ragged);
+    cluster.sync();  // every block's counters of this round are complete
+    if (round == nrounds - 1) break;
+    // an earlier round: this block's range into acc, then the counters anew
+    for (int r = 0; r < L::kRounds; ++r) {
+      const int i0 = i_lane + r * 32 * kLut16Bins;
+      int32_t s[kLut16Bins];
+      cluster_bins(s, count_smem, i0, rank, round ? acc : nullptr, cluster);
+      int4* o = reinterpret_cast<int4*>(acc + i0);
+      o[0] = make_int4(s[0], s[1], s[2], s[3]);
+      o[1] = make_int4(s[4], s[5], s[6], s[7]);
+    }
+    cluster.sync();  // the cluster's reads of this block's counters are done
+  }
+  const int32_t* prev = nrounds > 1 ? acc : nullptr;
+
+  if (!kLut) {
+    for (int r = 0; r < L::kRounds; ++r) {
+      const int i0 = i_lane + r * 32 * kLut16Bins;
+      int32_t s[kLut16Bins];
+      cluster_bins(s, count_smem, i0, rank, prev, cluster);
+      int4* o = reinterpret_cast<int4*>(hist + tile * 65536 + i0);
+      o[0] = make_int4(s[0], s[1], s[2], s[3]);
+      o[1] = make_int4(s[4], s[5], s[6], s[7]);
+    }
+    cluster_arrive();  // this block reads no peer any more
+    cluster_wait();    // the cluster's reads of this block's counters are done
+    return;
+  }
+  // first sum: each round's clipped sum scanned over the warp's lanes, the excess
+  int32_t ex = 0, mine[L::kRounds], incl[L::kRounds];
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) {
+    int32_t cr[kLut16Bins];
+    cluster_bins(cr, count_smem, i_lane + r * 32 * kLut16Bins, rank, prev, cluster);
+    mine[r] = 0;
+#pragma unroll
+    for (int j = 0; j < kLut16Bins; ++j) {
+      if (clip_abs > 0) ex += max(cr[j] - clip_abs, 0);
+      mine[r] += clip_abs > 0 ? min(cr[j], clip_abs) : cr[j];
+    }
+    incl[r] = warp_inclusive_scan(mine[r]);
+  }
+  int32_t wclip = 0;
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) wclip += __shfl_sync(0xffffffffu, incl[r], 31);
+  const int2 ctx = tile_context<kHist16Ranks, L::kWarps>(wclip, warp_total(ex), rank, cluster);
+
+  // second sum: the entries
+  const int32_t raise = ctx.x >> 16, resid = ctx.x & 65535;
+  const int step = max(65536 / max(resid, 1), 1);
+  int32_t before = ctx.y;  // clipped bins before this lane's in round 0
+  uint16_t* o = lut + tile * 65536 + i_lane;
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) {
+    int32_t cr[kLut16Bins];
+    cluster_bins(cr, count_smem, i_lane + r * 32 * kLut16Bins, rank, prev, cluster);
+    if (clip_abs > 0) {
+#pragma unroll
+      for (int j = 0; j < kLut16Bins; ++j) cr[j] = min(cr[j], clip_abs);
+    }
+    int32_t cum = before + incl[r] - mine[r];
+    *reinterpret_cast<uint4*>(o + r * 32 * kLut16Bins) =
+        lut16_octet(cr, cum, i_lane + r * 32 * kLut16Bins, raise, resid, step, scale);
+    before += __shfl_sync(0xffffffffu, incl[r], 31);
+  }
+  cluster_arrive();  // this block reads no peer any more
+  cluster_wait();    // the cluster's reads of this block's counters and pair are done
 }
 
 // ---------------------------------------------------------------------------
@@ -959,6 +1153,44 @@ int launch_hist256_tiles(const uint8_t* x, int32_t* hist, uint8_t* lut, int32_t 
   return int(cudaGetLastError());
 }
 
+// x: [B, H, W] u16 contiguous; hist: [B*gh*gw, 65536] int32 or lut:
+// [B*gh*gw, 65536] u16 (the other null; 16-byte aligned), written whole.
+// scratch: [B*gh*gw, 65536] int32 (16-byte aligned, no fill) where a LUT
+// launch takes more than one round (kernels/clahe.py::tile16_rounds), else
+// unused (may be null).  Tiles as for launch_hist256_tiles; th * tw below
+// 2^31 (the int32 cdf).
+int launch_hist65536_tiles(const uint16_t* x, int32_t* hist, uint16_t* lut, int32_t* scratch,
+                           int32_t clip_abs, float scale, int64_t B, int64_t H, int64_t W,
+                           int32_t gh, int32_t gw, int64_t th, int64_t tw, cudaStream_t stream) {
+  if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || th < 1 || tw < 1 ||
+      int64_t(gh) * th < H || int64_t(gw) * tw < W || int64_t(gh) * th > 0x7fffffffLL ||
+      int64_t(gw) * tw > 0x7fffffffLL || th * tw > 0x7fffffffLL ||
+      B * gh * gw > 0x7fffffffLL || clip_abs < 0 || (hist == nullptr) == (lut == nullptr) ||
+      ((reinterpret_cast<uintptr_t>(hist) | reinterpret_cast<uintptr_t>(lut) |
+        reinterpret_cast<uintptr_t>(scratch)) & 15))
+    return int(cudaErrorInvalidValue);
+  const int64_t share = (th + kHist16Ranks - 1) / kHist16Ranks;
+  const int64_t piece_w = tw < kRoundPixels ? tw : kRoundPixels;
+  const int64_t rows = kRoundPixels / piece_w;
+  const int64_t rounds = ((tw + piece_w - 1) / piece_w) * ((share + rows - 1) / rows);
+  if (lut && rounds > 1 && scratch == nullptr) return int(cudaErrorInvalidValue);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(hist65536_tiles_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Count16::kSmemBytes),
+      cudaFuncSetAttribute(hist65536_tiles_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Count16::kSmemBytes)};
+  if (attr[0] != cudaSuccess) return int(attr[0]);
+  if (attr[1] != cudaSuccess) return int(attr[1]);
+  const dim3 grid(unsigned(B * gh * gw), kHist16Ranks);  // a cluster of kHist16Ranks a tile
+  if (lut)
+    hist65536_tiles_kernel<true><<<grid, kHist16Threads, Count16::kSmemBytes, stream>>>(
+        x, nullptr, lut, scratch, clip_abs, scale, int(H), int(W), gh, gw, int(th), int(tw));
+  else
+    hist65536_tiles_kernel<false><<<grid, kHist16Threads, Count16::kSmemBytes, stream>>>(
+        x, hist, nullptr, nullptr, 0, 0.0f, int(H), int(W), gh, gw, int(th), int(tw));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -991,17 +1223,22 @@ int ie_tile_luts256(const uint8_t* x, uint8_t* lut, int32_t clip_abs, float scal
 // whole; tiles as for ie_hist256_tiles.
 int ie_hist65536_tiles(const uint16_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
                        int32_t gh, int32_t gw, int64_t th, int64_t tw, cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || gh < 1 || gw < 1 || th < 1 || tw < 1 ||
-      int64_t(gh) * th < H || int64_t(gw) * tw < W || int64_t(gh) * th > 0x7fffffffLL ||
-      int64_t(gw) * tw > 0x7fffffffLL || B * gh * gw > 0x7fffffffLL)
-    return int(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      hist65536_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CountHalf::kSmemBytes);
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(unsigned(B * gh * gw), 2);
-  hist65536_tiles_kernel<<<grid, kHist16Threads, CountHalf::kSmemBytes, stream>>>(
-      x, out, int(H), int(W), gh, gw, int(th), int(tw));
-  return int(cudaGetLastError());
+  if (out == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist65536_tiles(x, out, nullptr, nullptr, 0, 0.0f, B, H, W, gh, gw, th, tw,
+                                stream);
+}
+
+// Stages A and B for u16 in one launch: x's tile LUTs into lut ([B*gh*gw,
+// 65536] u16, written whole), clip_abs and scale of the tile area as for
+// ie_clahe_lut; no histogram kept unless the tiles take more than one
+// round (then in scratch, as for launch_hist65536_tiles).  Tiles as for
+// ie_hist256_tiles.
+int ie_tile_luts65536(const uint16_t* x, uint16_t* lut, int32_t* scratch, int32_t clip_abs,
+                      float scale, int64_t B, int64_t H, int64_t W, int32_t gh, int32_t gw,
+                      int64_t th, int64_t tw, cudaStream_t stream) {
+  if (lut == nullptr) return int(cudaErrorInvalidValue);
+  return launch_hist65536_tiles(x, nullptr, lut, scratch, clip_abs, scale, B, H, W, gh, gw, th,
+                                tw, stream);
 }
 
 // hist: [BT, S] int32 (S = 256 or 65536), each row summing to the tile area;

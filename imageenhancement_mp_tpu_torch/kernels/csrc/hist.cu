@@ -59,6 +59,13 @@ int blocks_per_plane(int64_t n) {
 // no zeroed output and no second launch.  kernels/hist.py::hist256_plan
 // sizes the grid to the card's resident blocks.  The counts are integers,
 // so the result does not depend on which block arrives last.
+// Pooled equalizeHist (the JAX package's ops/histogram.py::
+// equalize_hist_global_planes) is the same handoff with larger groups:
+// with `groups` = C < B, plane b belongs to group b % C (the as_planes
+// layout of [N, H, W, C] frames, frame-major and channel-minor), a group's
+// members are all the blocks of its B / C planes, and its last block writes
+// the group's row from the counts of all of them (the LUT of total =
+// (B / C) * n pixels).  groups = B is the per-plane case.
 // ---------------------------------------------------------------------------
 
 // Vectors a thread loads at a time (2 in flight with the next group; the
@@ -68,7 +75,7 @@ constexpr int kHistLoads = 1;
 __global__ void __launch_bounds__(kCountThreads, 3)
 hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
                uint8_t* __restrict__ lut, uint32_t* __restrict__ partial,
-               int32_t* __restrict__ tickets, int64_t B, int64_t n) {
+               int32_t* __restrict__ tickets, int64_t B, int64_t n, int64_t groups) {
   extern __shared__ __align__(16) uint32_t count_smem[];
   const int tid = threadIdx.x;
   const int64_t g0 = int64_t(blockIdx.x) * kCountThreads;
@@ -76,7 +83,10 @@ hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
   HistCounter c;
 
   // planes stride over gridDim.y, so any number of planes fits the grid;
-  // each plane has its own ticket and scratch rows
+  // each group has its own ticket and scratch rows, one row a member (a
+  // block of one of its planes)
+  const int members = int(B / groups) * int(gridDim.x);
+  const int32_t total = int32_t(B / groups * n);
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     c.begin(count_smem);
     __syncthreads();
@@ -98,9 +108,11 @@ hist256_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ hist,
     __syncthreads();
 
     uint32_t sum = c.bin_total();
-    if (last_of_group(sum, partial + b * gridDim.x * 256, blockIdx.x, gridDim.x, tickets + b)) {
-      if (hist) hist[b * 256 + tid] = int32_t(sum);
-      if (lut) lut[b * 256 + tid] = equalize_lut_entry(int32_t(sum), int32_t(n));
+    const int64_t g = b % groups;
+    const int member = int(b / groups) * int(gridDim.x) + int(blockIdx.x);
+    if (last_of_group(sum, partial + g * members * 256, member, members, tickets + g)) {
+      if (hist) hist[g * 256 + tid] = int32_t(sum);
+      if (lut) lut[g * 256 + tid] = equalize_lut_entry(int32_t(sum), total);
     }
     __syncthreads();
   }
@@ -411,22 +423,25 @@ int launch_lut_bytes(const uint8_t* x, const void* luts, int64_t plane_stride, i
   }
 }
 
-// x: [B, n] u8 contiguous; hist: [B, 256] int32 and lut: [B, 256] u8, each
-// written whole where not null; a grid of blocks x grid_y (blocks per
-// plane, and grid_y <= min(B, 65535): planes stride over it), from
-// kernels/hist.py::hist256_plan.  With blocks > 1, partial: [B, blocks,
-// 256] u32 scratch and tickets: B int32 counters at 0 (left at 0), both
-// unused (may be null) at blocks == 1.
+// x: [B, n] u8 contiguous; hist: [groups, 256] int32 and lut: [groups,
+// 256] u8, each written whole where not null, row g from the planes b with
+// b % groups == g (groups divides B; groups = B: one row a plane, the
+// group's pixels below 2^31); a grid of blocks x grid_y (blocks per plane,
+// and grid_y <= min(B, 65535): planes stride over it), from
+// kernels/hist.py::hist256_plan.  With (B / groups) * blocks > 1, partial:
+// [groups, (B / groups) * blocks, 256] u32 scratch and tickets: groups int32
+// counters at 0 (left at 0), both unused (may be null) otherwise.
 int launch_hist256(const uint8_t* x, int32_t* hist, uint8_t* lut, uint32_t* partial,
-                   int32_t* tickets, int64_t B, int64_t n, int64_t blocks, int64_t grid_y,
-                   cudaStream_t stream) {
-  if (B < 1 || n < 1 || n > 0x7fffffffLL || blocks < 1 || blocks > 0x7fffffffLL ||
-      grid_y < 1 || grid_y > B || grid_y > kMaxGridY ||
-      (blocks > 1 && (partial == nullptr || tickets == nullptr)))
+                   int32_t* tickets, int64_t B, int64_t n, int64_t groups, int64_t blocks,
+                   int64_t grid_y, cudaStream_t stream) {
+  if (B < 1 || n < 1 || groups < 1 || B % groups || n > 0x7fffffffLL / (B / groups) ||
+      blocks < 1 || blocks > 0x7fffffffLL / (B / groups) || grid_y < 1 || grid_y > B ||
+      grid_y > kMaxGridY ||
+      ((B / groups) * blocks > 1 && (partial == nullptr || tickets == nullptr)))
     return int(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(grid_y));
   hist256_kernel<<<grid, kCountThreads, HistCounter::kSmemBytes, stream>>>(
-      x, hist, lut, partial, tickets, B, n);
+      x, hist, lut, partial, tickets, B, n, groups);
   return int(cudaGetLastError());
 }
 
@@ -441,15 +456,18 @@ const char* ie_error_string(int err) { return cudaGetErrorString(cudaError_t(err
 int ie_hist256(const uint8_t* x, int32_t* hist, int64_t B, int64_t n, int64_t blocks,
                int64_t grid_y, uint32_t* partial, int32_t* tickets, cudaStream_t stream) {
   if (hist == nullptr) return int(cudaErrorInvalidValue);
-  return launch_hist256(x, hist, nullptr, partial, tickets, B, n, blocks, grid_y, stream);
+  return launch_hist256(x, hist, nullptr, partial, tickets, B, n, B, blocks, grid_y, stream);
 }
 
-// cv2's equalizeHist LUTs of x's planes into lut ([B, 256] u8) in one
-// launch, no histogram kept; grid, partial and tickets as for ie_hist256.
-int ie_hist256_lut(const uint8_t* x, uint8_t* lut, int64_t B, int64_t n, int64_t blocks,
-                   int64_t grid_y, uint32_t* partial, int32_t* tickets, cudaStream_t stream) {
+// cv2's equalizeHist LUTs into lut ([groups, 256] u8) in one launch, no
+// histogram kept: row g from the pooled counts of the planes b with b %
+// groups == g (groups = B: each plane's own LUT); grid, partial and
+// tickets as for launch_hist256.
+int ie_hist256_lut(const uint8_t* x, uint8_t* lut, int64_t B, int64_t n, int64_t groups,
+                   int64_t blocks, int64_t grid_y, uint32_t* partial, int32_t* tickets,
+                   cudaStream_t stream) {
   if (lut == nullptr) return int(cudaErrorInvalidValue);
-  return launch_hist256(x, nullptr, lut, partial, tickets, B, n, blocks, grid_y, stream);
+  return launch_hist256(x, nullptr, lut, partial, tickets, B, n, groups, blocks, grid_y, stream);
 }
 
 // hist: [B, 256] int32 with each row summing to total; lut: [B, 256] u8.

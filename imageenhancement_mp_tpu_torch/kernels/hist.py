@@ -5,9 +5,11 @@
 * :func:`hist256_equalize_lut` — cv2's equalizeHist LUT of each plane in
   one launch of the same kernel, its epilogue building the LUT from the
   plane's finished histogram (the histogram and LUT phases of
-  ``equalize_hist_pallas``, which are one ``pallas_call`` there too).
+  ``equalize_hist_pallas``, which are one ``pallas_call`` there too); with
+  ``groups`` C, one LUT per group of planes ``b % C`` from their pooled
+  counts, still one launch (pooled equalizeHist).
 * :func:`equalize_lut256` — cv2's equalizeHist LUT from a histogram held in
-  memory (``ops/histogram.py::equalize_lut``).
+  memory (``ops/histogram.py::equalize_lut``; pooled across a mesh axis).
 * :func:`apply_lut256` — ``cv2.LUT`` with a u8, u16, i16, i32 or f32 table,
   shared or per plane (replaces ``apply_lut256_pallas``: u8 tables launch
   ``apply_lut256``, the others ``apply_lut256_wide``).
@@ -92,18 +94,21 @@ def handoff_scratch(device: torch.device, groups: int, members: int) -> tuple:
     return rows, rows.data_ptr(), tickets
 
 
-def _count_planes(name: str, planes: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch ``hist256`` (``out`` the histograms) or ``hist256_lut`` (``out``
-    the equalize LUTs) on non-empty CUDA planes: one launch, ``out`` written
-    whole."""
+def _count_planes(name: str, planes: torch.Tensor, out: torch.Tensor, groups: int) -> None:
+    """Launch ``hist256`` (``out`` the histograms, ``groups`` = B) or
+    ``hist256_lut`` (``out`` the equalize LUTs of ``groups`` groups of
+    planes ``b % groups``) on non-empty CUDA planes: one launch, ``out``
+    written whole."""
     B = planes.shape[0]
     n = planes.numel() // B
-    if n >= 2**31:
-        raise ValueError(f"{name}: a plane of {n} pixels overflows the int32 counts")
+    if n * (B // groups) >= 2**31:
+        raise ValueError(f"{name}: a group of {n * (B // groups)} pixels overflows the int32 "
+                         "counts")
     blocks, grid_y = hist256_plan(B, n)
-    rows, partial, tickets = handoff_scratch(planes.device, B, blocks)
-    launch(name, planes.device, planes.data_ptr(), out.data_ptr(), B, n, blocks, grid_y, partial,
-           tickets)
+    rows, partial, tickets = handoff_scratch(planes.device, groups, B // groups * blocks)
+    lut_groups = () if name == "hist256" else (groups,)
+    launch(name, planes.device, planes.data_ptr(), out.data_ptr(), B, n, *lut_groups, blocks,
+           grid_y, partial, tickets)
     del rows  # queued: the caching allocator reuses it in stream order
 
 
@@ -117,29 +122,44 @@ def hist256(planes: torch.Tensor) -> torch.Tensor:
     if not planes.numel():
         return torch.zeros((B, 256), dtype=torch.int32, device=planes.device)
     out = torch.empty((B, 256), dtype=torch.int32, device=planes.device)
-    _count_planes("hist256", planes, out)
+    _count_planes("hist256", planes, out, B)
     return out
 
 
-def hist256_equalize_lut_plain(planes: torch.Tensor) -> torch.Tensor:
+def _groups(planes: torch.Tensor, groups: int | None) -> int:
     B = planes.shape[0]
-    return equalize_lut256_plain(hist256_plain(planes), planes.numel() // B if B else 0)
+    C = B if groups is None else int(groups)
+    if B and (C < 1 or B % C):
+        raise ValueError(f"hist256_equalize_lut: {B} planes do not split into {C} groups")
+    return C
 
 
-def hist256_equalize_lut(planes: torch.Tensor) -> torch.Tensor:
+def hist256_equalize_lut_plain(planes: torch.Tensor, groups: int | None = None) -> torch.Tensor:
+    B = planes.shape[0]
+    C = _groups(planes, groups)
+    h = hist256_plain(planes)
+    if C != B:
+        h = h.reshape(B // C, C, 256).sum(dim=0, dtype=torch.int32)
+    return equalize_lut256_plain(h, planes.numel() // C if B else 0)
+
+
+def hist256_equalize_lut(planes: torch.Tensor, groups: int | None = None) -> torch.Tensor:
     """cv2's equalizeHist LUT of each plane: ``[B, H, W]`` or ``[B, P]`` u8 →
-    ``[B, 256]`` u8, equal to ``equalize_lut256(hist256(planes), H·W)``.  On
-    CUDA one launch (``hist256_lut``) counts each plane and builds its LUT
-    from the finished counts; no histogram is kept."""
+    ``[B, 256]`` u8, equal to ``equalize_lut256(hist256(planes), H·W)``.
+    With ``groups`` C (dividing B): ``[C, 256]``, row g the LUT of the
+    counts pooled over planes ``g, g + C, g + 2C, ...`` (``total = (B/C)·H·W``),
+    as pooled equalizeHist over ``[N, H, W, C]`` frames takes them.  On CUDA
+    one launch (``hist256_lut``) counts the planes and builds each LUT from
+    its group's finished counts; no histogram is kept."""
     _check_u8_planes(planes, "hist256_equalize_lut")
+    C = _groups(planes, groups)
     if not on_cuda(planes, "hist256_lut"):
-        return hist256_equalize_lut_plain(planes)
+        return hist256_equalize_lut_plain(planes, C)
     check_kernel_input("hist256_lut", planes)
-    B = planes.shape[0]
     if not planes.numel():  # no pixels: the identity, as equalize_lut256 gives at total 0
-        return torch.arange(256, dtype=torch.uint8, device=planes.device).repeat(B, 1)
-    out = torch.empty((B, 256), dtype=torch.uint8, device=planes.device)
-    _count_planes("hist256_lut", planes, out)
+        return torch.arange(256, dtype=torch.uint8, device=planes.device).repeat(C, 1)
+    out = torch.empty((C, 256), dtype=torch.uint8, device=planes.device)
+    _count_planes("hist256_lut", planes, out, C)
     return out
 
 

@@ -3,8 +3,8 @@
 The counterpart of the JAX package's ``ops/clahe.py``, with ONE route
 for every geometry: stage A (per-tile histograms) → stage B (clipped tile
 LUTs) → stage C (bilinear blend of the four neighbour LUTs), the kernels of
-``kernels/clahe.py``; for u8, stages A and B are one launch
-(``tile_luts256``).  The JAX package switches between a quadrant kernel, a
+``kernels/clahe.py``; stages A and B are one launch (``tile_luts256`` for
+u8, ``tile_luts65536`` for u16), so a call makes two.  The JAX package switches between a quadrant kernel, a
 nine-LUT kernel and an XLA gather by divisibility and tile split; the port
 has no such switch, so the quadrant guard's fault on some divisible
 geometries (ROADMAP R2) has no counterpart here.
@@ -32,8 +32,8 @@ from imageenhancement_mp_tpu_torch.kernels.clahe import (
     HIST_SIZE,
     clahe_blend,
     clahe_lut,
-    hist65536_tiles,
     tile_luts256,
+    tile_luts65536,
 )
 
 __all__ = ["clahe_planes", "clahe_tile_luts", "blend_tile_luts", "tile_geometry", "coord_rows"]
@@ -109,9 +109,6 @@ def clahe_planes(planes: torch.Tensor, clip_limit: float = 40.0,
     planes = planes.contiguous()
     B, H, W = planes.shape
     gh, gw, th, tw = tile_geometry(H, W, tile_grid)
-    if planes.dtype == torch.uint8:
-        luts = tile_luts256(planes, gh, gw, th, tw, float(clip_limit))
-    else:
-        luts = clahe_tile_luts(hist65536_tiles(planes, gh, gw, th, tw), th * tw,
-                               float(clip_limit))
+    tile_luts = tile_luts256 if planes.dtype == torch.uint8 else tile_luts65536
+    luts = tile_luts(planes, gh, gw, th, tw, float(clip_limit))
     return blend_tile_luts(planes, luts, gh, gw, th, tw)

@@ -3,10 +3,11 @@ pooled.
 
 The counterpart of the JAX package's ``ops/histogram.py`` (:53-182).  u8
 planes take one route for every size: per frame, the histogram kernel with
-its equalize-LUT epilogue, then the LUT-apply kernel; pooled, the
-histogram kernel, the equalize-LUT kernel on the pooled counts, then the
-LUT-apply kernel (``kernels/hist.py``), the counts pooled across a mesh
-axis with a ``psum`` where one is named.  u16
+its equalize-LUT epilogue, then the LUT-apply kernel; pooled, the same
+histogram kernel with one group of planes a channel (its epilogue builds
+each channel's LUT from the pooled counts), then the LUT-apply kernel
+(``kernels/hist.py``); across a mesh axis, the histogram kernel, a
+``psum`` of the counts, the equalize-LUT kernel, the LUT-apply kernel.  u16
 histograms are one ``torch.bincount`` over plane-offset indices on both
 devices, as the JAX package scatters them in XLA.
 """
@@ -84,8 +85,10 @@ def equalize_hist_global_planes(planes: torch.Tensor, channels: int = 1,
     pools one histogram over every plane.  Inside a sharded call
     (``parallel.mesh.run_sharded``) ``axis_name`` pools across the shards
     along that mesh axis too, with one ``psum``; the int32 cdf check counts
-    the pixels of every shard.  Three launches on CUDA: hist256,
-    equalize_lut256, apply_lut256."""
+    the pixels of every shard.  On CUDA two launches unsharded
+    (``hist256_lut`` with one group a channel, then ``apply_lut256``), three
+    with ``axis_name`` (hist256, equalize_lut256 after the ``psum``,
+    apply_lut256)."""
     _check_u8(planes)
     B, H, W = planes.shape
     channels = max(int(channels), 1)
@@ -97,10 +100,11 @@ def equalize_hist_global_planes(planes: torch.Tensor, channels: int = 1,
         total *= axis_size(axis_name)
     _check_pool_total(total)
     planes = planes.contiguous()
-    hists = hist256(planes).reshape(n, channels, 256).sum(dim=0, dtype=torch.int32)
-    if axis_name is not None:
-        hists = psum(hists, axis_name)
-    luts = equalize_lut256(hists, total)  # [C, 256]
+    if axis_name is None:
+        luts = hist256_equalize_lut(planes, channels)  # [C, 256]
+    else:
+        hists = hist256(planes).reshape(n, channels, 256).sum(dim=0, dtype=torch.int32)
+        luts = equalize_lut256(psum(hists, axis_name), total)
     if channels == 1:
         return apply_lut256(planes, luts[0])
     return apply_lut256(planes, luts.repeat(n, 1))  # plane i takes channel i % C's LUT

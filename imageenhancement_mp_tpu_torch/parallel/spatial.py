@@ -38,13 +38,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from imageenhancement_mp_tpu_torch.kernels.clahe import (HIST_SIZE, clahe_blend, hist65536_tiles,
-                                                        tile_luts256)
+from imageenhancement_mp_tpu_torch.kernels.clahe import (HIST_SIZE, clahe_blend, tile_luts256,
+                                                        tile_luts65536)
 from imageenhancement_mp_tpu_torch.kernels.hist import apply_lut256
 from imageenhancement_mp_tpu_torch.ops.bilateral import bilateral_offsets, bilateral_planes
 from imageenhancement_mp_tpu_torch.ops.canny import (_dilate8, _nms_keep, _sobel_replicate,
                                                     check_canny, hysteresis, magnitude)
-from imageenhancement_mp_tpu_torch.ops.clahe import _coord_tables, clahe_tile_luts, coord_rows
+from imageenhancement_mp_tpu_torch.ops.clahe import _coord_tables, coord_rows
 from imageenhancement_mp_tpu_torch.ops.filter2d import filter2d_planes
 from imageenhancement_mp_tpu_torch.ops.filters import (box_blur_planes, gaussian_blur_planes,
                                                       laplacian_sharpen_planes, sobel_planes,
@@ -288,8 +288,7 @@ def clahe_spatial(local: torch.Tensor, clip_limit: float = 40.0,
     """``cv2.createCLAHE`` on row-sharded planes.
 
     Each shard owns ``gh/n`` tile rows.  Stages A and B run on them alone
-    (``tile_luts256`` for u8; ``hist65536_tiles`` then ``clahe_lut`` for
-    u16); one ``all_gather`` shares the ``[gh·gw, S]`` LUT table, the only
+    (``tile_luts256`` for u8, ``tile_luts65536`` for u16); one ``all_gather`` shares the ``[gh·gw, S]`` LUT table, the only
     state the blend needs from other shards; stage C (``clahe_blend``)
     blends the shard's rows with rows ``[row0, row0 + h)`` of the frame's
     row coordinates.  Needs divisible geometry: ``gh % n == 0``,
@@ -309,11 +308,8 @@ def clahe_spatial(local: torch.Tensor, clip_limit: float = 40.0,
             f"and width {W} % {gw} == 0 (pad the frame before sharding)")
     th, tw = h // ghl, W // gw
     local = local.contiguous()
-    if local.dtype == torch.uint8:
-        luts = tile_luts256(local, ghl, gw, th, tw, float(clip_limit))
-    else:
-        luts = clahe_tile_luts(hist65536_tiles(local, ghl, gw, th, tw), th * tw,
-                               float(clip_limit))
+    tile_luts = tile_luts256 if local.dtype == torch.uint8 else tile_luts65536
+    luts = tile_luts(local, ghl, gw, th, tw, float(clip_limit))
     S = luts.shape[1]
     # a new tensor from torch.cat: aligned as the blend kernels read it
     luts = all_gather(luts.reshape(B, ghl * gw, S), axis_name, axis=1, tiled=True)

@@ -10,8 +10,11 @@ rules carried over from the JAX package's method (its docs/DESIGN.md §9):
 * always block on the result each iteration: medians over blocked calls
   are stable, means over asynchronous launches are not.
 
-On a CUDA tensor a call is blocked with ``torch.cuda.synchronize`` on its
-device; a CPU tensor has nothing to block on.  The chain clock
+A call is blocked with ``torch.cuda.synchronize`` on every CUDA device
+that holds a tensor of its arguments or of its result (tensors in tuples,
+lists and dicts included), or on the current device where neither holds
+one and CUDA is initialized (a closure's work); a CPU call has nothing to
+block on.  The chain clock
 (:func:`time_op_chained`, the JAX package's docs/DESIGN.md §9b) replays a
 CUDA graph of chained applications, so the host's launch work, which paces
 short calls of this port, drops out of its reading.
@@ -36,24 +39,49 @@ _MASK32 = 0xFFFFFFFF
 _BLOCK = 64
 
 
+def _tensor_device(t: torch.Tensor) -> torch.device:
+    return t.device
+
+
+def _cuda_devices(obj, found: set) -> set:
+    """``found`` with the CUDA device of every tensor in ``obj``: a tensor,
+    or tuples, lists and dicts of them at any depth."""
+    if isinstance(obj, torch.Tensor):
+        dev = _tensor_device(obj)
+        if dev.type == "cuda":
+            found.add(dev)
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            _cuda_devices(o, found)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            _cuda_devices(o, found)
+    return found
+
+
 def time_op(
     fn: Callable, *args, iters: int = 10, warmup: int = 3, reduce: str = "median"
 ) -> float:
     """Wall-clock seconds per call of ``fn(*args)`` (device-blocked).
 
-    Every call, warm-up and timed, is followed by ``torch.cuda.synchronize``
-    on the CUDA device of the tensor arguments (none for CPU tensors); the
-    result never leaves the device.  ``reduce``: "median" (default) or
-    "min".  The min is the robust estimate of what the machine can do
-    (timeit-style): host jitter only ever inflates a call.
+    Every call, warm-up and timed, blocks on what it did, as the JAX
+    package's ``block_until_ready`` does: ``torch.cuda.synchronize`` on each
+    CUDA device that holds a tensor of the arguments or of the result
+    (walking tuples, lists and dicts), else, where CUDA is initialized, on
+    the current device (a closure's tensors are nowhere in sight); a CPU
+    call is not blocked.  The result never leaves the device.  ``reduce``:
+    "median" (default) or "min".  The min is the robust estimate of what
+    the machine can do (timeit-style): host jitter only ever inflates a
+    call.
     """
-    dev = next((a.device for a in args
-                if isinstance(a, torch.Tensor) and a.device.type == "cuda"), None)
+    arg_devices = _cuda_devices(args, set())
 
     def call() -> None:
-        fn(*args)
-        if dev is not None:
+        devices = _cuda_devices(fn(*args), set(arg_devices))
+        for dev in sorted(devices, key=str):
             torch.cuda.synchronize(dev)
+        if not devices and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
 
     for _ in range(warmup):
         call()

@@ -262,3 +262,66 @@ def test_misaligned_histograms_are_copied_before_the_launch(monkeypatch):
         assert (name, T, S, op) == ("clahe_lut", 2, S16, out.data_ptr())
         assert hp % 16 == 0 and (hp == h.data_ptr()) == (h.data_ptr() % 16 == 0)
         assert (clip_abs, scale) == (1, float(np.float32(65535) / np.float32(100)))
+
+
+# --- the same law in the u16 tile kernel's epilogue ---------------------------
+# csrc/clahe.cu::hist65536_tiles_kernel<true> (tile_luts65536) runs it on the
+# counters its cluster holds: R blocks of the tile's cluster (kHist16Ranks =
+# 2 blocks of 1024 threads; the A/B's R = 4 of 512), 4 rounds of 8 bins a
+# lane, the pairs exchanged as in clahe_lut16_kernel (tile_context) and each
+# entry from lut16_octet, the law both kernels call.
+EPILOGUES = [(2, 1024), (4, 512)]
+
+
+@pytest.mark.parametrize("blocks,threads", EPILOGUES)
+@pytest.mark.parametrize("clip_limit", [0.0, TINY_CLIP, 2.0, 40.0])
+def test_epilogue_split_over_ranks_matches_plain_and_jax(blocks, threads, clip_limit):
+    """Peaked random tiles of config 5's area, all mass in one bin at both
+    ends of a rank's range, tiles of one pixel and an area near 2^31 − 1."""
+    assert lane_bins(S16, blocks, threads).shape[2] == 4  # rounds
+    rng = np.random.default_rng(blocks * 100 + int(clip_limit))
+    area = 270 * 480
+    h = np.stack([rng.multinomial(area, p) for p in rng.dirichlet(np.full(S16, 0.02), size=3)]
+                 ).astype(np.int32)
+    want = plain(h, area, clip_limit)
+    np.testing.assert_array_equal(lut_mirror(h, area, clip_limit, blocks, threads), want)
+    np.testing.assert_array_equal(jax_luts(h, area, clip_limit), want)
+    edge = np.zeros((4, S16), np.int32)
+    for t, b in enumerate((0, S16 // blocks - 1, S16 // blocks, S16 - 1)):
+        edge[t, b] = area
+    np.testing.assert_array_equal(lut_mirror(edge, area, clip_limit, blocks, threads),
+                                  plain(edge, area, clip_limit))
+    one = np.zeros((3, S16), np.int32)
+    one[np.arange(3), rng.integers(0, S16, 3)] = 1
+    np.testing.assert_array_equal(lut_mirror(one, 1, clip_limit, blocks, threads),
+                                  plain(one, 1, clip_limit))
+    big = INT32_MAX - 11
+    hb = rng.multinomial(big, rng.dirichlet(np.full(S16, 0.05)))[None].astype(np.int32)
+    np.testing.assert_array_equal(lut_mirror(hb, big, clip_limit, blocks, threads),
+                                  plain(hb, big, clip_limit))
+
+
+@pytest.mark.parametrize("blocks,threads", EPILOGUES)
+def test_epilogue_split_over_every_step_value(blocks, threads):
+    """Half the values step can take (one resid each; R = 2 the even ones
+    of STEP_RESIDS, R = 4 the odd ones) through the R-rank split, 32 tiles
+    at a time."""
+    area = 3 * S16 + 12345
+    rng = np.random.default_rng(blocks)
+    resids = STEP_RESIDS[blocks // 4::2]
+    for k in range(0, len(resids), 32):
+        h = excess_for(resids[k:k + 32], area, rng)
+        np.testing.assert_array_equal(lut_mirror(h, area, TINY_CLIP, blocks, threads),
+                                      plain(h, area, TINY_CLIP))
+
+
+@pytest.mark.parametrize("blocks,threads", EPILOGUES)
+def test_epilogue_lane_bins_stay_in_their_rank(blocks, threads):
+    """Each rank's lanes cover exactly the values its counters hold, in
+    aligned 8-bin vectors: the epilogue reads only its own shared memory."""
+    idx = lane_bins(S16, blocks, threads)
+    assert np.array_equal(np.sort(idx.reshape(-1)), np.arange(S16))
+    for rank in range(blocks):
+        mine = idx[rank].reshape(-1)
+        assert mine.min() == rank * S16 // blocks and mine.max() == (rank + 1) * S16 // blocks - 1
+    assert (idx[..., 0] % 8 == 0).all()

@@ -113,3 +113,61 @@ def test_hist_family_rejects_what_the_kernels_do_not_take():
         apply_lut_planes(x.to(torch.uint16), torch.zeros(256, dtype=torch.uint16))
     with pytest.raises(ValueError):
         khist.hist256(x.to("meta"))
+
+
+# -- pooled equalizeHist in one count launch: hist256_lut with groups ----------
+
+@pytest.mark.parametrize("frames,channels,kind", [(4, 1, "random"), (4, 3, "narrow"),
+                                                   (1, 3, "random"), (3, 2, "constant")])
+def test_grouped_luts_match_jax_pooled_equalize(frames, channels, kind):
+    """hist256_equalize_lut(planes, C) (its plain version here) applied to
+    the ``as_planes`` stack equals the JAX package's
+    equalize_hist_global_planes at 0 LSB; C = 1 pools every plane, C = B
+    is today's per-frame hist256_equalize_lut, and the pooled op takes the
+    grouped route."""
+    from imageenhancement_mp_tpu.ops.histogram import equalize_hist_global_planes as jax_pooled
+
+    B = frames * channels
+    lo, hi = {"random": (0, 256), "narrow": (100, 105), "constant": (77, 78)}[kind]
+    x = _planes((B, 23, 41), frames * 10 + channels, lo, hi)
+    t = torch.from_numpy(x)
+    luts = khist.hist256_equalize_lut(t, channels)
+    assert luts.shape == (channels, 256) and luts.dtype == torch.uint8
+    got = khist.apply_lut256(t, luts.repeat(frames, 1)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_pooled(x, channels=channels)))
+    np.testing.assert_array_equal(thist.equalize_hist_global_planes(t, channels).numpy(), got)
+    pooled = khist.hist256_equalize_lut(t, 1)
+    np.testing.assert_array_equal(khist.apply_lut256(t, pooled[0]).numpy(),
+                                  np.asarray(jax_pooled(x, channels=1)))
+    np.testing.assert_array_equal(khist.hist256_equalize_lut(t, B).numpy(),
+                                  khist.hist256_equalize_lut(t).numpy())
+    per_frame = khist.equalize_lut256_plain(khist.hist256_plain(t), 23 * 41)
+    np.testing.assert_array_equal(khist.hist256_equalize_lut(t, B).numpy(), per_frame.numpy())
+
+
+def test_grouped_count_dispatch(monkeypatch):
+    """With on_cuda and launch stubbed: the grouped LUT is one hist256_lut
+    launch carrying the group count, into [C, 256]; the scratch holds a row
+    for every block of every plane of a group; the pooled op launches
+    hist256_lut (groups = channels) then apply_lut256, and per frame the
+    group count is B."""
+    launches = []
+    monkeypatch.setattr(khist, "on_cuda", lambda t, what: True)
+    monkeypatch.setattr(khist, "launch", lambda *args: launches.append(args))
+    x = torch.zeros((24, 60, 70), dtype=torch.uint8)
+    out = khist.hist256_equalize_lut(x, 3)
+    assert out.shape == (3, 256) and out.dtype == torch.uint8
+    name, _, xp, op, B, n, groups, blocks, grid_y, partial, tickets = launches[-1]
+    assert (name, xp, op, B, n, groups) == ("hist256_lut", x.data_ptr(), out.data_ptr(), 24,
+                                            4200, 3)
+    assert (blocks, grid_y) == khist.hist256_plan(24, 4200) and partial and tickets
+    khist.hist256_equalize_lut(x)
+    assert launches[-1][6] == 24
+    launches.clear()
+    thist.equalize_hist_global_planes(x, 3)
+    assert [a[0] for a in launches] == ["hist256_lut", "apply_lut256"] and launches[0][6] == 3
+    launches.clear()
+    thist.equalize_hist_global_planes(x)  # one group: every plane pooled
+    assert [a[0] for a in launches] == ["hist256_lut", "apply_lut256"] and launches[0][6] == 1
+    with pytest.raises(ValueError, match="groups"):
+        khist.hist256_equalize_lut(x, 5)

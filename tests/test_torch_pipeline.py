@@ -106,7 +106,8 @@ def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
                                   "median", "hist256_tiles", "clahe_lut", "clahe_blend",
                                   "bilateral", "athresh", "warp_gather_u8", "take_table",
                                   "apply_lut256_wide", "apply_luts_multi", "median_unsharp",
-                                  "hist65536_tiles", "hist256_lut", "tile_luts256"}
+                                  "hist65536_tiles", "hist256_lut", "tile_luts256",
+                                  "tile_luts65536"}
 
 
 def test_public_functions_reject_what_the_port_does_not_take():

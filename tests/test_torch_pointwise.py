@@ -253,7 +253,7 @@ def test_point_ops_reject_what_jax_rejects():
 
 def test_launches_of_each_path(monkeypatch):
     """gamma_stretch: two apply_lut256 launches and no other; pooled
-    equalize: one hist256, one equalize_lut256, one apply_lut256; an f32
+    equalize: one hist256_lut (one group a channel), one apply_lut256; an f32
     table on u8 planes: one apply_lut256_wide; u16 and i16 planes, and f32
     point ops: none."""
     calls = []
@@ -268,7 +268,7 @@ def test_launches_of_each_path(monkeypatch):
     rgb = torch.zeros((2, 16, 24, 3), dtype=torch.uint8)
     assert launches(lambda: tie.get_preset("gamma_stretch")(rgb)) == ["apply_lut256"] * 2
     assert launches(lambda: tie.equalize_hist(rgb, per_frame=False)) == [
-        "apply_lut256", "equalize_lut256", "hist256"]
+        "apply_lut256", "hist256_lut"]
     planes = torch.zeros((8, 12, 20), dtype=torch.uint8)
     assert launches(lambda: tpoint.apply_lut_planes(planes, torch.zeros(256))) == [
         "apply_lut256_wide"]

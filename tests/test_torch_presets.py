@@ -18,7 +18,8 @@ from imageenhancement_mp_tpu_torch.ops import OP_REGISTRY
 KERNELS = {"hist256", "equalize_lut256", "apply_lut256", "sep_conv_u8",
            "median", "hist256_tiles", "clahe_lut", "clahe_blend", "bilateral", "athresh",
            "warp_gather_u8", "take_table", "apply_lut256_wide", "apply_luts_multi",
-           "median_unsharp", "hist65536_tiles", "hist256_lut", "tile_luts256"}
+           "median_unsharp", "hist65536_tiles", "hist256_lut", "tile_luts256",
+           "tile_luts65536"}
 
 
 def _img(shape, seed):

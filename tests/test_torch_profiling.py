@@ -12,6 +12,11 @@ package's profiling.py.
   also where the output's strides differ from the input's).
 * ``time_op_chained``: a fixed ``n_hi`` gives a positive time; automatic
   sizing never exceeds ``max_chain``.
+* ``time_op`` blocks on what the call did (the JAX package's
+  ``block_until_ready``), with ``torch.cuda.synchronize`` and the device
+  of a tensor stubbed: a CUDA tensor in a list argument, in a tuple result,
+  in a closure's result, on two devices; the current device for a closure
+  that returns no tensor once CUDA is initialized; nothing on the CPU.
 
 The CUDA graph path runs on the card only (chip_smoke.py's phase 18).
 """
@@ -177,3 +182,52 @@ def test_time_op_chained_sizes(monkeypatch):
     monkeypatch.setattr(tprof, "_chain_program", recording)
     assert tprof.time_op_chained(pipe, x, target_secs=0.02, max_chain=64) > 0
     assert lengths and max(lengths) <= 64
+
+
+def _stub_cuda(monkeypatch, on_card: list, initialized: bool) -> list:
+    """``torch.cuda.synchronize`` recorded and the tensors of ``on_card``
+    seen on ``cuda:i`` (i their index there); returns the record."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: synced.append(dev))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: initialized)
+    real = tprof._tensor_device
+
+    def device(t):
+        hit = [i for i, c in enumerate(on_card) if c is t]
+        return torch.device("cuda", hit[0]) if hit else real(t)
+
+    monkeypatch.setattr(tprof, "_tensor_device", device)
+    return synced
+
+
+@pytest.mark.parametrize("case", ["list argument", "tuple result", "closure result",
+                                  "dict in a list", "two devices"])
+def test_time_op_blocks_on_the_cuda_work_of_each_call(monkeypatch, case):
+    frames = [torch.zeros(4), torch.ones(4)]
+    out = torch.zeros(2)
+    card0, card1 = torch.zeros(3), torch.zeros(3)
+    if case == "list argument":  # merge_mertens-like: frames in a list, a CPU result
+        on, fn, args, want = [card0], lambda fs: fs[1] + 1, ([frames[0], card0],), {0}
+    elif case == "tuple result":
+        on, fn, args, want = [card0], lambda x: (out, card0), (frames[0],), {0}
+    elif case == "closure result":
+        on, fn, args, want = [card0], lambda: card0, (), {0}
+    elif case == "dict in a list":
+        on, fn, args, want = [card0], lambda: [{"a": (out, card0)}], (), {0}
+    else:
+        on, fn, args, want = [card0, card1], lambda x: card1, (card0,), {0, 1}
+    synced = _stub_cuda(monkeypatch, on, initialized=True)
+    assert tprof.time_op(fn, *args, iters=2, warmup=1) >= 0
+    assert len(synced) == 3 * len(want)  # every call, warm-up and timed
+    assert {d.index for d in synced} == want and all(d.type == "cuda" for d in synced)
+
+
+def test_time_op_blocks_a_closure_on_the_current_device(monkeypatch):
+    """No CUDA tensor in sight: the current device once CUDA is initialized
+    (a closure's kernels), nothing before (a CPU call)."""
+    synced = _stub_cuda(monkeypatch, [], initialized=True)
+    tprof.time_op(lambda: None, iters=3, warmup=2)
+    assert synced == [None] * 5
+    synced = _stub_cuda(monkeypatch, [], initialized=False)
+    tprof.time_op(lambda x: x + 1, torch.zeros(3), iters=3, warmup=2)
+    assert synced == []

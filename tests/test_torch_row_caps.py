@@ -102,6 +102,11 @@ def _hist65536_tiles(x):
     return kclahe.hist65536_tiles(x, *tclahe.tile_geometry(H, W, (8, 8)))
 
 
+def _tile_luts65536(x):
+    B, H, W = x.shape
+    return kclahe.tile_luts65536(x, *tclahe.tile_geometry(H, W, (8, 8)), 2.0)
+
+
 def _clahe_blend_u16(x):
     B, H, W = x.shape
     gh, gw, th, tw = tclahe.tile_geometry(H, W, (8, 8))
@@ -114,9 +119,10 @@ def _clahe_blend_u16(x):
 @pytest.mark.parametrize("name,run,out_shape", [
     ("hist65536_tiles", _hist65536_tiles, (64, 65536)),
     ("clahe_blend", _clahe_blend_u16, TALL),
-], ids=["hist65536_tiles", "clahe_blend_u16"])
+    ("tile_luts65536", _tile_luts65536, (64, 65536)),
+], ids=["hist65536_tiles", "clahe_blend_u16", "tile_luts65536"])
 def test_u16_tall_plane_reaches_one_launch(monkeypatch, name, run, out_shape):
-    """u16 CLAHE's two kernels on a [1, 1_100_000, 8] u16 plane: one launch
+    """u16 CLAHE's kernels on a [1, 1_100_000, 8] u16 plane: one launch
     with the full height; the blend's plan puts (plane, row cell) pairs on
     the grid's y axis and at most 2^31 - 1 blocks on its x axis."""
     launches = []

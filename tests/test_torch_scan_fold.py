@@ -258,6 +258,31 @@ def test_handoff_mirror_over_the_kernel_split(shape):
     assert not tickets.any()
 
 
+@pytest.mark.parametrize("shape,groups", [((6, 40, 130), 3), ((6, 40, 130), 1),
+                                          ((4, 5, 9), 2), ((3, 64, 1000), 3)])
+def test_grouped_handoff_mirror_over_the_kernel_split(shape, groups):
+    """Pooled groups (hist256_kernel with groups C): plane b's blocks are
+    members (b / C)·blocks + x of group b % C, whose scratch holds (B/C)·blocks
+    rows; the last of all of them sums the rows and runs the equalize law
+    at total (B/C)·n: the grouped LUTs, tickets back at 0."""
+    x = _planes(shape, "random", 12)
+    B, n = shape[0], x[0].size
+    blocks, _ = kh.hist256_plan(B, n)
+    members = B // groups * blocks
+    scratch = np.zeros((groups, members, 256), np.int64)
+    for b in range(B):
+        g = b % groups
+        scratch[g, (b // groups) * blocks:(b // groups + 1) * blocks] = _block_rows(x[b], blocks)
+    rng = np.random.default_rng(13)
+    tickets = np.zeros(groups, np.int64)
+    want = kh.hist256_equalize_lut(torch.from_numpy(x), groups).numpy()
+    for g in rng.permutation(groups):
+        total = handoff(scratch[g], tickets, g, rng)
+        np.testing.assert_array_equal(equalize_law(total.astype(np.int64), members // blocks * n),
+                                      want[g])
+    assert not tickets.any()
+
+
 # --- the dispatch, with the launches stubbed --------------------------------
 
 
@@ -291,8 +316,8 @@ def test_equalize_paths_launch_the_fused_kernel_and_no_fill(monkeypatch, shape):
                                         "apply_lut256"]
     assert fills == []
     B, n = shape[0], shape[1] * shape[2]
-    name, dev, xp, out, b, nn, blocks, grid_y, partial, tickets = launches[0]
-    assert (b, nn) == (B, n) and (blocks, grid_y) == kh.hist256_plan(B, n)
+    name, dev, xp, out, b, nn, groups, blocks, grid_y, partial, tickets = launches[0]
+    assert (b, nn, groups) == (B, n, B) and (blocks, grid_y) == kh.hist256_plan(B, n)
     assert (partial == 0) == (tickets == 0) == (blocks == 1)
 
 

@@ -66,14 +66,16 @@ u16 CLAHE:
     python3 tools/torch_hist_profile.py --ab16 --parent build/parent
 
 ``--u16`` replaces K1's cases: each tree's u16 stage A (hist65536_tiles,
-or tile_hists_plain in a tree without it), the u16 blend and the whole
+or tile_hists_plain in a tree without it), stages A and B (tile_luts65536,
+or hist65536_tiles then clahe_lut), the u16 blend and the whole
 clahe call on 2x2160x3840 (grid 8x8) on random, smooth, constant and
-12-bit planes (chip_smoke.py::u16_planes), and _lut_cases: clahe_lut at
+12-bit planes (chip_smoke.py::u16_planes), pooled equalize_hist on
+8x1080x1920 gray and RGB, and _lut_cases: clahe_lut at
 S = 65536 on those planes' tiles and at S = 256 on config 5's, K5 and K13
 (apply_lut256 with u8, f32 and i16 tables, warm and L2-cold;
 apply_luts_multi K = 9 with u8 and f32 tables) on 8x1080x1920, in turns,
-back to back and device-paced; then each tree's clahe u16 calls under
-torch.profiler.
+back to back and device-paced; then each tree's clahe u16 and pooled
+equalize_hist calls under torch.profiler.
 
     python3 tools/torch_hist_profile.py --ablut --parent build/parent
 
@@ -85,11 +87,14 @@ plain versions first.  ``--ab16`` times
 u16 stage A and the u16 blend on the five kinds of plane in this checkout
 against copies with one design choice changed each (_ab16_variants: chunk
 size, pixels and threads a block, four-array staging, the walk without the
-one-chunk path, † copies without staging loads or blend arithmetic, stage
-A's former 16-bit counters over 65535-pixel bands, its threads and loads)
-and, with ``--parent``, two copies of the parent: its gathers with the
-blocks in another order (a), and per-cell quad tables in device memory
-with one gather a pixel (b).  Every line carries the card's name and power
+one-chunk path, † copies without staging loads or blend arithmetic; stage
+A's cluster of 4 blocks a tile, its threads and loads, the flat-vector
+atomic, vectors of two values in two adds, constant-increment adds, and
+its first cluster design, the value split with remote atomics), and
+the parent with ``--parent``, in turns; stage A and stages A + B
+(``tile_luts65536``, or a tree's ``hist65536_tiles`` then ``clahe_lut``)
+each held to their plain versions first.  A copy that does not build or
+run is reported and skipped.  Every line carries the card's name and power
 limit.  Exits non-zero when torch sees no CUDA device.
 """
 import argparse
@@ -355,7 +360,7 @@ FOLD_AB_VARIANTS = {
     "(b) 16-byte tail, 16 loads in flight": _tail_loads(16),
     "(c) tiles: a cluster of the band blocks (hist256 as (b))": _CLUSTER,
 }
-# --- u16 CLAHE (--ab16): copies of this tree, or of the parent where marked
+# --- u16 CLAHE (--ab16): copies of this tree
 _B16, _KP = "kernels/csrc/clahe.cu", "kernels/clahe.py"
 
 
@@ -387,235 +392,225 @@ __device__ __forceinline__ uint2 quad_at(const uint4* smem, uint32_t v) {
   return make_uint2(s[v] | uint32_t(s[kB16Chunk + v]) << 16,
                     s[2 * kB16Chunk + v] | uint32_t(s[3 * kB16Chunk + v]) << 16);
 }"""
-# (i): bands of at most 65535 pixels (hist65536_band_plan: rows, and
-# column pieces for tiles wider than 65535), each counted by one block into
-# 65536 16-bit halves of 32768 words (128 KiB), its nonzero halves added
-# into the zeroed output with global atomics
-_BANDS_COUNTER = r"""struct CountHalf {
-  static constexpr int kSmemBytes = 65536 * 2;
-  uint32_t* w;
+# the first cluster design of stage A (rejected): the ranks split the value
+# range, rank r's int32 counters in its shared memory, and each pixel added
+# into its owner's counters, a peer's through distributed shared memory
+_VALUE_SPLIT = r"""constexpr int kRankBins = 65536 / kHist16Ranks;
+constexpr int kRoundPixels = 65535;     // (the launcher's round count; one round here)
+constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v / 2) : 0; }
+constexpr int kRankShift = ilog2(kRankBins);
 
+struct Count16 {
+  static constexpr int kSmemBytes = kRankBins * 4;
+  uint32_t* w;
+  uint32_t rank;
   __device__ __forceinline__ void zero() {
     uint4* z = reinterpret_cast<uint4*>(w);
     for (int i = threadIdx.x; i < kSmemBytes / 16; i += kHist16Threads) z[i] = make_uint4(0, 0, 0, 0);
   }
-  __device__ __forceinline__ void add_one(uint32_t v) {
-    atomicAdd(&w[v >> 1], 1u << ((v & 1u) << 4));
+  __device__ __forceinline__ void add(uint32_t v, uint32_t n) {
+    const uint32_t owner = v >> kRankShift;
+    uint32_t* p = w + (v & (kRankBins - 1));
+    if (owner == rank) {
+      atomicAdd(p, n);
+    } else {
+      atomicAdd(cg::this_cluster().map_shared_rank(p, owner), n);
+    }
   }
+  __device__ __forceinline__ void add_one(uint32_t v) { add(v, 1u); }
   __device__ __forceinline__ void add_vec(uint4 v, bool valid) {
     if (!valid) return;
     const uint32_t b = v.x & 0xffffu;
     if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
-      atomicAdd(&w[b >> 1], 8u << ((b & 1u) << 4));
+      add(b, 8u);
       return;
     }
     const uint32_t q[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      add_one(q[i] & 0xffffu);
-      add_one(q[i] >> 16);
+      add(q[i] & 0xffffu, 1u);
+      add(q[i] >> 16, 1u);
     }
   }
-  __device__ __forceinline__ void flush(int32_t* __restrict__ o) const {
-    for (int i = threadIdx.x; i < 32768; i += kHist16Threads) {
-      const uint32_t v = w[i];
-      if (v & 0xffffu) atomicAdd(&o[2 * i], int32_t(v & 0xffffu));
-      if (v >> 16) atomicAdd(&o[2 * i + 1], int32_t(v >> 16));
-    }
-  }
-};"""
-_BANDS_KERNEL = r"""__global__ void __launch_bounds__(kHist16Threads, 1)
-hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ out, int H, int W,
-                       int gh, int gw, int th, int tw, int band_rows, int bands, int band_cols,
-                       int pieces) {
+};
+
+template <bool kLut>
+__global__ void __cluster_dims__(1, kHist16Ranks, 1)
+__launch_bounds__(kHist16Threads, kHist16MinBlocks)
+hist65536_tiles_kernel(const uint16_t* __restrict__ x, int32_t* __restrict__ hist,
+                       uint16_t* __restrict__ lut, int32_t* __restrict__ scratch, int32_t clip_abs,
+                       float scale, int H, int W, int gh, int gw, int th, int tw) {
   extern __shared__ __align__(16) uint32_t count_smem[];
-  CountHalf c;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  Count16 c;
   c.w = count_smem;
+  c.rank = uint32_t(rank);
+  c.zero();
+  cluster.sync();
   const int64_t tile = blockIdx.x;
   const int ntiles = gh * gw;
   const int64_t b = tile / ntiles;
   const int t = int(tile - b * ntiles);
   const int ty = t / gw, tx = t - (t / gw) * gw;
   const uint16_t* plane = x + b * int64_t(H) * W;
-  for (int item = blockIdx.y; item < bands * pieces; item += gridDim.y) {
-    const int band = item / pieces, piece = item - band * pieces;
-    const int R0 = ty * th + band * band_rows;
-    const int nrows = min(band_rows, th - band * band_rows);
-    const Piece pc = tile_piece(plane, W, tx * tw + piece * band_cols,
-                                min(band_cols, tw - piece * band_cols));
-    c.zero();
-    __syncthreads();
-    count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(c, plane, H, W, R0, nrows, pc.c0,
-                                                                pc.len, pc.cp, pc.npad,
-                                                                pc.ragged);
-    __syncthreads();
-    c.flush(out + tile * 65536);
-    __syncthreads();
+  const Piece pc = tile_piece(plane, W, tx * tw, tw);
+  const int share = th / kHist16Ranks + (th % kHist16Ranks != 0);
+  const int64_t s0 = int64_t(rank) * share;
+  const int r0 = s0 < th ? int(s0) : th;
+  count_tile_rows<uint16_t, kHist16Loads, kHist16Threads / 32>(
+      c, plane, H, W, ty * th + r0, min(share, th - r0), pc.c0, pc.len, pc.cp, pc.npad, pc.ragged);
+  cluster.sync();
+  if (!kLut) {
+    const uint4* src = reinterpret_cast<const uint4*>(count_smem);
+    uint4* dst = reinterpret_cast<uint4*>(hist + tile * 65536 + rank * kRankBins);
+    for (int i = threadIdx.x; i < Count16::kSmemBytes / 16; i += kHist16Threads) dst[i] = src[i];
+    return;
   }
-}
-"""
-_BANDS_ENTRY = r"""int ie_hist65536_tiles(const uint16_t* x, int32_t* out, int64_t B, int64_t H, int64_t W,
-                       int32_t gh, int32_t gw, int64_t th, int64_t tw, int64_t band_rows,
-                       int64_t bands, int64_t band_cols, int64_t pieces, int64_t grid_y,
-                       cudaStream_t stream) {
-  if (B < 1 || H < 1 || W < 1 || band_rows * band_cols > 65535 || grid_y < 1 ||
-      grid_y > bands * pieces || grid_y > kMaxGridY)
-    return int(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      hist65536_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CountHalf::kSmemBytes);
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(unsigned(B * gh * gw), unsigned(grid_y));
-  hist65536_tiles_kernel<<<grid, kHist16Threads, CountHalf::kSmemBytes, stream>>>(
-      x, out, int(H), int(W), gh, gw, int(th), int(tw), int(band_rows), int(bands),
-      int(band_cols), int(pieces));
-  return int(cudaGetLastError());
-}
-"""
-_BANDS_PLAN = """def hist65536_band_plan(B, gh, gw, th, tw):
-    tiles = B * gh * gw
-    pieces = -(-tw // 65535)
-    band_cols = -(-tw // pieces)
-    max_rows = min(th, 65535 // band_cols)
-    bands = min(th, max(-(-th // max_rows), -(-132 // (tiles * pieces))))
-    band_rows = -(-th // bands)
-    bands = -(-th // band_rows)
-    return band_rows, bands, band_cols, pieces, min(bands * pieces, MAX_GRID_Y)
-
-
-"""
-# (b): per cell a [65536] table of 8-byte quads in device memory (built by a
-# kernel per call), then one 8-byte gather per pixel
-_SCRATCH_KERNELS = r"""
-__global__ void quad_scratch_kernel(const uint16_t* __restrict__ luts, uint2* __restrict__ scr,
-                                    int gh, int gw) {
-  const int64_t cell = blockIdx.y;  // (b * (gh + 1) + cy) * (gw + 1) + cx
-  const int per = (gh + 1) * (gw + 1);
-  const int64_t b = cell / per;
-  const int r = int(cell - b * per), cy = r / (gw + 1), cx = r - cy * (gw + 1);
-  const int y0 = min(max(cy - 1, 0), gh - 1), y1 = min(cy, gh - 1);
-  const int x0 = min(max(cx - 1, 0), gw - 1), x1 = min(cx, gw - 1);
-  const uint16_t* lb = luts + ((b * gh * gw) << 16);
-  const int v = blockIdx.x * 256 + threadIdx.x;
-  scr[(cell << 16) + v] = make_uint2(
-      lb[(int64_t(y0 * gw + x0) << 16) + v] | uint32_t(lb[(int64_t(y0 * gw + x1) << 16) + v]) << 16,
-      lb[(int64_t(y1 * gw + x0) << 16) + v] | uint32_t(lb[(int64_t(y1 * gw + x1) << 16) + v]) << 16);
-}
-
-__global__ void gather_quad_kernel(const uint16_t* __restrict__ x, const uint2* __restrict__ scr,
-                                   uint16_t* __restrict__ out, int64_t B, int H, int W, int gh,
-                                   int gw, const int32_t* __restrict__ yidx,
-                                   const float* __restrict__ fyv, const int32_t* __restrict__ xidx,
-                                   const float* __restrict__ fxv) {
-  const int xx = blockIdx.x * 256 + threadIdx.x;
-  if (xx >= W) return;
-  const int cx = column_cell(xidx[xx], xidx[W + xx], gw);
-  const float fx = fxv[xx];
-  const float gx = __fsub_rn(1.0f, fx);
-  const int64_t nbands = (H + kBlendRows - 1) / kBlendRows;
-  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {
-    const int64_t b = item / nbands;
-    const int ya = int(item - b * nbands) * kBlendRows;
-    for (int y = ya; y < min(ya + kBlendRows, H); ++y) {
-      const int cy = column_cell(yidx[y], yidx[H + y], gh);
-      const int64_t px = (b * H + y) * int64_t(W) + xx;
-      const uint2 q = scr[(((b * (gh + 1) + cy) * (gw + 1) + cx) << 16) + x[px]];
-      const float top = __fadd_rn(__fmul_rn(gx, float(q.x & 0xffffu)), __fmul_rn(fx, float(q.x >> 16)));
-      const float bot = __fadd_rn(__fmul_rn(gx, float(q.y & 0xffffu)), __fmul_rn(fx, float(q.y >> 16)));
-      const float fy = fyv[y];
-      const float o = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, fy), top), __fmul_rn(fy, bot));
-      out[px] = uint16_t(__float2int_rn(fminf(fmaxf(rintf(o), 0.0f), 65535.0f)));
+  using L = Lut16Layout<kHist16Ranks, kHist16Threads>;
+  const int i_lane = L::first_bin(rank);
+  const int32_t* h = reinterpret_cast<const int32_t*>(count_smem) + (i_lane - rank * kRankBins);
+  int32_t ex = 0, mine[L::kRounds], incl[L::kRounds];
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) {
+    mine[r] = 0;
+#pragma unroll
+    for (int j = 0; j < kLut16Bins; ++j) {
+      const int32_t v = h[r * 32 * kLut16Bins + j];
+      if (clip_abs > 0) ex += max(v - clip_abs, 0);
+      mine[r] += clip_abs > 0 ? min(v, clip_abs) : v;
     }
+    incl[r] = warp_inclusive_scan(mine[r]);
   }
+  int32_t wclip = 0;
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) wclip += __shfl_sync(0xffffffffu, incl[r], 31);
+  const int2 ctx = tile_context<kHist16Ranks, L::kWarps>(wclip, warp_total(ex), rank, cluster);
+  cluster_arrive();
+  const int32_t raise = ctx.x >> 16, resid = ctx.x & 65535;
+  const int step = max(65536 / max(resid, 1), 1);
+  int32_t before = ctx.y;
+  uint16_t* o = lut + tile * 65536 + i_lane;
+#pragma unroll
+  for (int r = 0; r < L::kRounds; ++r) {
+    int32_t cr[kLut16Bins];
+#pragma unroll
+    for (int j = 0; j < kLut16Bins; ++j)
+      cr[j] = clip_abs > 0 ? min(h[r * 32 * kLut16Bins + j], clip_abs) : h[r * 32 * kLut16Bins + j];
+    int32_t cum = before + incl[r] - mine[r];
+    *reinterpret_cast<uint4*>(o + r * 32 * kLut16Bins) =
+        lut16_octet(cr, cum, i_lane + r * 32 * kLut16Bins, raise, resid, step, scale);
+    before += __shfl_sync(0xffffffffu, incl[r], 31);
+  }
+  cluster_wait();
 }
-
-}  // namespace
-
-extern "C" {"""
-_SCRATCH_LAUNCH = r"""    static uint2* scr = nullptr;
-    static int64_t cap = 0;
-    const int64_t cells = B * (gh + 1) * (gw + 1);
-    if (cells > cap) {
-      cudaFree(scr);
-      if (cudaMalloc(&scr, cells * 65536 * 8) != cudaSuccess) return int(cudaErrorMemoryAllocation);
-      cap = cells;
+"""
+# stage A's add (csrc/clahe.cu::Count16::add) and its merge's halves; as
+# constant increments (+1 in a low half, 1 << 16 in a high one) with 0 and
+# 65535 both in low halves (half16: the low half where v's lowest bit
+# equals its highest)
+_ADD16 = "    atomicAdd(&w[v >> 1], n << ((v & 1u) << 4));"
+_ADD16_CONSTANT = """    uint32_t* p = &w[v >> 1];
+    if ((v ^ (v >> 15)) & 1u) {
+      atomicAdd(p, n << 16);
+    } else {
+      atomicAdd(p, n);
+    }"""
+_MERGE16 = """      c[2 * k] += int32_t(d[k] & 0xffffu);
+      c[2 * k + 1] += int32_t(d[k] >> 16);"""
+_MERGE16_HALF16 = """      const int32_t lo = int32_t(d[k] & 0xffffu), up = int32_t(d[k] >> 16);
+      c[2 * k] += (i0 >> 15) ? up : lo;
+      c[2 * k + 1] += (i0 >> 15) ? lo : up;"""
+# a vector of 8 pixels of at most two values: one add each (pixel 0's
+# value, and the first other one's), through 16-bit lane compares
+_VEC16 = """    const uint32_t b = v.x & 0xffffu;
+    if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {
+      add(b, 8u);
+      return;
     }
-    quad_scratch_kernel<<<dim3(256, unsigned(cells)), 256, 0, stream>>>(
-        static_cast<const uint16_t*>(luts), scr, gh, gw);
-    gather_quad_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(x), scr, static_cast<uint16_t*>(out), B, int(H), int(W), gh,
-        gw, yidx, fy, xidx, fx);"""
-_PARENT_U16_LAUNCH = """    clahe_blend_kernel<uint16_t, 65536><<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(luts),
-        static_cast<uint16_t*>(out), B, int(H), int(W), gh, gw, yidx, fy, xidx, fx);"""
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};"""
+_VEC16_TWO = """    const uint32_t b = v.x & 0xffffu;
+    const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+    uint32_t m0 = 0;  // bit k: pixel k equals pixel 0
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t e = __vcmpeq2(q[i], b * 0x10001u);
+      m0 |= ((e & 1u) | ((e >> 15) & 2u)) << (2 * i);
+    }
+    if (m0 == 0xffu) {
+      add(b, 8u);
+      return;
+    }
+    const int k1 = __ffs(int(~m0 & 0xffu)) - 1;  // the first pixel of another value
+    uint32_t w1 = q[0];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) w1 = (k1 >> 1) == i ? q[i] : w1;
+    const uint32_t c1 = (k1 & 1) ? w1 >> 16 : w1 & 0xffffu;
+    uint32_t m1 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t e = __vcmpeq2(q[i], c1 * 0x10001u);
+      m1 |= ((e & 1u) | ((e >> 15) & 2u)) << (2 * i);
+    }
+    if ((m0 | m1) == 0xffu) {
+      add(b, uint32_t(__popc(m0)));
+      add(c1, uint32_t(__popc(m1)));
+      return;
+    }"""
+_STAGE_A_START = "constexpr int kRankBins = 65536 / kHist16Ranks;"
+_STAGE_A_END = "  cluster_wait();    // the cluster's reads of this block's counters and pair are done\n}\n"
 
 
-def _ab16_variants(parent: Path | None) -> dict:
-    """label -> (edits, whether the copy keeps the result, source tree)."""
+def _stage_a(ranks: int, threads: int, min_blocks: int) -> list:
+    return [_b16_const("kHist16Ranks", 2, ranks), _b16_const("kHist16Threads", 1024, threads),
+            _b16_const("kHist16MinBlocks", 1, min_blocks)]
+
+
+def _ab16_variants() -> dict:
+    """label -> (edits, whether the copy keeps the result)."""
     one_sm = _b16_const("kB16MinBlocks", 2, 1)
-    v = {
-        "chunks of 4096 values": ([_b16_const("kB16Shift", 13, 12)], True, ROOT),
+    return {
+        "chunks of 4096 values": ([_b16_const("kB16Shift", 13, 12)], True),
         "chunks of 16384 values, one block a SM": ([_b16_const("kB16Shift", 13, 14), one_sm],
-                                                   True, ROOT),
-        "16 pixels a thread": ([_b16_const("kB16Vecs", 4, 2), _b16_items(512, 2)], True, ROOT),
+                                                   True),
+        "16 pixels a thread": ([_b16_const("kB16Vecs", 4, 2), _b16_items(512, 2)], True),
         "64 pixels a thread, one block a SM": ([_b16_const("kB16Vecs", 4, 8), one_sm,
-                                                _b16_items(512, 8)], True, ROOT),
+                                                _b16_items(512, 8)], True),
         "1024 threads, one block a SM": ([_b16_const("kB16Threads", 512, 1024), one_sm,
-                                          _b16_items(1024, 4)], True, ROOT),
+                                          _b16_items(1024, 4)], True),
         "without the one-chunk path": ([(_B16, "if (__all_sync(0xffffffffu, all_here || ch < cmin"
-                                         " || ch > cmax)) {", "if (false) {")], True, ROOT),
+                                         " || ch > cmax)) {", "if (false) {")], True),
         "four-array staging": ([
             (_B16, _between(_B16, "__device__ __forceinline__ void stage_quads16(", "\n}\n"),
              _FOUR_ARRAYS.split("\n\n// the staged quad")[0] + "\n"),
             (_B16, _between(_B16, "__device__ __forceinline__ uint2 quad_at(", "\n}\n"),
-             _FOUR_ARRAYS.split("(in the chunk)\n")[1] + "\n")], True, ROOT),
+             _FOUR_ARRAYS.split("(in the chunk)\n")[1] + "\n")], True),
         "† staging without loads": ([(_B16, "const uint4 a = __ldg(reinterpret_cast<const uint4*>"
                                       "(r00) + g);", "const uint4 a = make_uint4(g, 1, 2, 3);")]
                                     + [(_B16, f"const uint4 {n} = __ldg(reinterpret_cast<const "
                                         f"uint4*>(r{i}) + g);", f"const uint4 {n} = a;")
                                        for n, i in (("b", "01"), ("c", "10"), ("d", "11"))],
-                                    False, ROOT),
+                                    False),
         "† no blending": ([(_B16, "  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, "
                             "fy);\n", "  return q.x ^ q.y ^ __float_as_uint(fx) ^ "
                             "__float_as_uint(fy);\n  const float gx = __fsub_rn(1.0f, fx), gy = "
-                            "__fsub_rn(1.0f, fy);\n")], False, ROOT),
-        "stage A (i): 16-bit counters over bands of 65535 pixels": (
-            [(_B16, _between(_B16, "struct CountHalf {", "\n};"), _BANDS_COUNTER),
-             (_B16, _between(_B16, "__global__ void __launch_bounds__(kHist16Threads, 1)",
-                             "\n}\n"), _BANDS_KERNEL),
-             (_B16, _between(_B16, "int ie_hist65536_tiles(", "\n}\n"), _BANDS_ENTRY),
-             ("kernels/_build.py", '"ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, '
-              '_I64, _I64, _P),', '"ie_hist65536_tiles": (_P, _P, _I64, _I64, _I64, _I32, _I32, '
-              '_I64, _I64, _I64, _I64, _I64, _I64, _I64, _P),'),
-             (_KP, "def hist65536_tiles(", _BANDS_PLAN + "def hist65536_tiles("),
-             (_KP, "out = torch.empty((B * gh * gw, 65536)", "out = torch.zeros((B * gh * gw, "
-              "65536)"),
-             (_KP, "gh, gw, th, tw)\n    return out", "gh, gw, th, tw, *hist65536_band_plan(B, gh, gw, "
-              "th, tw))\n    return out")], True, ROOT),
-        "stage A, 512 threads": ([_b16_const("kHist16Threads", 1024, 512)], True, ROOT),
-        "stage A, 1 load a group": ([_b16_const("kHist16Loads", 2, 1)], True, ROOT),
-        "stage A, 4 loads a group": ([_b16_const("kHist16Loads", 2, 4)], True, ROOT),
+                            "__fsub_rn(1.0f, fy);\n")], False),
+        # stage A's cluster (this tree: 2 blocks of 1024 threads a tile, one a SM)
+        "stage A, R = 4 (a quarter of the rows a block)": (_stage_a(4, 1024, 1), True),
+        "stage A, 512 threads": (_stage_a(2, 512, 1), True),
+        "stage A, 512 threads, 4 loads a group": (_stage_a(2, 512, 1)
+                                                   + [_b16_const("kHist16Loads", 2, 4)], True),
+        "stage A, value split (each pixel into its owner's counters, remote atomics)": (
+            [(_B16, _between(_B16, _STAGE_A_START, _STAGE_A_END), _VALUE_SPLIT)], True),
+        "stage A, constant-increment adds, 0 and 65535 in low halves": (
+            [(_B16, _ADD16, _ADD16_CONSTANT), (_B16, _MERGE16, _MERGE16_HALF16)], True),
+        "stage A, a vector of two values in two adds": ([(_B16, _VEC16, _VEC16_TWO)], True),
+        "stage A, 1 load a group": ([_b16_const("kHist16Loads", 2, 1)], True),
+        "stage A, 4 loads a group": ([_b16_const("kHist16Loads", 2, 4)], True),
         "stage A without the flat-vector atomic": (
             [(_B16, "if (v.x == b * 0x10001u && v.y == v.x && v.z == v.x && v.w == v.x) {",
-              "if (false) {")], True, ROOT),
+              "if (false) {")], True),
     }
-    if parent:
-        v["(a) the parent's gathers, rows of a column strip in turn"] = ([
-            (_B16, "const int xx = blockIdx.x * kThreads + threadIdx.x;",
-             "const int xx = blockIdx.y * kThreads + threadIdx.x;"),
-            (_B16, "  for (int64_t item = blockIdx.y; item < B * nbands; item += gridDim.y) {\n"
-             "    const int64_t b = item / nbands;\n    const int ya = int(item - b * nbands) * "
-             "kBlendRows;", "  for (int64_t item = blockIdx.x; item < B * nbands; item += "
-             "gridDim.x) {\n    const int64_t b = item / nbands;\n    const int ya = int(item - b "
-             "* nbands) * kBlendRows;"),
-            (_B16, "    const dim3 grid(unsigned((W + kThreads - 1) / kThreads),\n"
-             "                    unsigned(items < kMaxGridY ? items : kMaxGridY));\n"
-             "    clahe_blend_kernel<uint16_t",
-             "    const dim3 grid(unsigned(items), unsigned((W + kThreads - 1) / kThreads));\n"
-             "    clahe_blend_kernel<uint16_t")], True, parent)
-        v["(b) per-cell quad tables in device memory, one gather a pixel"] = ([
-            (_B16, "}  // namespace\n\nextern \"C\" {", _SCRATCH_KERNELS),
-            (_B16, _PARENT_U16_LAUNCH, _SCRATCH_LAUNCH)], True, parent)
-    return v
 
 
 # --- stage B at S = 65536 and K5's wide route (--ablut): copies of this tree
@@ -781,10 +776,12 @@ def _path_cases(np, torch, port) -> dict:
 
 
 def _u16_cases(np, torch, port) -> dict:
-    """``--u16``: u16 CLAHE's three stages and the whole clahe call on
+    """``--u16``: u16 CLAHE's stages and the whole clahe call on
     2x2160x3840 (grid 8x8), each on the planes of chip_smoke.py::u16_planes
     (numpy seed 63).  Stage A is the tree's own: hist65536_tiles where the
-    tree has it, else tile_hists_plain (the parent's route on the card)."""
+    tree has it, else tile_hists_plain (the parent's route on the card);
+    stages A and B are _stages_ab.  Then pooled equalizeHist
+    (``equalize_hist(x, per_frame=False)``) on 8x1080x1920 gray and RGB."""
     from chip_smoke import U16_PLANES, u16_planes
     from imageenhancement_mp_tpu_torch.kernels import clahe as kc
     from imageenhancement_mp_tpu_torch.ops import clahe as tc
@@ -793,6 +790,7 @@ def _u16_cases(np, torch, port) -> dict:
     rng = np.random.default_rng(63)
     geo = tc.tile_geometry(2160, 3840, (8, 8))
     stage_a = getattr(kc, "hist65536_tiles", kc.tile_hists_plain)
+    stages_ab = _stages_ab(kc, geo[2] * geo[3])
     tables = (*tc._coord_tables(2160, geo[2], 8, dev), *tc._coord_tables(3840, geo[3], 8, dev))
     cases = {}
     for kind in U16_PLANES[:4]:
@@ -800,9 +798,14 @@ def _u16_cases(np, torch, port) -> dict:
         h = stage_a(g, *geo)
         lut = kc.clahe_lut(h, geo[2] * geo[3], 2.0)
         cases[f"u16 stage A {kind}"] = lambda g=g: stage_a(g, *geo)
+        cases[f"u16 stages A+B {kind}"] = lambda g=g: stages_ab(g, *geo, 2.0)
         cases[f"clahe_blend u16 {kind}"] = lambda g=g, lut=lut: kc.clahe_blend(g, lut, 8, 8,
                                                                                *tables)
         cases[f"clahe u16 2x2160x3840 {kind}"] = lambda g=g: port.clahe(g, 2.0, (8, 8))
+    for shape in ((8, 1080, 1920), (8, 1080, 1920, 3)):
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        cases[f"pooled equalize_hist {'x'.join(map(str, shape))}"] = (
+            lambda x=x: port.equalize_hist(x, per_frame=False))
     return cases
 
 
@@ -902,10 +905,20 @@ def _host_us(torch, fn) -> float:
     return statistics.median(runs)
 
 
+def _stages_ab(kc, area: int):
+    """u16 stages A and B of a tree: its ``tile_luts65536``, or (a tree
+    without it) its ``hist65536_tiles`` then ``clahe_lut``."""
+    fused = getattr(kc, "tile_luts65536", None)
+    if fused is not None:
+        return fused
+    return lambda g, *geo: kc.clahe_lut(kc.hist65536_tiles(g, *geo[:4]), area, geo[4])
+
+
 def _u16_kernel_cases(np, torch) -> dict:
     """``--ab16``: name -> (kernel call, plain call) for u16 stage A (the
-    tree's own, as in _u16_cases) and the u16 blend on 2x2160x3840 (grid
-    8x8), on each kind of chip_smoke.py::u16_planes (numpy seed 65)."""
+    tree's own, as in _u16_cases), stages A and B (_stages_ab, clip 2.0)
+    and the u16 blend on 2x2160x3840 (grid 8x8), on each kind of
+    chip_smoke.py::u16_planes (numpy seed 65)."""
     from chip_smoke import U16_PLANES, u16_planes
     from imageenhancement_mp_tpu_torch.kernels import clahe as kc
     from imageenhancement_mp_tpu_torch.ops import clahe as tc
@@ -913,14 +926,19 @@ def _u16_kernel_cases(np, torch) -> dict:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(65)
     geo = tc.tile_geometry(2160, 3840, (8, 8))
+    area = geo[2] * geo[3]
     stage_a = getattr(kc, "hist65536_tiles", kc.tile_hists_plain)
+    stages_ab = _stages_ab(kc, area)
     tables = (*tc._coord_tables(2160, geo[2], 8, dev), *tc._coord_tables(3840, geo[3], 8, dev))
     cases = {}
     for kind in U16_PLANES:
         g = torch.from_numpy(u16_planes((2, 2160, 3840), kind, rng)).to(dev)
-        lut = kc.clahe_lut(kc.tile_hists_plain(g, *geo), geo[2] * geo[3], 2.0)
+        lut = kc.clahe_lut(kc.tile_hists_plain(g, *geo), area, 2.0)
         cases[f"u16 stage A {kind}"] = (lambda g=g: stage_a(g, *geo),
                                         lambda g=g: kc.tile_hists_plain(g, *geo))
+        cases[f"u16 stages A+B {kind}"] = (
+            lambda g=g: stages_ab(g, *geo, 2.0),
+            lambda g=g: kc.clahe_lut_plain(kc.tile_hists_plain(g, *geo), area, 2.0))
         cases[f"clahe_blend u16 {kind}"] = (
             lambda g=g, lut=lut: kc.clahe_blend(g, lut, 8, 8, *tables),
             lambda g=g, lut=lut: kc.clahe_blend_plain(g, lut, 8, 8, *tables))
@@ -987,7 +1005,8 @@ def profile(root: Path, label: str, smi: str, u16: bool) -> None:
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    paths = ({k: fn for k, fn in _u16_cases(np, torch, port).items() if k.startswith("clahe u16")}
+    paths = ({k: fn for k, fn in _u16_cases(np, torch, port).items()
+              if k.startswith(("clahe u16", "pooled"))}
              if u16 else _path_cases(np, torch, port))
     for name, fn in paths.items():
         for _ in range(3):
@@ -1025,9 +1044,10 @@ def profile(root: Path, label: str, smi: str, u16: bool) -> None:
 
 def sass(root: Path, label: str, u16: bool = False) -> None:
     """SASS opcode histogram of the two counting kernels (with ``u16``, of
-    hist65536_tiles and the u16 blend), and ptxas's registers and spills
-    for them."""
-    kernels = r"(hist65536_tiles_kernel|clahe_blend_u16_kernel\w*)" if u16 else r"(hist256\w*kernel)"
+    both instances of hist65536_tiles_kernel, stage B at S = 65536 and the
+    u16 blend), and ptxas's registers and spills for them."""
+    kernels = (r"(hist65536_tiles_kernel\w*|clahe_lut16_kernel|clahe_blend_u16_kernel\w*)" if u16
+               else r"(hist256\w*kernel)")
     sys.path.insert(0, str(root))
     from imageenhancement_mp_tpu_torch.kernels import _build
 
@@ -1126,13 +1146,16 @@ def main() -> None:
                     help="time this checkout against copies with one design choice changed each")
     ap.add_argument("--ab16", action="store_true",
                     help="time this checkout against copies with one u16 CLAHE design choice "
-                         "changed each (and, with --parent, two built on the parent)")
+                         "changed each, and the parent")
     ap.add_argument("--ablut", action="store_true",
                     help="time this checkout against copies with one choice of stage B at "
                          "S = 65536 or of K5's wide route changed each, and the parent")
     ap.add_argument("--abfold", action="store_true",
                     help="time the fused kernels and both paths in this checkout against copies "
                          "with one choice of the handoff changed each, and the parent")
+    ap.add_argument("--only", metavar="REGEX",
+                    help="with an A/B mode: only the copies whose label matches (this tree and "
+                         "the parent always run)")
     ap.add_argument("--turns", type=int, default=1,
                     help="rounds of parent, this, this, parent (each a process per tree)")
     ap.add_argument("--host", action="store_true",
@@ -1180,20 +1203,21 @@ def main() -> None:
             ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), True)
                                            for label, edits in LUT_AB_VARIANTS.items()]
         elif args.ab16:
-            ab = [("this", ROOT, True)] + [
-                (label, ab_tree(label, edits, src), keep)
-                for label, (edits, keep, src) in _ab16_variants(args.parent and
-                                                               args.parent.resolve()).items()]
+            ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), keep)
+                                           for label, (edits, keep) in _ab16_variants().items()]
         else:
             ab = [("this", ROOT, True)] + [(label, ab_tree(label, edits), keep)
                                            for label, (edits, keep) in AB_VARIANTS.items()]
+        if args.only:
+            ab = [t for t in ab if t[0] == "this" or re.search(args.only, t[0])]
         if args.parent:
             ab.append(("parent", args.parent.resolve(), True))
         builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
                                     "from imageenhancement_mp_tpu_torch.kernels import _build; "
                                     "_build.library()", str(root)]) for _, root, _ in ab]
         failed = [label for (label, _, _), b in zip(ab, builds) if b.wait()]
-        if failed and not args.abfold or "this" in failed or "parent" in failed:
+        tolerant = args.abfold or args.ab16  # an A/B copy may fail; this tree and the parent not
+        if failed and not tolerant or "this" in failed or "parent" in failed:
             raise SystemExit("torch_hist_profile: a build of the A/B trees failed")
         for label in failed:  # an A/B copy that does not build is reported, not timed
             print(f"  {label}: did not build")
@@ -1205,7 +1229,7 @@ def main() -> None:
                                    + ["--lut"] * args.ablut + ["--fold"] * args.abfold,
                                    capture_output=True, text=True)
             if child.returncode:
-                if not args.abfold or label in ("this", "parent"):
+                if not tolerant or label in ("this", "parent"):
                     raise SystemExit(f"torch_hist_profile: {label} failed:\n{child.stderr[-3000:]}")
                 print(f"  {label}: failed: {child.stderr.strip().splitlines()[-1:]}")
                 continue

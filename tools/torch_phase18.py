@@ -4,7 +4,9 @@ equalize_unsharp, configs 2, 3 and 5 at full width.  Each path's chain
 replayed as CUDA graphs is held to the eager chain on the card and to the
 CPU plain chain at 2x270x480, at 0; then time_op, time_op_chained, the
 back-to-back and sleep-paced event clocks, torch.profiler's kernel sum and
-the bytes bound on one line a path; Otsu must make time_op_chained raise.
+the bytes bound on one line a path; time_op on merge_mertens over a list of
+three 4K exposures and in a closure, each at least the call's device time;
+Otsu must make time_op_chained raise.
 
     python3 tools/torch_phase18.py              # on one GPU
     python3 tools/torch_phase18.py --rehearse   # on the CPU, small sizes
@@ -26,7 +28,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 SMALL = {"equalize_unsharp": (2, 54, 96), "config 2": (4, 54, 96, 3), "config 3": (2, 54, 96),
-         "config 5": (2, 108, 192), "small": (2, 27, 48)}
+         "config 5": (2, 108, 192), "small": (2, 27, 48), "bracket": (54, 96)}
 
 
 def rehearse() -> None:
