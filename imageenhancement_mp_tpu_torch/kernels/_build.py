@@ -8,7 +8,9 @@ builds anew and an unchanged one loads the library
 already built.  The sources export plain C functions; each takes device
 pointers and a stream as ``void*``, launches one kernel on that stream and
 returns the ``cudaError_t`` of ``cudaGetLastError()``.  :func:`launch`
-raises when that is not 0 and counts the launch in :data:`launch_counts`.
+raises when that is not 0 and counts the launch in :data:`launch_counts`;
+under a torch profiler each launch is an ``ie.launch.<name>`` span
+(``tracing.py``).
 
 Nothing here runs at import: the first CUDA tensor that reaches a kernel
 wrapper triggers the build.  A missing nvcc or a failed build raises with
@@ -27,6 +29,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from imageenhancement_mp_tpu_torch.tracing import span
 
 __all__ = ["NVCC_FLAGS", "library", "launch", "launch_counts", "reset_launch_counts"]
 
@@ -157,7 +161,7 @@ def launch(name: str, device: torch.device, *args) -> None:
     error, and count the launch.  ``args`` are the C entry point's arguments
     before the stream: tensor pointers as ``data_ptr()`` ints."""
     lib = library()
-    with torch.cuda.device(device):
+    with span("ie.launch." + name), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, "ie_" + name)(*args, stream)
     if err != 0:

@@ -16,6 +16,7 @@ from imageenhancement_mp_tpu_torch.kernels.hist import hist256_equalize_lut
 from imageenhancement_mp_tpu_torch.ops import OP_REGISTRY
 from imageenhancement_mp_tpu_torch.ops.filters import q8_taps
 from imageenhancement_mp_tpu_torch.parallel.mesh import Mesh, ShardedTensor, _split, run_sharded
+from imageenhancement_mp_tpu_torch.tracing import span
 from imageenhancement_mp_tpu_torch.utils.shapes import as_planes
 
 __all__ = ["OP_REGISTRY", "make_pipeline", "stream_frames", "equalize_unsharp"]
@@ -25,7 +26,8 @@ _DTYPES = (torch.uint8, torch.uint16, torch.int16, torch.float32)
 
 
 def _normalize_stages(stages: Sequence[Stage | str]) -> tuple:
-    """Validate and freeze stage specs: ``name`` or ``(name, kwargs)``."""
+    """Validate and freeze stage specs: ``name`` or ``(name, kwargs)``, as
+    ``(name, fn, kwargs)``."""
     norm = []
     for s in stages:
         name, kwargs = (s, {}) if isinstance(s, str) else s
@@ -33,7 +35,7 @@ def _normalize_stages(stages: Sequence[Stage | str]) -> tuple:
         kwargs = dict(kwargs)
         if "backend" in kwargs:
             raise TypeError(f"stage {name!r}: the port's ops take no 'backend' argument")
-        norm.append((fn, kwargs))
+        norm.append((name, fn, kwargs))
     return tuple(norm)
 
 
@@ -88,7 +90,9 @@ def make_pipeline(stages: Sequence[Stage | str], channels_last: bool = True, mes
         out = pipe(batch_u8)
 
     The stages run one after another on the input's device, each through
-    its kernels on CUDA.
+    its kernels on CUDA.  Under a torch profiler a call is one ``ie.pipeline``
+    span holding ``ie.layout`` (planes in), one ``ie.op.<name>`` a stage and
+    ``ie.layout`` (planes out) (``tracing.py``).
 
     **A mesh** (``parallel/mesh.py``): the same stages run once per shard,
     each shard's part on its device —
@@ -110,15 +114,19 @@ def make_pipeline(stages: Sequence[Stage | str], channels_last: bool = True, mes
     unsharded one bit for bit.
     """
     if mesh is None:
-        chain = _normalize_stages(stages)
+        chain = [(f"ie.op.{name}", fn, kwargs) for name, fn, kwargs in _normalize_stages(stages)]
 
         def run(img: torch.Tensor) -> torch.Tensor:
             if img.dtype not in _DTYPES:
                 raise TypeError(f"expected uint8/uint16/int16/float32 image tensor, got {img.dtype}")
-            planes, restore = as_planes(img, channels_last=channels_last)
-            for fn, kwargs in chain:
-                planes = fn(planes, **kwargs)
-            return restore(planes)
+            with span("ie.pipeline"):
+                with span("ie.layout"):
+                    planes, restore = as_planes(img, channels_last=channels_last)
+                for stage, fn, kwargs in chain:
+                    with span(stage):
+                        planes = fn(planes, **kwargs)
+                with span("ie.layout"):
+                    return restore(planes)
 
         return run
     if not isinstance(mesh, Mesh):
@@ -138,7 +146,7 @@ def make_pipeline(stages: Sequence[Stage | str], channels_last: bool = True, mes
         norm = _normalize_stages(stages)
 
         def local(planes: torch.Tensor) -> torch.Tensor:
-            for fn, kwargs in norm:
+            for _, fn, kwargs in norm:
                 planes = fn(planes, **kwargs)
             return planes
 
@@ -290,12 +298,22 @@ def equalize_unsharp(img: torch.Tensor, amount: float = 1.0, ksize: int = 5,
     builds each plane's equalize LUT from its finished counts, then ONE conv
     pass that applies each plane's LUT as it loads the pixels, runs the
     Gaussian and writes the unsharp epilogue — two reads of the image and
-    one write.  Any odd ``ksize``, including 1.
+    one write.  Any odd ``ksize``, including 1.  Under a torch profiler a
+    call is one ``ie.equalize_unsharp`` span holding ``ie.layout`` (planes
+    in, and the copy of HWC planes), ``ie.op.equalize_hist``,
+    ``ie.op.unsharp_mask`` and ``ie.layout`` (planes out); the taps, which
+    check ``ksize`` before any kernel launch, lie between the first two.
     """
     if img.dtype != torch.uint8:
         raise TypeError(f"expected uint8 image tensor, got {img.dtype}")
-    planes, restore = as_planes(img)
-    planes = planes.contiguous()
-    tv, th = q8_taps(int(ksize), float(sigma))
-    luts = hist256_equalize_lut(planes)
-    return restore(sep_conv_u8(planes, tv, th, float(amount), luts=luts))
+    with span("ie.equalize_unsharp"):
+        with span("ie.layout"):
+            planes, restore = as_planes(img)
+            planes = planes.contiguous()
+        tv, th = q8_taps(int(ksize), float(sigma))
+        with span("ie.op.equalize_hist"):
+            luts = hist256_equalize_lut(planes)
+        with span("ie.op.unsharp_mask"):
+            out = sep_conv_u8(planes, tv, th, float(amount), luts=luts)
+        with span("ie.layout"):
+            return restore(out)

@@ -1,0 +1,12 @@
+"""The ``clahe`` stage's share of its bytes roofline: each input byte read
+once and each output byte written once (the stage keeps the call's plane
+shape and dtype), over the device time of the operations launched inside
+``ie.op.clahe`` a traced call.  The tile LUTs are intermediates and are not
+counted."""
+
+from portbench.spans import stage_roofline
+
+
+def read(record: dict) -> float | None:
+    return stage_roofline(record, "ie.op.clahe",
+                          record["input_bytes"] + record["output_bytes"])
